@@ -1,9 +1,10 @@
-"""Carry weights from the JAX package into the port.
+"""Carry weights and optimizer state from the JAX package into the port.
 
 ``state_from_paddle_tpu`` turns a ``paddle_tpu`` model's ``state_dict()`` —
 as ``{name: numpy array}``, or the path of a ``paddle_tpu.framework.save``
 pickle of it — into ``{name: torch.Tensor}`` named like the port's modules;
 ``load_paddle_tpu_state`` checks it against a port model and copies it in.
+``optimizer_state_from_paddle_tpu`` does the same for an Adam/AdamW state.
 
 Name mapping: the reference's layer names are the port's module names, so
 names map one to one; a ``gpt.`` prefix (the reference's
@@ -91,3 +92,52 @@ def load_paddle_tpu_state(model, np_state):
     :func:`state_from_paddle_tpu`); returns ``model``."""
     model.load_state_dict(state_from_paddle_tpu(np_state, model), strict=True)
     return model
+
+
+def optimizer_state_from_paddle_tpu(np_opt_state, optimizer, model):
+    """A state dict for ``optimizer.set_state_dict`` from a reference Adam or
+    AdamW ``state_dict()`` (slots as arrays or tensor-likes).
+
+    Slot ``"<acc>/p<i>"`` belongs to parameter ``i`` of ``optimizer``, which
+    must list ``model``'s parameters in the reference's order. Every
+    parameter needs ``moment1`` and ``moment2``, and ``master_weight`` when
+    the optimizer keeps one for it (``multi_precision`` and a non-float32
+    parameter). Slots of a Linear weight are transposed from ``[in, out]``
+    to ``[out, in]`` as the weight itself is; ``model`` says which
+    parameters those are, since a square weight cannot be told by its
+    shape. ``_opt_step`` and ``LR_Scheduler`` are carried as they are.
+    Raises ``KeyError`` for a missing or an extra slot and ``ValueError``
+    for a mis-shaped one."""
+    params = optimizer._parameter_list
+    linear = {id(mod.weight) for mod in model.modules()
+              if isinstance(mod, nn.Linear)}
+    want = {}
+    for i, p in enumerate(params):
+        names = ["moment1", "moment2"]
+        if optimizer._uses_master(p):
+            names.append("master_weight")
+        want.update({f"{n}/p{i}": i for n in names})
+    given = {k for k in np_opt_state if k not in ("_opt_step",
+                                                   "LR_Scheduler")}
+    missing, extra = sorted(set(want) - given), sorted(given - set(want))
+    if missing or extra:
+        raise KeyError(f"optimizer state does not match: missing "
+                       f"{missing[:5]}{' ...' if len(missing) > 5 else ''}, "
+                       f"extra {extra[:5]}{' ...' if len(extra) > 5 else ''}")
+    out = {"_opt_step": int(np_opt_state.get("_opt_step", 0))}
+    if "LR_Scheduler" in np_opt_state:
+        out["LR_Scheduler"] = dict(np_opt_state["LR_Scheduler"])
+    for key, i in want.items():
+        p = params[i]
+        arr = _leaf(np_opt_state[key])
+        if id(p) in linear:
+            arr = arr.T
+        if tuple(arr.shape) != tuple(p.shape):
+            raise ValueError(f"shape mismatch for slot {key!r}: parameter "
+                             f"{i} is {tuple(p.shape)}, state gives "
+                             f"{tuple(arr.shape)}"
+                             + (" (after the [in, out] -> [out, in] "
+                                "transpose)" if id(p) in linear else ""))
+        out[key] = torch.from_numpy(np.array(arr, np.float32, order="C")).to(
+            p.device)
+    return out

@@ -1,5 +1,7 @@
 """GPT model family (counterpart of paddle_tpu/models/gpt.py): the dense
-trunk, its cache-less causal forward and its paged-KV-cache forward.
+trunk, its cache-less causal forward (the pretraining path, through the
+flash-attention kernels), its paged-KV-cache forward, and the pretraining
+criterion.
 
 Submodule names match the reference one to one (``embeddings.
 word_embeddings``, ``blocks.<i>.attn.qkv_proj``, ``blocks.<i>.mlp.fc1``,
@@ -22,9 +24,11 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import attention
+from ..ops.attention import attention, scaled_dot_product_attention
+from ..ops.flash_attention import select_flash_kernel
 from ..ops.paged_attention import (paged_attention, paged_attention_ref,
                                    paged_view, position_mask)
 
@@ -46,7 +50,8 @@ class GPTConfig:
     }
 
     def __init__(self, vocab_size=50304, n_layer=12, n_head=12, d_model=768,
-                 seq_len=1024, d_ff=None, dropout=0.0, dtype="float32",
+                 seq_len=1024, d_ff=None, dropout=0.0, attn_dropout=0.0,
+                 dtype="float32", use_recompute=False, recompute_policy=None,
                  initializer_range=0.02, moe_num_experts=0):
         self.vocab_size = vocab_size
         self.n_layer = n_layer
@@ -55,7 +60,14 @@ class GPTConfig:
         self.seq_len = seq_len
         self.d_ff = d_ff or 4 * d_model
         self.dropout = dropout
+        self.attn_dropout = attn_dropout
         self.dtype = dtype
+        # use_recompute recomputes each block's forward in the backward
+        # when training; only recompute_policy=None (save nothing, the
+        # reference's full remat) is ported, a named policy is refused
+        # when a model is built from this config
+        self.use_recompute = use_recompute
+        self.recompute_policy = recompute_policy
         self.initializer_range = initializer_range
         # the port has the dense trunk only so far; an MoE preset is
         # refused when a model is built from it
@@ -100,7 +112,10 @@ def paged_write_rows(cache_offsets, seq_lens, block_tables, block_size, T):
 
 
 class GPTAttention(nn.Module):
-    """Causal self-attention with a fused QKV projection."""
+    """Causal self-attention with a fused QKV projection. ``kernel`` is the
+    cache-less forward's attention route ("cuda" | "torch") and
+    ``generator`` the source of its dropout masks; :class:`GPTModel` sets
+    both."""
 
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -109,6 +124,9 @@ class GPTAttention(nn.Module):
         self.head_dim = d // h
         self.qkv_proj = nn.Linear(d, 3 * d)
         self.out_proj = nn.Linear(d, d)
+        self.dropout_p = cfg.attn_dropout
+        self.kernel = "torch"
+        self.generator = None
 
     def forward(self, x, cache=None, paged=None):
         """Cache-less causal attention, or (with ``cache=(k_pool, v_pool)``
@@ -117,7 +135,10 @@ class GPTAttention(nn.Module):
         qkv = self.qkv_proj(x).view(B, T, 3, self.n_head, self.head_dim)
         q, k, v = qkv.unbind(2)
         if cache is None:
-            out = attention(q, k, v, causal=True)
+            out = scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout_p,
+                training=self.training, generator=self.generator,
+                kernel=self.kernel)
             return self.out_proj(out.reshape(B, T, D))
         block_tables, seq_lens, offsets, write_rows, kernel = paged
         k_pool, v_pool = cache
@@ -163,10 +184,42 @@ class GPTBlock(nn.Module):
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=1e-5)
         self.mlp = GPTMLP(cfg)
         self.dropout = nn.Dropout(cfg.dropout)
+        self.recompute = cfg.use_recompute
 
-    def forward(self, x, cache=None, paged=None):
+    def _forward(self, x, cache=None, paged=None):
         x = x + self.dropout(self.attn(self.ln1(x), cache=cache, paged=paged))
         return x + self.mlp(self.ln2(x))
+
+    def forward(self, x, cache=None, paged=None):
+        if cache is None and self.recompute and self.training:
+            return self._recomputed(x)
+        return self._forward(x, cache=cache, paged=paged)
+
+    def _recomputed(self, x):
+        """The block under ``torch.utils.checkpoint``: its activations are
+        dropped after the forward and recomputed in the backward. The
+        checkpoint replays torch's default generators itself; the
+        attention's own generator is rewound here, so the recomputation
+        draws the same dropout masks, and then put back where the forward
+        left it."""
+        gen = self.attn.generator
+        if gen is None or self.attn.dropout_p == 0.0:
+            return checkpoint(self._forward, x, use_reentrant=False)
+        start = gen.get_state()
+        ran = []
+
+        def run(h):
+            if not ran:
+                ran.append(True)
+                return self._forward(h)
+            resume = gen.get_state()
+            gen.set_state(start)
+            try:
+                return self._forward(h)
+            finally:
+                gen.set_state(resume)
+
+        return checkpoint(run, x, use_reentrant=False)
 
 
 class GPTEmbeddings(nn.Module):
@@ -191,16 +244,32 @@ class GPTModel(nn.Module):
     model's device) or, when it is None, from torch's default generator:
     Normal(0, initializer_range) for embeddings and Linear weights, scaled
     by 1/sqrt(2*n_layer) for the two residual-output projections, zero
-    biases, unit LayerNorm scales — the reference's initializers."""
+    biases, unit LayerNorm scales — the reference's initializers. The
+    attention dropout draws from the same generator.
 
-    def __init__(self, cfg: GPTConfig, device=None, generator=None):
+    ``attn_kernel`` picks the cache-less forward's attention route once
+    (:func:`~paddle_tpu_torch.ops.flash_attention.select_flash_kernel`):
+    None resolves to "cuda" (the flash kernels) on a CUDA device and
+    "torch" (plain attention) on the CPU; the choice is ``self.attn_kernel``.
+    """
+
+    def __init__(self, cfg: GPTConfig, device=None, generator=None,
+                 attn_kernel=None):
         super().__init__()
         if cfg.moe_num_experts:
             raise NotImplementedError(
                 "paddle_tpu_torch has the dense GPT trunk only; MoE blocks "
                 f"(moe_num_experts={cfg.moe_num_experts}) are not ported yet")
+        if cfg.recompute_policy is not None:
+            raise NotImplementedError(
+                f"recompute_policy={cfg.recompute_policy!r}: only full "
+                "recompute (recompute_policy=None) is ported; the named "
+                "policies are not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
+        self.attn_kernel = select_flash_kernel(
+            attn_kernel, device=dev, head_dim=cfg.d_model // cfg.n_head,
+            dtype=cfg.torch_dtype)
         with torch.device("meta"):
             self.embeddings = GPTEmbeddings(cfg)
             self.blocks = nn.ModuleList([GPTBlock(cfg)
@@ -209,6 +278,9 @@ class GPTModel(nn.Module):
         self.to_empty(device=dev)
         self._init_weights(generator)
         self.to(cfg.torch_dtype)
+        for blk in self.blocks:
+            blk.attn.kernel = self.attn_kernel
+            blk.attn.generator = generator
 
     @torch.no_grad()
     def _init_weights(self, generator):
@@ -272,3 +344,17 @@ class GPTForPretraining(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         return self.lm_logits(self.gpt(input_ids, position_ids))
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Mean next-token cross-entropy: ``-log_softmax(logits)[label]`` in the
+    logits' dtype, averaged over every position, or over the positions
+    ``loss_mask`` keeps (its sum clipped at 1), as in the reference."""
+
+    def forward(self, logits, labels, loss_mask=None):
+        logp = torch.log_softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
+        loss = -logp.gather(1, labels.reshape(-1, 1).long()).squeeze(1)
+        if loss_mask is not None:
+            m = loss_mask.reshape(-1).to(loss.dtype)
+            return (loss * m).sum() / m.sum().clamp(min=1.0)
+        return loss.mean()

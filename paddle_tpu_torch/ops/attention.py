@@ -1,9 +1,12 @@
-"""Plain masked attention (counterpart of ``pallas_ops._attention_xla``).
+"""Attention entry points (counterparts of ``pallas_ops._attention_xla`` and
+``nn_ops.scaled_dot_product_attention``).
 
-The reference runs this outside any Pallas kernel: it is what serving
-prefill (masked, over the paged view) and the cache-less forward (causal)
-compute off the flash path. Layout ``[batch, seq, heads, head_dim]`` as in
-the reference.
+:func:`attention` is plain masked attention, which the reference runs
+outside any Pallas kernel: serving prefill computes it over the paged view,
+and every call the flash kernels cannot take falls back to it.
+:func:`scaled_dot_product_attention` is what the model's cache-less
+forward calls: the flash dispatcher, then dropout on the output. Layout
+``[batch, seq, heads, head_dim]`` as in the reference.
 """
 from __future__ import annotations
 
@@ -31,3 +34,27 @@ def attention(q, k, v, mask=None, causal=False, scale=None):
             logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bnqk,bknh->bqnh", probs, v)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, generator=None, kernel=None):
+    """Attention through ``flash_attention.flash_attention`` (``kernel``
+    picks its route), then, when training with ``dropout_p > 0``, dropout
+    on the attention OUTPUT as in the reference, so the kernels carry no
+    dropout. The keep-mask is drawn from ``generator`` (a
+    ``torch.Generator`` on the output's device; None draws from torch's
+    default generator) and kept values are scaled by ``1 / (1 -
+    dropout_p)``."""
+    # imported here: flash_attention imports this module's attention()
+    from .flash_attention import flash_attention
+
+    out = flash_attention(query, key, value, mask=attn_mask,
+                          causal=is_causal, kernel=kernel)
+    if dropout_p > 0.0 and training:
+        keep = torch.rand(out.shape, generator=generator,
+                          device=out.device) >= dropout_p
+        out = torch.where(keep, out / (1.0 - dropout_p),
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device))
+    return out

@@ -181,7 +181,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
 def launches():
     """``{"paged_attention": kernel launches, "paged_attention_ref": plain
     calls}`` since the last ``registry.reset("kernels")``."""
-    return dict(_counters)
+    return {k: _counters[k] for k in ("paged_attention",
+                                      "paged_attention_ref")}
 
 
 def select_paged_kernel(requested=None, *, device, head_dim, dtype):

@@ -70,6 +70,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         GenerationServer(model)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         resolve_device("cuda")
+    # the training path: the model defaults to CUDA with or without a
+    # requested attention route; the kernels' route refuses CPU tensors
+    from paddle_tpu_torch.ops.flash_attention import (flash_attention,
+                                                      select_flash_kernel)
+
+    train_cfg = GPTConfig.preset("gpt2-tiny", vocab_size=96, n_head=2,
+                                 use_recompute=True)
+    for kernel in (None, "cuda"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            GPTModel(train_cfg, attn_kernel=kernel)
+    with pytest.raises(ValueError, match="CUDA device"):
+        GPTModel(train_cfg, device="cpu", attn_kernel="cuda")
+    with pytest.raises(ValueError, match="CUDA device"):
+        select_flash_kernel("cuda", device="cpu", head_dim=64,
+                            dtype=torch.float32)
+    q = torch.zeros(1, 128, 2, 64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention(q, q, q, causal=True, kernel="cuda")
 
 
 def test_kernel_choice_never_demotes_quietly():
