@@ -7,7 +7,9 @@ toolkit:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero:
  1. device   the card's name and power limit (nvidia-smi), torch and CUDA
              versions;
- 2. build    every CUDA source of the port with nvcc (sm_90a), timed;
+ 2. build    every CUDA source of the port with nvcc (sm_90a), timed; the
+             registers, spill stores and shared memory of every flash
+             kernel instance;
  3. kernels  each kernel's wrapper against its plain PyTorch version on the
              card at the serving path's shapes, held to the stated
              tolerance; kernel, plain version and one library call timed
@@ -25,7 +27,9 @@ Phases, in order; any failure exits non-zero:
              as the model hands them over, and at the training step's shape
              (batch 4 x 32 heads, seq_len 2048, head_dim 64, bf16, causal);
              every output held elementwise and, block by block, relative to
-             the plain version's norm; then each timed at the step's shape
+             the plain version's norm; each launched twice on the same
+             inputs at the step's shape and at bf16 H=128, T=2048, the
+             outputs bitwise equal; then each timed at the step's shape
              beside its plain version, one library call and its bound;
  7. training gpt3-1.3B in bf16 (full width and depth, random weights from
              a seed) trains through TrainStep + AdamW with master weights,
@@ -46,7 +50,9 @@ the repository beside it, it prints no result and exits 2.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +74,24 @@ FLASH_KERNELS = {
     "flash_fwd": ("paddle_tpu/ops/pallas_ops.py:93", 2),      # K1
     "flash_bwd_dq": ("paddle_tpu/ops/pallas_ops.py:137", 3),  # K2
     "flash_bwd_dkv": ("paddle_tpu/ops/pallas_ops.py:172", 4),  # K3
+}
+_WMMA = ("WMMA m16n16k16 through shared memory, accumulators in shared "
+         "memory, 128 threads, 64-row tiles")
+DESIGNS = {
+    "paged_attention": "one block per (head, slot) over its live keys, "
+                       "16-byte loads, online softmax in registers",
+    "flash_fwd": "bf16 at H=64/128: warp-specialised, TMA producer "
+                 "(setmaxnreg 40/232) into a 3-stage (H=64) or 2-stage "
+                 "(H=128) mbarrier ring of 128-key K/V tiles, two consumer "
+                 "warpgroups of 64 query rows on wgmma with register "
+                 "accumulators; float32 and bf16 at H=96/256: " + _WMMA,
+    "flash_bwd_dq": "every dtype and H: " + _WMMA,
+    "flash_bwd_dkv": "bf16 at H=64/128: warp-specialised, TMA producer "
+                     "(setmaxnreg 24/232) into a 3-stage mbarrier ring of "
+                     "Q/dO/lse/delta tiles, 64 keys resident per block, one "
+                     "consumer warpgroup on wgmma with register "
+                     "accumulators, 2 blocks per SM; float32 and bf16 at "
+                     "H=96/256: " + _WMMA,
 }
 
 
@@ -201,7 +225,8 @@ def phase_kernels(dev):
                           for k, v in pa.PAGED_PARITY_TOL.items()},
             "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "bound_share": bound_ms / min(ms, ms2),
+            "design": DESIGNS["paged_attention"], "library_ms": library_ms}
 
 
 # ------------------------------------------------------- flash kernels --
@@ -303,6 +328,39 @@ def flash_bound(name, q, causal):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# shapes of the run-to-run check: the training step's, and bf16 at H=128
+REPEAT_SHAPES = (STEP_SHAPE, (2, 2048, 8, 128))
+
+
+def flash_repeat_check(dev, B, T, N, H, seed=11):
+    """Launch K1, K2 and K3 twice each on the same bf16 causal inputs (unbind
+    views) and raise unless both launches give bitwise-equal outputs: a
+    ring stage read after the producer overwrote it shows up as a
+    run-to-run difference that a tolerance could hide. The kernels sum in
+    a fixed order and use no atomics, so equal inputs give equal bits."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = flash_case(dev, torch.bfloat16, B, T, N, H, seed,
+                             strided=True)
+    fwd = [fa.flash_fwd(q, k, v, True) for _ in range(2)]
+    lse = fwd[0][1]
+    delta = fa.flash_delta(fwd[0][0], do)
+    dq = [fa.flash_bwd_dq(q, k, v, do, lse, delta, True) for _ in range(2)]
+    dkv = [fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    pairs = {"flash_fwd out": (fwd[0][0], fwd[1][0]),
+             "flash_fwd lse": (fwd[0][1], fwd[1][1]),
+             "flash_bwd_dq dq": tuple(dq),
+             "flash_bwd_dkv dk": (dkv[0][0], dkv[1][0]),
+             "flash_bwd_dkv dv": (dkv[0][1], dkv[1][1])}
+    for name, (a, b) in pairs.items():
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{name} bf16 B*N={B * N} T={T} H={H}: two launches on the "
+                f"same inputs differ in {int((a != b).sum())} elements")
+
+
 def phase_flash_kernels(dev):
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -346,6 +404,11 @@ def phase_flash_kernels(dev):
         f"(bound {fa.FLASH_PARITY_REL}); at the step's shape "
         + ", ".join(f"{k} {e:.3e} / {r:.3e}" for k, (e, _, r)
                     in res.items() if r is not None))
+
+    for shape in REPEAT_SHAPES:
+        flash_repeat_check(dev, *shape)
+    log(f"kernels (training): K1-K3 repeat bitwise on the same inputs, bf16 "
+        f"causal, [B, T, N, H] in {REPEAT_SHAPES}")
 
     out, lse = fa.flash_fwd(q, k, v, True)
     delta = fa.flash_delta(out, do)
@@ -391,6 +454,7 @@ def phase_flash_kernels(dev):
                           for d, t in fa.FLASH_PARITY_REL.items()},
             "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / min(ms, ms2), "design": DESIGNS[name],
             "library_ms": lib_ms,
             "library_call": "scaled_dot_product_attention(is_causal=True) "
             + ("forward" if name == "flash_fwd"
@@ -748,6 +812,45 @@ def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
 
 
 # ------------------------------------------------------------------ main --
+_ENTRY = re.compile(r"Compiling entry function '\S*?\d"
+                    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel(?:_sm90)?)"
+                    r"I(13__nv_bfloat16|f)?Li(\d+)E")
+
+
+def flash_instances(lib_path):
+    """Every flash kernel instance in the library's ``-Xptxas -v`` log:
+    ``[{"kernel", "dtype", "H", "registers", "spill_stores",
+    "smem_bytes"}]``. ``registers`` is the count at launch (the Hopper
+    design's warpgroups then move to their setmaxnreg budgets);
+    ``smem_bytes`` is the dynamic shared memory its launch requests, which
+    ptxas does not see."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.flash_attention_smem.restype = ctypes.c_int
+    kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+    out, cur, spill = [], None, None
+    for line in Path(f"{lib_path}.log").read_text().splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            dtype = "float32" if m.group(2) == "f" else "bf16"
+            cur, spill = (m.group(1), dtype, int(m.group(3))), None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            name, dtype, H = cur
+            out.append({"kernel": name, "dtype": dtype, "H": H,
+                        "registers": int(m.group(1)), "spill_stores": spill,
+                        "smem_bytes": lib.flash_attention_smem(
+                            kinds[name.split("_kernel")[0]],
+                            int(dtype == "bf16"), H)})
+            cur = None
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -770,10 +873,14 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for name, so in libs.items():
-        for line in so.with_suffix(".so.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+    for line in libs["paged_attention"].with_suffix(
+            ".so.log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"build: paged_attention: {line.strip()}")
+    for r in flash_instances(libs["flash_attention"]):
+        log(f"build: {r['kernel']} {r['dtype']} H={r['H']}: "
+            f"{r['registers']} registers, {r['spill_stores']} bytes spill "
+            f"stores, {r['smem_bytes']} bytes shared memory")
 
     kernel = phase_kernels(dev)
     served = phase_serving(dev)

@@ -1,10 +1,11 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles on its own into
-``<repo>/build/<name>-<hash>.so``, where the hash covers the source and
-the flags, so an edited kernel rebuilds and an unchanged one loads the
-library already built. Libraries expose a plain ``extern "C"`` launcher;
-no PyTorch header is compiled, which keeps a build to seconds.
+``<repo>/build/<name>-<hash>.so``, where the hash covers the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edited kernel or
+header rebuilds and an unchanged one loads the library already built.
+Libraries expose a plain ``extern "C"`` launcher; no PyTorch header is
+compiled, which keeps a build to seconds.
 
 A missing ``nvcc`` or a failed compile raises: there is no fallback.
 """
@@ -52,8 +53,12 @@ def nvcc():
 
 
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """``build/<name>-<hash>.so``; the hash covers the source, every header
+    beside it (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

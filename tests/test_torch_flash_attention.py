@@ -20,6 +20,7 @@ from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from paddle_tpu.ops import pallas_ops  # noqa: E402
 from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
+from paddle_tpu_torch.ops import _build  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.profiler import explainer, registry  # noqa: E402
 
@@ -157,19 +158,22 @@ def _bf16_forward(q, k, v, drop_key_tile=None, tile=64):
     return (out / p.sum(-1).transpose(1, 2).unsqueeze(-1)).bfloat16()
 
 
-def test_bf16_relative_bound_separates_rounding_from_a_dropped_key_tile():
+@pytest.mark.parametrize("tile,drop", [(64, 30), (128, 14)])
+def test_bf16_relative_bound_separates_rounding_from_a_dropped_key_tile(
+        tile, drop):
     # FLASH_PARITY_REL's bf16 bound against what it must tell apart, at
     # the training step's seq_len: the kernel's own rounding stays well
-    # inside it, and one tile of 64 keys dropped late in every row (seen
-    # only by rows past 1920) lands far outside
+    # inside it, and one key tile dropped late in every row lands far
+    # outside. Tiles of 64 keys are the WMMA design's (tile 30: rows past
+    # 1920 see it), of 128 the Hopper design's K1 (tile 14: rows past 1792)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 2048, 2, 64, generator=g).bfloat16()
                for _ in range(3))
     ref, _ = fa.flash_fwd_ref(q, k, v, causal=True)
     bound = fa.FLASH_PARITY_REL[torch.bfloat16]
     assert fa.flash_rel_err(_bf16_forward(q, k, v), ref) < bound / 2
-    assert fa.flash_rel_err(_bf16_forward(q, k, v, drop_key_tile=30),
-                            ref) > 5 * bound
+    assert fa.flash_rel_err(_bf16_forward(q, k, v, drop_key_tile=drop,
+                                          tile=tile), ref) > 5 * bound
     assert fa.flash_rel_err(ref, ref) == 0.0
 
 
@@ -225,3 +229,16 @@ def test_fallback_on_the_cuda_route_records_its_reason(monkeypatch):
     ev = explainer.events(kind="kernel_fallback")[-1]
     assert ev["op"] == "flash_attention"
     assert "seq_len 96 not a multiple of 128" in ev["why"]
+
+
+def test_library_hash_covers_the_headers(tmp_path, monkeypatch):
+    # the Hopper kernels' PTX wrappers live in csrc/hopper.cuh: an edited
+    # header must give the library that includes it a new name, so it
+    # rebuilds instead of loading the stale one
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path("k")
+    assert before.name.startswith("k-") and before.suffix == ".so"
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert _build.library_path("k") != before

@@ -7,8 +7,9 @@ Run on a machine with one NVIDIA GPU and nvcc, from the repository root:
     python3 tools/flash_mutation_check.py [--only NAME ...]
 
 Each mutant below is one edit of ``paddle_tpu_torch/csrc/flash_attention.cu``
-that breaks the kernels in bf16 only, where their products run on the tensor
-cores. For each, the tool copies ``paddle_tpu_torch/`` into
+that breaks the kernels in bf16 only: the K1 and K3 mutants edit the Hopper
+design, which only bf16 takes, and the K2 mutant the WMMA design's bf16
+branch. For each, the tool copies ``paddle_tpu_torch/`` into
 ``build/mutants/<name>/`` (the copy builds its own library under that
 directory), applies the edit there and runs, in a child process against the
 copy, the checks of ``chip_smoke.py``:
@@ -40,19 +41,23 @@ IS_BF16 = "!std::is_same<T, float>::value"
 MUTANTS = {
     "none": ("the source as committed", None, None),
     "k1_late_key_tile": (
-        "K1 skips key tile 30 of every query row: only rows past 30 tiles "
-        "see it, so only T = 2048",
-        "  for (int j = 0; j < hi; ++j) {\n"
-        "    __syncthreads();  // the last step's readers",
-        "  for (int j = 0; j < hi; ++j) {\n"
-        f"    if ({IS_BF16} && j == 30) continue;\n"
-        "    __syncthreads();  // the last step's readers"),
+        "K1 (Hopper design) drops key tile 14 (keys 1792-1919) from every "
+        "query row: only rows past 1791 see it, so only T = 2048",
+        "      fence_regs(sc);\n\n      // the mask, only on tiles",
+        "      fence_regs(sc);\n"
+        "      if (j == 14)\n"
+        "#pragma unroll\n"
+        "        for (int e = 0; e < BN / 2; ++e) sc[e] = -INFINITY;\n\n"
+        "      // the mask, only on tiles"),
     "k3_late_query_tile": (
-        "K3 skips query tile 30 of every key tile's loop: dK and dV lose "
-        "one tile of query rows, only at T = 2048",
-        "  for (int i = lo; i < n_tiles; ++i) {\n",
-        "  for (int i = lo; i < n_tiles; ++i) {\n"
-        f"    if ({IS_BF16} && i == 30) continue;\n"),
+        "K3 (Hopper design) drops query tile 30 from every key tile's loop: "
+        "dK and dV lose one tile of query rows, only at T = 2048",
+        "      fence_regs(dpt);\n\n      // P^T = exp(scale s - lse)",
+        "      fence_regs(dpt);\n"
+        "      if (i == 30)\n"
+        "#pragma unroll\n"
+        "        for (int e = 0; e < BQ / 2; ++e) st[e] = -INFINITY;\n\n"
+        "      // P^T = exp(scale s - lse)"),
     "k2_short_fragment": (
         "K2's dS.K product stops 16 keys short of each tile (one WMMA "
         "k-step missing)",
