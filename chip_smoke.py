@@ -8,12 +8,18 @@ Phases, in order; any failure exits non-zero:
  1. device   the card's name and power limit (nvidia-smi), torch and CUDA
              versions;
  2. build    every CUDA source of the port with nvcc (sm_90a), timed; the
-             registers, spill stores and shared memory of every flash
-             kernel instance;
- 3. kernels  each kernel's wrapper against its plain PyTorch version on the
-             card at the serving path's shapes, held to the stated
-             tolerance; kernel, plain version and one library call timed
-             with CUDA events, beside the least time the card could take;
+             registers, spill stores and shared memory of every kernel
+             instance;
+ 3. kernels  the paged kernel K4 against its plain PyTorch version on the
+             card, float32 and bf16, head_dim 64 and 128, decode and a
+             4-row verify span, over ragged live lengths and lengths on the
+             edges of its split chunk, held elementwise to the stated
+             tolerance and, per (slot, head), relative to the plain
+             version computed in float32; then at two decode shapes (8
+             slots x 1024 live rows, 2 slots x 2048) launched twice for
+             bitwise-equal outputs, and the kernel (with L2 cold), its
+             plain version and one library call timed with CUDA events,
+             beside the least time the card could take;
  4. serving  gpt3-1.3B in bf16 (full width and depth, random weights from a
              seed) behind GenerationServer answers 16 requests; the decode
              path must launch the paged kernel once per layer per decode
@@ -29,8 +35,9 @@ Phases, in order; any failure exits non-zero:
              every output held elementwise and, block by block, relative to
              the plain version's norm; each launched twice on the same
              inputs at the step's shape and at bf16 H=128, T=2048, the
-             outputs bitwise equal; then each timed at the step's shape
-             beside its plain version, one library call and its bound;
+             outputs bitwise equal (K1, K2 and K3); then each timed at the
+             step's shape beside its plain version, one library call and
+             its bound;
  7. training gpt3-1.3B in bf16 (full width and depth, random weights from
              a seed) trains through TrainStep + AdamW with master weights,
              batch 4 x 2048: 3 warm-up and 5 timed steps on one batch; the
@@ -43,6 +50,12 @@ Phases, in order; any failure exits non-zero:
              kernels' tensor-core branch) at seq_len 2048, loss and every
              gradient of one step within a bound relative to the plain
              route's.
+
+A kernel's time ("ms") is device time: calls captured in a CUDA graph
+and replayed (``device_ms``), so the host's cost per call does not count;
+"eager_ms" beside it is the same kernel called from Python in a loop. K4's
+calls take copies of its pools in turn (``cold_copies``), so it reads them
+from device memory and not from L2; "warm_ms" is K4 on one copy.
 
 Prints a {"kernels": [...]} line and the nvidia-smi line before the last
 line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -78,14 +91,23 @@ FLASH_KERNELS = {
 _WMMA = ("WMMA m16n16k16 through shared memory, accumulators in shared "
          "memory, 128 threads, 64-row tiles")
 DESIGNS = {
-    "paged_attention": "one block per (head, slot) over its live keys, "
-                       "16-byte loads, online softmax in registers",
+    "paged_attention": "split-KV (flash-decoding): grid (head, slot, split "
+                       "of 256 keys), 16-byte loads double-buffered in "
+                       "registers, online softmax in registers, float32 "
+                       "partials per split in a workspace sized from shapes; "
+                       "a combine kernel merges the splits in index order",
     "flash_fwd": "bf16 at H=64/128: warp-specialised, TMA producer "
                  "(setmaxnreg 40/232) into a 3-stage (H=64) or 2-stage "
                  "(H=128) mbarrier ring of 128-key K/V tiles, two consumer "
                  "warpgroups of 64 query rows on wgmma with register "
                  "accumulators; float32 and bf16 at H=96/256: " + _WMMA,
-    "flash_bwd_dq": "every dtype and H: " + _WMMA,
+    "flash_bwd_dq": "bf16 at H=64/128: warp-specialised, TMA producer "
+                    "(setmaxnreg 40/232) into a 4-stage (H=64) or 3-stage "
+                    "(H=128) mbarrier ring of 64-key K/V tiles, Q/dO/lse/"
+                    "delta resident, two consumer warpgroups of 64 query "
+                    "rows: S and dP on wgmma, dS as the register A operand "
+                    "of dQ += dS K, dQ in registers; float32 and bf16 at "
+                    "H=96/256: " + _WMMA,
     "flash_bwd_dkv": "bf16 at H=64/128: warp-specialised, TMA producer "
                      "(setmaxnreg 24/232) into a 3-stage mbarrier ring of "
                      "Q/dO/lse/delta tiles, 64 keys resident per block, one "
@@ -119,6 +141,52 @@ def cuda_ms(fn, iters=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls=20, replays=5):
+    """Mean milliseconds of device time per call: ``calls`` calls captured
+    in one CUDA graph and replayed ``replays`` times between CUDA events,
+    so the host's cost of each call (the wrapper's checks, the ctypes call,
+    the launches) does not count, as ``cuda_ms`` counts it when the host is
+    slower than the card. ``fn`` is one callable, or a list of callables
+    the calls take in turn (``cold_copies``). Warmed up on a side stream
+    first, as capture requires."""
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns * 2:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+# H100 SXM: 50 MB of L2
+L2_BYTES = 50 * 2 ** 20
+
+
+def cold_copies(args, live_bytes, pools=(1, 2)):
+    """Copies of ``args`` with the tensors at ``pools`` cloned, enough that
+    between two uses of one copy the others touch at least twice L2's size
+    of live data: calls that take them in turn read those tensors from
+    device memory, as a decode step whose 24 layers each read their own
+    pools does, and not from what the call before left in L2."""
+    n = 1 + -(-2 * L2_BYTES // live_bytes)
+    return [tuple(a.clone() if i in pools else a for i, a in enumerate(args))
+            for _ in range(n)]
 
 
 # --------------------------------------------------------------- kernels --
@@ -177,56 +245,153 @@ def check_close(got, want, tol, what):
     return float(err.max())
 
 
+def paged_parity_cases():
+    """``(dtype, Dh, T, seq_lens, seed)`` of the K4 parity sweep: float32
+    and bf16, head_dim 64 and 128, decode and a 4-row verify span, over
+    ragged live lengths and over lengths on the edges of the kernel's split
+    chunk C: C - 1, C and C + 1, a slot shorter than one chunk beside a slot
+    of 2048, and C + 2, whose 4-row span ends in two splits (rows 0 and 1
+    find every key of split 1 masked). Lane 6 is inactive and lane 7
+    shares lane 4's first 16 blocks (``paged_case``)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    C = pa.split_keys()
+
+    ragged = [1, 15, 16, 17, 700, 2048, 1, 300]
+    edges = [C - 1, C, C + 1, 100, 2048, C + 2, 1, 3 * C + 1]
+    for dtype in (torch.float32, torch.bfloat16):
+        for Dh in (64, 128):
+            for T in (1, 4):
+                for i, lens in enumerate((ragged, edges)):
+                    yield (dtype, Dh, T, [max(n, T) for n in lens],
+                           T + Dh + 2 * i)
+
+
+def paged_errors(got, args):
+    """K4's output ``got`` on ``args`` against its plain version: ``(max
+    |err|, elements outside PAGED_PARITY_TOL or not finite, paged_rel_err
+    against the plain version computed in float32 on the same values)``."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    want = pa.paged_attention_ref(*args)
+    exact = want if want.dtype == torch.float32 else pa.paged_attention_ref(
+        *(a.float() for a in args[:3]), *args[3:])
+    atol, rtol = pa.PAGED_PARITY_TOL[want.dtype]
+    err = (got.float() - want.float()).abs()
+    bad = ~(err <= atol + rtol * want.float().abs())  # NaN counts as bad
+    return (float(err.nan_to_num(float("inf")).max()), int(bad.sum()),
+            pa.paged_rel_err(got, exact))
+
+
+def paged_parity_errors(dev):
+    """K4 against its plain version over ``paged_parity_cases``:
+    ``[(case, dtype, max |err|, elements outside PAGED_PARITY_TOL or not
+    finite, relative error)]`` (``paged_errors``)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    out = []
+    for dtype, Dh, T, lens, seed in paged_parity_cases():
+        args = paged_case(dev, dtype, T, lens, Dh=Dh, inactive=(6,),
+                          share=(4, 7, 16), seed=seed)
+        got = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+        out.append((f"{str(dtype)[6:]} Dh={Dh} T={T} seq_lens={lens}",
+                    dtype, *paged_errors(got, args)))
+    return out
+
+
+def check_paged(what, dtype, err, n_bad, rel):
+    """Raise unless one K4 case is finite and inside both bounds."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    if n_bad or not rel <= pa.PAGED_PARITY_REL[dtype]:
+        raise AssertionError(
+            f"paged_attention {what}: {n_bad} elements outside "
+            f"{pa.PAGED_PARITY_TOL[dtype]} or not finite, max |err| "
+            f"{err:.3e}; relative error {rel:.3e} (bound "
+            f"{pa.PAGED_PARITY_REL[dtype]})")
+
+
+# timed K4 shapes, bf16 decode: the serving phase's batch (8 slots x 1024
+# live rows), and few long slots (2 slots x 2048), a server at low
+# concurrency holding long contexts, where the split matters most
+PAGED_TIMED = {"paged_attention": ("8 slots x 1024 live rows", [1024] * 8, 7),
+               "paged_attention_2x2048": ("2 slots x 2048 live rows",
+                                          [2048] * 2, 8)}
+
+
 def phase_kernels(dev):
     from paddle_tpu_torch.ops import paged_attention as pa
 
     max_err = 0.0
-    ragged = [1, 15, 16, 17, 700, 2048, 1, 300]
-    for dtype in (torch.float32, torch.bfloat16):
-        for T in (1, 4):
-            lens = [max(n, T) for n in ragged]
-            args = paged_case(dev, dtype, T, lens, inactive=(6,),
-                              share=(4, 7, 16), seed=T)
-            out = pa.paged_attention(*args)
-            torch.cuda.synchronize()
-            ref = pa.paged_attention_ref(*args)
-            err = check_close(out, ref, pa.PAGED_PARITY_TOL[dtype],
-                              f"paged_attention {dtype} T={T}")
-            max_err = max(max_err, err)
-            log(f"kernels: paged_attention {str(dtype)[6:]} T={T} "
-                f"seq_lens={lens} max|err|={err:.3e} tol="
-                f"{pa.PAGED_PARITY_TOL[dtype]}")
+    max_rel = dict.fromkeys(("float32", "bfloat16"), 0.0)
+    for what, dtype, err, n_bad, rel in paged_parity_errors(dev):
+        check_paged(what, dtype, err, n_bad, rel)
+        max_err = max(max_err, err)
+        max_rel[str(dtype)[6:]] = max(max_rel[str(dtype)[6:]], rel)
+        log(f"kernels: paged_attention {what} max|err|={err:.3e} tol="
+            f"{pa.PAGED_PARITY_TOL[dtype]}, relative {rel:.3e} bound "
+            f"{pa.PAGED_PARITY_REL[dtype]}")
 
-    # timed at the decode step's shapes: 8 slots x 1024 live rows, bf16
-    args = paged_case(dev, torch.bfloat16, 1, [1024] * 8, seed=7)
-    q, kp, vp, bt, sl, qo = args
-    out = pa.paged_attention(*args)
-    ref = pa.paged_attention_ref(*args)
-    max_err = max(max_err, check_close(out, ref,
-                                       pa.PAGED_PARITY_TOL[torch.bfloat16],
-                                       "paged_attention timed case"))
-    k_view, v_view = pa.paged_view(kp, bt), pa.paged_view(vp, bt)
-    mask = pa.position_mask(qo, sl, 1, k_view.shape[1])
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_view, v_view))
+    rows = []
     lib = torch.nn.functional.scaled_dot_product_attention
-    ms = cuda_ms(lambda: pa.paged_attention(*args))
-    plain_ms = cuda_ms(lambda: pa.paged_attention_ref(*args), iters=10)
-    library_ms = cuda_ms(lambda: lib(qt, kt, vt, attn_mask=mask))
-    ms2 = cuda_ms(lambda: pa.paged_attention(*args))
-    bound_ms, bound_by = paged_bound(q, kp, bt, sl, qo)
-    log(f"kernels: paged_attention bf16 B=8 T=1 live=1024/slot: kernel "
-        f"{ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library (sdpa on the gathered view) {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by})")
-    return {"name": "paged_attention", "route": "cuda",
-            "source": PAGED_SOURCE, "replaces": PAGED_REPLACES,
-            "max_abs_err": max_err,
-            "tolerance": {str(k)[6:]: v
-                          for k, v in pa.PAGED_PARITY_TOL.items()},
-            "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / min(ms, ms2),
-            "design": DESIGNS["paged_attention"], "library_ms": library_ms}
+    for name, (shape, lens, seed) in PAGED_TIMED.items():
+        args = paged_case(dev, torch.bfloat16, 1, lens, seed=seed)
+        q, kp, vp, bt, sl, qo = args
+        outs = [pa.paged_attention(*args) for _ in range(2)]
+        err, n_bad, rel = paged_errors(outs[0], args)
+        check_paged(shape, torch.bfloat16, err, n_bad, rel)
+        max_err = max(max_err, err)
+        max_rel["bfloat16"] = max(max_rel["bfloat16"], rel)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(
+                f"paged_attention {shape}: two launches on the same inputs "
+                f"differ in {int((outs[0] != outs[1]).sum())} elements")
+        k_view, v_view = pa.paged_view(kp, bt), pa.paged_view(vp, bt)
+        mask = pa.position_mask(qo, sl, 1, k_view.shape[1])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k_view, v_view))
+        row_bytes = 2 * kp[0, 0].numel() * kp.element_size()  # a K and a V
+        copies = cold_copies(args, int(torch.minimum(qo + 1, sl).sum())
+                             * row_bytes)
+        cold = [lambda a=a: pa.paged_attention(*a) for a in copies]
+        lib_cold = [lambda a=a: lib(*a[:3], attn_mask=a[3]) for a in
+                    cold_copies((qt, kt, vt, mask),
+                                2 * kt.numel() * kt.element_size())]
+        kern = lambda: pa.paged_attention(*args)  # noqa: E731
+        ms = device_ms(cold)
+        warm_ms = device_ms(kern)
+        eager_ms = cuda_ms(kern)
+        plain_ms = cuda_ms(lambda: pa.paged_attention_ref(*args), iters=10)
+        library_ms = device_ms(lib_cold)
+        ms2 = device_ms(cold)
+        n_copies = len(copies)
+        del copies, cold, lib_cold
+        bound_ms, bound_by = paged_bound(q, kp, bt, sl, qo)
+        log(f"kernels: paged_attention bf16 T=1 {shape}: max|err|={err:.3e}, "
+            f"relative {rel:.3e}, two launches bitwise equal; kernel "
+            f"{ms:.5f} / {ms2:.5f} ms (device time, CUDA graph, L2 cold: "
+            f"{n_copies} copies of the pools in turn), {warm_ms:.5f} ms "
+            f"on one copy (L2 warm), {eager_ms:.5f} ms called eagerly; "
+            f"plain {plain_ms:.4f} ms, library (sdpa on the gathered view, "
+            f"L2 cold) {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}), {bound_ms / min(ms, ms2):.1%} of it")
+        rows.append({"name": name, "route": "cuda", "source": PAGED_SOURCE,
+                     "replaces": PAGED_REPLACES, "shape": f"bf16 T=1 {shape}",
+                     "max_abs_err": max_err,
+                     "tolerance": {str(k)[6:]: v
+                                   for k, v in pa.PAGED_PARITY_TOL.items()},
+                     "max_rel_err": dict(max_rel),
+                     "rel_bound": {str(k)[6:]: v
+                                   for k, v in pa.PAGED_PARITY_REL.items()},
+                     "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
+                     "l2": "cold", "warm_ms": warm_ms,
+                     "eager_ms": eager_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms,
+                     "bound_by": bound_by,
+                     "bound_share": bound_ms / min(ms, ms2),
+                     "design": DESIGNS["paged_attention"],
+                     "library_ms": library_ms})
+    return rows
 
 
 # ------------------------------------------------------- flash kernels --
@@ -427,23 +592,27 @@ def phase_flash_kernels(dev):
     qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_()
                        for x in (q, k, v, do))
     lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    # (the backward through autograd, eagerly: at 0.6 ms the host's share
+    # of one call is small)
     library = {
-        "flash_fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), iters=20),
+        "flash_fwd": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), calls=10, replays=2),
         "bwd": cuda_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dot.detach(), retain_graph=True),
             iters=20)}
     rows = {}
     for name, (kern, plain) in calls.items():
-        ms = cuda_ms(kern, iters=20)
+        ms = device_ms(kern, calls=10, replays=2)
+        eager_ms = cuda_ms(kern, iters=20)
         plain_ms = cuda_ms(plain, iters=3)
-        ms2 = cuda_ms(kern, iters=20)
+        ms2 = device_ms(kern, calls=10, replays=2)
         bound_ms, bound_by = flash_bound(name, q, causal=True)
         lib_ms = library.get(name, library["bwd"])
         log(f"kernels (training): {name} bf16 B*N={B * N} T={T} H={H} "
-            f"causal: kernel {ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, library {lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
-            f"({bound_by})")
+            f"causal: kernel {ms:.4f} / {ms2:.4f} ms (device time, CUDA "
+            f"graph), {eager_ms:.4f} ms called eagerly; plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
         rows[name] = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_KERNELS[name][0], "max_abs_err": max_err[name],
@@ -453,7 +622,8 @@ def phase_flash_kernels(dev):
             "rel_bound": {str(d)[6:]: t
                           for d, t in fa.FLASH_PARITY_REL.items()},
             "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_share": bound_ms / min(ms, ms2), "design": DESIGNS[name],
             "library_ms": lib_ms,
             "library_call": "scaled_dot_product_attention(is_causal=True) "
@@ -812,42 +982,58 @@ def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
 
 
 # ------------------------------------------------------------------ main --
-_ENTRY = re.compile(r"Compiling entry function '\S*?\d"
-                    r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel(?:_sm90)?)"
-                    r"I(13__nv_bfloat16|f)?Li(\d+)E")
+_ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
+                    r"_kernel(?:_sm90)?)I(\w*?)E+v")
+_TYPES = {"13__nv_bfloat16": "bf16", "f": "float32"}
 
 
-def flash_instances(lib_path):
-    """Every flash kernel instance in the library's ``-Xptxas -v`` log:
-    ``[{"kernel", "dtype", "H", "registers", "spill_stores",
-    "smem_bytes"}]``. ``registers`` is the count at launch (the Hopper
-    design's warpgroups then move to their setmaxnreg budgets);
-    ``smem_bytes`` is the dynamic shared memory its launch requests, which
-    ptxas does not see."""
-    lib = ctypes.CDLL(str(lib_path))
-    lib.flash_attention_smem.restype = ctypes.c_int
-    kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
-    out, cur, spill = [], None, None
+def ptxas_instances(lib_path):
+    """Every kernel instance in the library's ``-Xptxas -v`` log:
+    ``[{"kernel", "args", "registers", "spill_stores", "lines"}]``, with
+    ``args`` its template arguments (``["bf16", "64", "1"]``) and ``lines``
+    its register, spill and shared-memory lines."""
+    out = []
     for line in Path(f"{lib_path}.log").read_text().splitlines():
         m = _ENTRY.search(line)
         if m:
-            dtype = "float32" if m.group(2) == "f" else "bf16"
-            cur, spill = (m.group(1), dtype, int(m.group(3))), None
+            out.append({"kernel": m.group(1), "args": [
+                _TYPES.get(a, a[2:]) for a in re.findall(
+                    r"13__nv_bfloat16|f|Li\d+", m.group(2))],
+                "registers": None, "spill_stores": None, "lines": []})
             continue
-        if cur is None:
+        if not out or ("registers" not in line and "spill" not in line):
             continue
+        out[-1]["lines"].append(line.strip())
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
-            spill = int(m.group(1))
+            out[-1]["spill_stores"] = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            name, dtype, H = cur
-            out.append({"kernel": name, "dtype": dtype, "H": H,
-                        "registers": int(m.group(1)), "spill_stores": spill,
-                        "smem_bytes": lib.flash_attention_smem(
-                            kinds[name.split("_kernel")[0]],
-                            int(dtype == "bf16"), H)})
-            cur = None
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def flash_instances(lib_path):
+    """Every flash kernel instance of ``ptxas_instances``: ``[{"kernel",
+    "dtype", "H", "registers", "spill_stores", "smem_bytes"}]``.
+    ``registers`` is the count at launch (the Hopper design's warpgroups
+    then move to their setmaxnreg budgets); ``smem_bytes`` is the dynamic
+    shared memory its launch requests, which ptxas does not see. The
+    Hopper design's kernels take H alone: they are bf16 only."""
+    lib = ctypes.CDLL(str(lib_path))
+    lib.flash_attention_smem.restype = ctypes.c_int
+    kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
+    out = []
+    for r in ptxas_instances(lib_path):
+        if r["kernel"].split("_kernel")[0] not in kinds:
+            continue
+        dtype, H = ("bf16", *r["args"])[-2:]
+        out.append({"kernel": r["kernel"], "dtype": dtype, "H": int(H),
+                    "registers": r["registers"],
+                    "spill_stores": r["spill_stores"],
+                    "smem_bytes": lib.flash_attention_smem(
+                        kinds[r["kernel"].split("_kernel")[0]],
+                        int(dtype == "bf16"), int(H))})
     return out
 
 
@@ -873,18 +1059,18 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for line in libs["paged_attention"].with_suffix(
-            ".so.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: paged_attention: {line.strip()}")
+    for r in ptxas_instances(libs["paged_attention"]):
+        for line in r["lines"]:
+            log(f"build: {r['kernel']}<{','.join(r['args'])}>: {line}")
     for r in flash_instances(libs["flash_attention"]):
         log(f"build: {r['kernel']} {r['dtype']} H={r['H']}: "
             f"{r['registers']} registers, {r['spill_stores']} bytes spill "
             f"stores, {r['smem_bytes']} bytes shared memory")
 
-    kernel = phase_kernels(dev)
+    paged = phase_kernels(dev)
     served = phase_serving(dev)
-    kernel["launches"] = served["launches"]["paged_attention"]
+    for row in paged:
+        row["launches"] = served["launches"]["paged_attention"]
     phase_parity(dev)
     flash = phase_flash_kernels(dev)
     trained = phase_training(dev)
@@ -901,7 +1087,7 @@ def main():
         f"tokens/s, MFU {trained['mfu']:.4f}, peak memory "
         f"{trained['peak_memory_gb']:.1f} GB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel, *flash.values()]}))
+    print(json.dumps({"kernels": [*paged, *flash.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,18 +28,19 @@
 // TFLOP/s: K1 0.070 ms, K2 0.104 ms, K3 0.139 ms. Nothing of the [T, T]
 // score matrix reaches device memory.
 //
-// Two designs, chosen in launch() by kernel, dtype and H:
+// Two designs, chosen in launch() by dtype and H (the same for all three
+// kernels):
 //
-// (a) Hopper design: K1 and K3 in bf16 at H = 64 and 128 (every head_dim a
-//     preset uses: gpt2-* and gpt3-1.3B have 64, gpt3-6.7B 128).
-//   * Warp specialised. Warpgroup 0 is the producer: it drops to 40 (K1) or
-//     24 (K3) registers with setmaxnreg, and one of its threads issues TMA
-//     loads (cp.async.bulk.tensor, 4-D maps over the strided views, boxes
-//     of 64 columns in 128-byte swizzle) into a ring of shared-memory
-//     stages, each with a full and an empty mbarrier. The consumer
-//     warpgroups take 232 registers and run every product on wgmma with
-//     float32 accumulators in registers; nothing is accumulated in shared
-//     memory.
+// (a) Hopper design: K1, K2 and K3 in bf16 at H = 64 and 128 (every
+//     head_dim a preset uses: gpt2-* and gpt3-1.3B have 64, gpt3-6.7B 128).
+//   * Warp specialised. Warpgroup 0 is the producer: it drops to 40 (K1,
+//     K2) or 24 (K3) registers with setmaxnreg, and one of its threads
+//     issues TMA loads (cp.async.bulk.tensor, 4-D maps over the strided
+//     views, boxes of 64 columns in 128-byte swizzle) into a ring of
+//     shared-memory stages, each with a full and an empty mbarrier. The
+//     consumer warpgroups take 232 registers and run every product on
+//     wgmma with float32 accumulators in registers; nothing is accumulated
+//     in shared memory.
 //   * K1: a block of 384 threads owns 128 query rows of one (b, n), 64 per
 //     consumer warpgroup, with Q resident; K and V tiles of 128 keys go
 //     through a ring of 3 stages (H = 64) or 2 (H = 128). S = Q K^T is a
@@ -48,6 +49,17 @@
 //     FMA before ex2), a row's max and sum over the four threads of a quad
 //     with two shuffles each; P goes to bf16 in registers and is the
 //     register A operand of O += P V, V read with wgmma's transpose bit.
+//   * K2: K1's skeleton with one product more. A block of 384 threads owns
+//     128 query rows of one (b, n), 64 per consumer warpgroup; Q and dO
+//     (TMA) and the rows' lse and delta (1-D bulk copies) are resident; K
+//     and V tiles of 64 keys go through a ring of 4 stages (H = 64) or 3
+//     (H = 128). S = Q K^T and dP = dO V^T are wgmmas with both operands in
+//     shared memory; P = exp2(S scale log2(e) - lse log2(e)) and
+//     dS = P (dP - delta) form in registers, and dS in bf16 is the register
+//     A operand of dQ += dS K, K read with the transpose bit. dQ stays in
+//     registers until the epilogue scales and stores it. A key tile wholly
+//     above a warpgroup's rows is skipped by that warpgroup. 100 KB (H =
+//     64) or 162 KB (H = 128) of shared memory, one block per SM.
 //   * K3: a block of 256 threads owns 64 keys of one (b, n), K and V
 //     resident, one consumer warpgroup; tiles of BQ queries (64 at H = 64,
 //     32 at H = 128) of Q and dO, with their lse and delta (1-D bulk
@@ -59,15 +71,15 @@
 //     memory: two blocks per SM.
 //   * Causal work only where it exists: tiles above the diagonal are never
 //     loaded, the mask is applied only on tiles that cross it, and the
-//     heaviest tiles are issued first (the last query tiles for K1, the
-//     first key tiles for K3).
+//     heaviest tiles are issued first (the last query tiles for K1 and K2,
+//     the first key tiles for K3).
 //   * The tensor maps are encoded on the host per call through
 //     cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled"), so the
 //     library needs no -lcuda, and reach the kernel as __grid_constant__.
 //
-// (b) WMMA design: K2 always, float32 always (so its results stay exact
-//     float32, which wgmma's TF32 would not), and bf16 at H = 96 and 256
-//     (no preset uses them).
+// (b) WMMA design: float32 at every H (so its results stay exact float32,
+//     which wgmma's TF32 would not), and bf16 at H = 96 and 256 (no preset
+//     uses them).
 //   * One 128-thread block per (b*n, tile of BLK rows): query tiles for K1
 //     and K2, key tiles for K3. The TPU kernel's sequential grid axis over
 //     the other side becomes a loop inside the block, and the running
@@ -538,8 +550,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
 enum Kind { kFwd = 0, kDq = 1, kDkv = 2 };
 
-// ------------------------------------------- K1 and K3 for Hopper, bf16 --
-// The redesign for this card (bf16, H = 64 and 128). Both kernels are warp
+// ------------------------------------------- K1-K3 for Hopper, bf16 --
+// The redesign for this card (bf16, H = 64 and 128). The kernels are warp
 // specialised: warpgroup 0 is the producer, whose one working thread keeps
 // TMA loads in flight into a ring of shared-memory stages guarded by
 // full/empty mbarriers (it gives its registers up with setmaxnreg); the
@@ -570,6 +582,22 @@ struct FwdCfg {
   static constexpr int Q_BYTES = BM * H * 2;
   static constexpr int KV_BYTES = BN * H * 2;  // one K or V tile
   static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 128;
+};
+
+// K2: a block owns BM = 128 query rows of one (b, n), 64 per consumer
+// warpgroup, with Q, dO, lse and delta resident, and walks key tiles of
+// BN = 64 (K and V) through the ring. BN = 64 keeps S, dP, dQ and the dS
+// fragments (32 + 32 + H / 2 + 16 values a thread) within 232 registers.
+template <int H>
+struct DqCfg {
+  static constexpr int BM = 128, BN = 64, CH = H / 64;
+  static constexpr int STAGES = H == 64 ? 4 : 3;
+  static constexpr int THREADS = 384;
+  static constexpr int Q_BYTES = BM * H * 2;   // Q or dO
+  static constexpr int KV_BYTES = BN * H * 2;  // one K or V tile
+  static constexpr int ROW_BYTES = BM * 4;     // lse or delta
+  static constexpr int SMEM = 1024 + 2 * Q_BYTES + 2 * STAGES * KV_BYTES +
+                              2 * ROW_BYTES + 128;
 };
 
 // K3: a block owns 64 keys of one (b, n), K and V resident, one consumer
@@ -784,6 +812,176 @@ __global__ void __launch_bounds__(384, 1)
                                   o[4 * jj + 2 * r + 1] * inv);
       if (t == 0)
         p.lse[(long long)bn * T_len + row] = m[r] * kLn2 + logf(lt);
+    }
+  }
+}
+
+// ------------------------------------------------------------ K2, Hopper --
+template <int H>
+__global__ void __launch_bounds__(384, 1)
+    flash_bwd_dq_kernel_sm90(const __grid_constant__ HopperArgs args) {
+  using namespace hopper;
+  using C = DqCfg<H>;
+  constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES;
+  const Params& p = args.p;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = align_1024(smem_raw);
+  unsigned char* Qs = base;
+  unsigned char* DOs = Qs + C::Q_BYTES;
+  unsigned char* Ks = DOs + C::Q_BYTES;
+  unsigned char* Vs = Ks + STAGES * C::KV_BYTES;
+  float* LSEs = reinterpret_cast<float*>(Vs + STAGES * C::KV_BYTES);
+  float* DELs = LSEs + BM;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(DELs + BM);
+  uint64_t* full_q = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int T_len = p.T;
+  const int n_q = T_len / BM;
+  const int bn = blockIdx.x;
+  // causal query tiles are issued longest-first
+  const int qb = p.causal ? n_q - 1 - int(blockIdx.y) : int(blockIdx.y);
+  const int b = bn / p.N;
+  const int n = bn % p.N;
+  // the reference's bound: key tiles up to the one holding the last row
+  const int hi = p.causal ? min((qb * BM + BM + BN - 1) / BN, T_len / BN)
+                          : T_len / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------- producer --
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, 2 * C::Q_BYTES + 2 * C::ROW_BYTES);
+      for (int c = 0; c < CH; ++c) {
+        tma_load_4d(Qs + c * BM * 128, &args.m.q, full_q, c * 64, n, qb * BM,
+                    b);
+        tma_load_4d(DOs + c * BM * 128, &args.m.dout, full_q, c * 64, n,
+                    qb * BM, b);
+      }
+      const long long row = (long long)bn * T_len + (long long)qb * BM;
+      bulk_load(LSEs, p.lse_in + row, C::ROW_BYTES, full_q);
+      bulk_load(DELs, p.delta + row, C::ROW_BYTES, full_q);
+      for (int j = 0; j < hi; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::KV_BYTES);
+        unsigned char* kt = Ks + s * C::KV_BYTES;
+        unsigned char* vt = Vs + s * C::KV_BYTES;
+        for (int c = 0; c < CH; ++c) {
+          tma_load_4d(kt + c * BN * 128, &args.m.k, &full[s], c * 64, n,
+                      j * BN, b);
+          tma_load_4d(vt + c * BN * 128, &args.m.v, &full[s], c * 64, n,
+                      j * BN, b);
+        }
+      }
+    }
+  } else {
+    // ------------------------------------------------------- consumers --
+    setmaxnreg_inc<232>();
+    const int w = wg - 1;  // rows 64 w .. 64 w + 63 of the block
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32, g = (tid % 32) / 4, t = tid % 4;
+    const int first = qb * BM + 64 * w;          // this warpgroup's rows
+    const int row0 = first + 16 * warp + g;      // and row0 + 8
+    const float sl2 = p.scale * kLog2e;
+
+    float dq[H / 2];
+#pragma unroll
+    for (int i = 0; i < H / 2; ++i) dq[i] = 0.f;
+    const uint32_t q_addr = smem_u32(Qs) + 64 * w * 128;
+    const uint32_t do_addr = smem_u32(DOs) + 64 * w * 128;
+    mbar_wait(full_q, 0);
+    float lse2[2], del[2];  // lse in units of log2, and delta, per row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lse2[r] = LSEs[row0 + 8 * r - qb * BM] * kLog2e;
+      del[r] = DELs[row0 + 8 * r - qb * BM];
+    }
+
+    for (int j = 0; j < hi; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(&full[s], (j / STAGES) & 1);
+      // a key tile wholly above this warpgroup's rows adds nothing to dQ
+      if (!p.causal || j * BN <= first + 63) {
+        const uint32_t k_addr = smem_u32(Ks + s * C::KV_BYTES);
+        const uint32_t v_addr = smem_u32(Vs + s * C::KV_BYTES);
+
+        // S = Q K^T and dP = dO V^T: 64 x BN each, in registers
+        float sc[BN / 2], dp[BN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < H / 16; ++kk) {
+          const uint32_t qa = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          const uint32_t ka = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          wgmma_ss<BN, 0>(sc, desc_sw128(q_addr + qa), desc_sw128(k_addr + ka),
+                          kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < H / 16; ++kk) {
+          const uint32_t qa = (kk / 4) * BM * 128 + (kk % 4) * 32;
+          const uint32_t ka = (kk / 4) * BN * 128 + (kk % 4) * 32;
+          wgmma_ss<BN, 0>(dp, desc_sw128(do_addr + qa),
+                          desc_sw128(v_addr + ka), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // P = exp(scale s - lse) and dS = P (dP - delta); the mask only on
+        // tiles that reach past this warpgroup's first row
+        const bool masked = p.causal && (j + 1) * BN > first + 1;
+#pragma unroll
+        for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int key = j * BN + 8 * jj + 2 * t + (e & 1);
+            const float pv =
+                !masked || key <= row0 + 8 * r
+                    ? ex2(fmaf(sc[4 * jj + e], sl2, -lse2[r]))
+                    : 0.f;
+            dp[4 * jj + e] = pv * (dp[4 * jj + e] - del[r]);
+          }
+
+        // dQ += dS K: dS in bf16 registers as the A operand, K read
+        // through wgmma's transpose bit
+        uint32_t da[BN / 16][4];
+        to_a_frags(da, dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          wgmma_rs<H, 1>(dq, da[kk], desc_sw128(k_addr + kk * 2048, BN * 128));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    const long long out_row = (long long)p.N * H;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bf16* out = static_cast<bf16*>(p.dq) +
+                  ((long long)b * T_len + row0 + 8 * r) * out_row +
+                  (long long)n * H;
+#pragma unroll
+      for (int jj = 0; jj < H / 8; ++jj)
+        *reinterpret_cast<__nv_bfloat162*>(out + 8 * jj + 2 * t) =
+            __floats2bfloat162_rn(dq[4 * jj + 2 * r] * p.scale,
+                                  dq[4 * jj + 2 * r + 1] * p.scale);
     }
   }
 }
@@ -1006,8 +1204,8 @@ bool encode_view(CUtensorMap* map, const void* ptr, const View& v, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16 K1 and K3 at H = 64 and 128 take the Hopper design; K2, float32
-// and bf16 at H = 96 and 256 the WMMA design
+// bf16 at H = 64 and 128 takes the Hopper design; float32, and bf16 at
+// H = 96 and 256, the WMMA design
 template <typename T, int H>
 constexpr bool kSm90 = std::is_same<T, __nv_bfloat16>::value &&
                        (H == 64 || H == 128);
@@ -1018,6 +1216,7 @@ int smem_bytes(int kind) {
   if constexpr (kSm90<T, H>) {
     if (kind == kFwd) return FwdCfg<H>::SMEM;
     if (kind == kDkv) return DkvCfg<H>::SMEM;
+    return DqCfg<H>::SMEM;
   }
   using C = Cfg<T, H>;
   // the carve rounds every buffer up to 128 bytes
@@ -1042,6 +1241,15 @@ cudaError_t launch_sm90(int kind, const Params& p, int B,
     ok = encode_view(&a.m.q, p.q, p.vq, B, p.N, p.T, H, C::BM) &&
          encode_view(&a.m.k, p.k, p.vk, B, p.N, p.T, H, C::BN) &&
          encode_view(&a.m.v, p.v, p.vv, B, p.N, p.T, H, C::BN);
+  } else if (kind == kDq) {
+    using C = DqCfg<H>;
+    fn = flash_bwd_dq_kernel_sm90<H>;
+    threads = C::THREADS;
+    tile = C::BM;
+    ok = encode_view(&a.m.q, p.q, p.vq, B, p.N, p.T, H, C::BM) &&
+         encode_view(&a.m.dout, p.dout, p.vdo, B, p.N, p.T, H, C::BM) &&
+         encode_view(&a.m.k, p.k, p.vk, B, p.N, p.T, H, C::BN) &&
+         encode_view(&a.m.v, p.v, p.vv, B, p.N, p.T, H, C::BN);
   } else {
     using C = DkvCfg<H>;
     fn = flash_bwd_dkv_kernel_sm90<H>;
@@ -1064,25 +1272,23 @@ cudaError_t launch_sm90(int kind, const Params& p, int B,
 
 template <typename T, int H>
 cudaError_t launch(int kind, const Params& p, int B, cudaStream_t stream) {
-  void (*fn)(Params);
   if constexpr (kSm90<T, H>) {
-    if (kind != kDq) return launch_sm90<H>(kind, p, B, stream);
-    fn = flash_bwd_dq_kernel<T, H>;
+    return launch_sm90<H>(kind, p, B, stream);
   } else {
-    fn = kind == kFwd  ? flash_fwd_kernel<T, H>
-         : kind == kDq ? flash_bwd_dq_kernel<T, H>
-                       : flash_bwd_dkv_kernel<T, H>;
+    void (*fn)(Params) = kind == kFwd  ? flash_fwd_kernel<T, H>
+                         : kind == kDq ? flash_bwd_dq_kernel<T, H>
+                                       : flash_bwd_dkv_kernel<T, H>;
+    using C = Cfg<T, H>;
+    const int smem = smem_bytes<T, H>(kind);
+    if (p.T % C::BLK != 0 || p.T / C::BLK > 65535)
+      return cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid(B * p.N, p.T / C::BLK);
+    fn<<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
   }
-  using C = Cfg<T, H>;
-  const int smem = smem_bytes<T, H>(kind);
-  if (p.T % C::BLK != 0 || p.T / C::BLK > 65535)
-    return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(B * p.N, p.T / C::BLK);
-  fn<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
 }
 
 template <typename T>

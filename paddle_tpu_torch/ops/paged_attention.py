@@ -15,6 +15,9 @@ and produce finite garbage the host discards.
 * :func:`paged_attention_ref` is the plain version: it materializes each
   slot's gathered ``[M * bs]`` view and runs masked attention over it
   (the reference's gather oracle ``paged_attention_xla``).
+* :func:`paged_attention_split_ref` is the plain version of the kernel's
+  split-KV arithmetic (partials over chunks of keys, merged in chunk
+  order), for the tests; :func:`split_keys` is the kernel's own chunk.
 * :func:`select_paged_kernel` resolves the kernel once per engine.
 
 Launch counts live in the ``kernels`` registry scope:
@@ -24,6 +27,7 @@ of the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,6 +41,14 @@ from .attention import attention
 # keeps them in fp32). The reference pins the same bounds for its kernel.
 PAGED_PARITY_TOL = {torch.float32: (3e-5, 3e-5),
                     torch.bfloat16: (0.05, 0.05)}
+# per-dtype bound on paged_rel_err(kernel, plain version computed in
+# float32 on the same values), held beside PAGED_PARITY_TOL. The bf16
+# elementwise bound is as large as a typical output (a softmax average of
+# ~1000 random rows is ~0.03), so it cannot see a fault that moves every
+# output by less. Against float32 arithmetic the kernel's only rounding is
+# its bf16 output, at most bf16's unit roundoff 2**-8 = 3.9e-3 in norm; one
+# key left out of a 2048-row slot moves a head's output by ~2e-2.
+PAGED_PARITY_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
 
 # span rows the kernel takes: 1 for decode, up to 8 for a verify span
 MAX_SPAN = 8
@@ -83,6 +95,55 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
     v_view = paged_view(v_pool, block_tables)
     mask = position_mask(q_offsets, seq_lens, T, k_view.shape[1])
     return attention(q, k_view, v_view, mask=mask, scale=scale)
+
+
+def paged_rel_err(got, want):
+    """``max ||got - want|| / ||want||`` over each (slot, head)'s ``[T, Dh]``
+    output of two ``[B, T, H, Dh]`` tensors, in float32; 0 where the two
+    are equal, NaN where ``got`` is not finite."""
+    num = (got.float() - want.float()).pow(2).sum((1, 3))
+    den = want.float().pow(2).sum((1, 3))
+    ratio = torch.where(num == 0, torch.zeros_like(num), num / den)
+    return float(ratio.max().sqrt())
+
+
+def paged_attention_split_ref(q, k_pool, v_pool, block_tables, seq_lens,
+                              q_offsets, chunk, scale=None):
+    """The kernel's split-KV arithmetic in plain PyTorch, float32: for each
+    chunk of ``chunk`` logical key positions a partial ``(m, l, acc)`` per
+    (slot, head, row), ``m = -inf`` and ``l = 0`` where no key of the chunk
+    serves the row; then the partials merged in chunk order, skipping
+    ``m = -inf``, ``l`` floored at 1e-30. ``q [B, T, H, Dh]`` ->
+    ``[B, T, H, Dh]`` in q's dtype. For tests; any device."""
+    B, T, H, Dh = q.shape
+    scale = float(scale) if scale is not None else Dh ** -0.5
+    k_view = paged_view(k_pool, block_tables).float()
+    v_view = paged_view(v_pool, block_tables).float()
+    S = k_view.shape[1]
+    n = -(-S // chunk)  # from shapes alone, as in the kernel
+    s = torch.einsum("bthd,bjhd->bhtj", q.float() * scale, k_view)
+    keep = position_mask(q_offsets, seq_lens, T, S)       # [B, 1, T, S]
+    s = s.masked_fill(~keep, float("-inf"))
+    ninf = torch.tensor(float("-inf"), device=q.device)
+    parts = []
+    for c in range(n):
+        sc = s[..., c * chunk:(c + 1) * chunk]
+        m = sc.amax(-1)                                   # [B, H, T]
+        live = m != ninf
+        p = torch.exp(sc - torch.where(live, m, 0.0).unsqueeze(-1))
+        acc = torch.einsum("bhtj,bjhd->bhtd", p,
+                           v_view[:, c * chunk:(c + 1) * chunk])
+        parts.append((m, p.sum(-1), acc))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    den = torch.zeros_like(mx)
+    num = torch.zeros(B, H, T, Dh, device=q.device)
+    for m, l, acc in parts:  # in chunk order
+        live = m != ninf
+        w = torch.where(live, torch.exp(torch.where(live, m - mx, 0.0)), 0.0)
+        den = den + w * l
+        num = num + w.unsqueeze(-1) * acc
+    out = num / den.clamp_min(1e-30).unsqueeze(-1)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def check_paged_args(q, k_pool, v_pool, block_tables, seq_lens, q_offsets):
@@ -136,12 +197,28 @@ def check_paged_args(q, k_pool, v_pool, block_tables, seq_lens, q_offsets):
 
 def _lib():
     lib = _build.load("paged_attention")
-    fn = lib.paged_attention_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.paged_attention_forward.argtypes is None:
+        lib.paged_attention_forward.argtypes = (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.paged_attention_forward.restype = ctypes.c_int
+        lib.paged_attention_workspace_floats.argtypes = [ctypes.c_int] * 6
+        lib.paged_attention_workspace_floats.restype = ctypes.c_int64
+        lib.paged_attention_split_keys.restype = ctypes.c_int
+    return lib
+
+
+def split_keys():
+    """Keys of one split of the kernel (its chunk C): builds and loads the
+    kernel's library, so CUDA machines only."""
+    return _lib().paged_attention_split_keys()
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(B, T, H, Dh, M, bs):
+    """float32 values of the kernel's split-KV workspace, from the kernel's
+    library (which alone knows the chunk and the layout)."""
+    return _lib().paged_attention_workspace_floats(B, T, H, Dh, M, bs)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
@@ -153,7 +230,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
     including the span's own, ``q_offsets [B]`` is the position of span row
     0. On CPU tensors this is the plain version; on CUDA tensors it launches
     the kernel on the current stream, and raises on any argument the kernel
-    does not take or any launch error."""
+    does not take or any launch error. The kernel's split-KV workspace
+    (float32, a size fixed by the shapes) comes from ``torch.empty`` on the
+    current stream; nothing is read back to the host."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens,
                                    q_offsets, scale=scale)
@@ -163,14 +242,17 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
     B, T, H, Dh = q.shape
     scale = float(scale) if scale is not None else Dh ** -0.5
     out = torch.empty_like(q)
-    fn = _lib()
+    M, bs = block_tables.shape[1], k_pool.shape[1]
+    ws = torch.empty(_workspace_floats(B, T, H, Dh, M, bs),
+                     dtype=torch.float32, device=q.device)
+    fn = _lib().paged_attention_forward
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  block_tables.data_ptr(), seq_lens.data_ptr(),
-                 q_offsets.data_ptr(), out.data_ptr(), B, T, H, Dh,
-                 int(k_pool.shape[1]), int(block_tables.shape[1]),
-                 int(k_pool.shape[0]), _DTYPE_CODE[q.dtype], scale, stream)
+                 q_offsets.data_ptr(), out.data_ptr(), ws.data_ptr(), B, T,
+                 H, Dh, bs, M, int(k_pool.shape[0]), _DTYPE_CODE[q.dtype],
+                 scale, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")

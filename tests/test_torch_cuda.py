@@ -5,7 +5,9 @@ Needs a CUDA device and nvcc; skipped elsewhere. On the card run
 conftest imports JAX, which the card machine need not have).
 Tolerances: ``PAGED_PARITY_TOL`` for the paged kernel (float32 reduction
 order; bf16 probabilities rounded before the PV product in the plain
-version); ``FLASH_PARITY_TOL`` elementwise and ``FLASH_PARITY_REL`` block
+version) and ``PAGED_PARITY_REL`` per (slot, head) relative to the plain
+version computed in float32 (the kernel's bf16 output rounding);
+``FLASH_PARITY_TOL`` elementwise and ``FLASH_PARITY_REL`` block
 by block relative to the plain version's norm for the flash kernels
 (float32 summation order; bf16 P and dS rounded before the tensor-core
 products in the kernels).
@@ -45,11 +47,21 @@ def _case(dev, dtype, T, Dh, bs, lens, seed):
             qo.to(dev, torch.int32))
 
 
+# live lengths, given the kernel's split chunk C: ragged; on the edges of
+# C; and a slot shorter than one chunk beside one of 2048 and one of C + 2,
+# whose verify span ends in two splits (lane 1 is the inactive lane)
+SPLIT_LENS = {"ragged": lambda C: [37, 9, 16, 300],
+              "chunk_edges": lambda C: [C - 1, 9, C, C + 1],
+              "short_beside_long": lambda C: [100, 9, 2048, C + 2]}
+
+
+@pytest.mark.parametrize("lens", list(SPLIT_LENS.values()),
+                         ids=list(SPLIT_LENS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [1, 3, 8])
 @pytest.mark.parametrize("Dh,bs", [(64, 16), (128, 16), (64, 5), (128, 1)])
-def test_kernel_matches_plain_version(cuda, dtype, T, Dh, bs):
-    args = _case(cuda, dtype, T, Dh, bs, [37, 9, 16, 300], seed=T + bs)
+def test_kernel_matches_plain_version(cuda, dtype, T, Dh, bs, lens):
+    args = _case(cuda, dtype, T, Dh, bs, lens(pa.split_keys()), seed=T + bs)
     out = pa.paged_attention(*args)
     torch.cuda.synchronize()
     ref = pa.paged_attention_ref(*args)
@@ -57,6 +69,8 @@ def test_kernel_matches_plain_version(cuda, dtype, T, Dh, bs):
     assert torch.isfinite(out.float()).all()
     torch.testing.assert_close(out.float(), ref.float(), atol=atol,
                                rtol=rtol)
+    exact = pa.paged_attention_ref(*(a.float() for a in args[:3]), *args[3:])
+    assert pa.paged_rel_err(out, exact) <= pa.PAGED_PARITY_REL[dtype]
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -157,11 +171,34 @@ def test_flash_kernels_repeat_bitwise(cuda, B, T, N, H):
                               strided=True)
     fwd = [fa.flash_fwd(q, k, v, True) for _ in range(2)]
     delta = fa.flash_delta(fwd[0][0], do)
+    dq = [fa.flash_bwd_dq(q, k, v, do, fwd[0][1], delta, True)
+          for _ in range(2)]
     dkv = [fa.flash_bwd_dkv(q, k, v, do, fwd[0][1], delta, True)
            for _ in range(2)]
     torch.cuda.synchronize()
-    for a, b in zip(fwd[0] + dkv[0], fwd[1] + dkv[1]):
+    for a, b in zip(fwd[0] + (dq[0],) + dkv[0], fwd[1] + (dq[1],) + dkv[1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("lens", [[1024] * 8, [2048] * 2],
+                         ids=["8x1024", "2x2048"])
+def test_paged_kernel_repeats_bitwise(cuda, lens):
+    # the split pass and the combine read the splits in a fixed order with
+    # no atomics: two launches on the same inputs give the same bits
+    g = torch.Generator().manual_seed(5)
+    B, H, Dh, bs, M = len(lens), 32, 64, 16, 128
+    q = torch.randn(B, 1, H, Dh, generator=g).to(cuda, torch.bfloat16)
+    kp, vp = (torch.randn(B * M + 1, bs, H, Dh, generator=g).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    bt = (torch.randperm(B * M, generator=g) + 1).view(B, M)
+    sl = torch.tensor(lens)
+    args = (q, kp, vp, bt.to(cuda, torch.int32), sl.to(cuda, torch.int32),
+            (sl - 1).to(cuda, torch.int32))
+    a, b = pa.paged_attention(*args), pa.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    exact = pa.paged_attention_ref(*(t.float() for t in args[:3]), *args[3:])
+    assert pa.paged_rel_err(a, exact) <= pa.PAGED_PARITY_REL[torch.bfloat16]
 
 
 def test_flash_function_grads_on_strided_views(cuda):

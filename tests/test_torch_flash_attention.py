@@ -158,14 +158,15 @@ def _bf16_forward(q, k, v, drop_key_tile=None, tile=64):
     return (out / p.sum(-1).transpose(1, 2).unsqueeze(-1)).bfloat16()
 
 
-@pytest.mark.parametrize("tile,drop", [(64, 30), (128, 14)])
+@pytest.mark.parametrize("tile,drop", [(64, 30), (64, 28), (128, 14)])
 def test_bf16_relative_bound_separates_rounding_from_a_dropped_key_tile(
         tile, drop):
     # FLASH_PARITY_REL's bf16 bound against what it must tell apart, at
     # the training step's seq_len: the kernel's own rounding stays well
     # inside it, and one key tile dropped late in every row lands far
     # outside. Tiles of 64 keys are the WMMA design's (tile 30: rows past
-    # 1920 see it), of 128 the Hopper design's K1 (tile 14: rows past 1792)
+    # 1920 see it) and the Hopper design's K2 (tile 28: rows past 1792), of
+    # 128 the Hopper design's K1 (tile 14: rows past 1792)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 2048, 2, 64, generator=g).bfloat16()
                for _ in range(3))

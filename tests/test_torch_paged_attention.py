@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from paddle_tpu.ops import pallas_ops  # noqa: E402
 from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
+from paddle_tpu_torch.ops.attention import attention  # noqa: E402
 from paddle_tpu_torch.profiler import registry  # noqa: E402
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -169,3 +170,92 @@ def test_kernel_argument_checks():
     for msg, args in cases.items():
         with pytest.raises(ValueError, match=msg):
             pa.check_paged_args(*args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 4])
+def test_split_arithmetic_at_chunk_edges(dtype, T):
+    # the kernel's split-KV arithmetic with chunks of C = 8 keys over blocks
+    # of 4: live lengths C-1, C, C+1 and C+2, a slot shorter than one chunk
+    # beside one of three chunks, and an inactive lane (lane 6). At T = 4
+    # the C+2 lane's rows end at positions 6, 7, 8 and 9, so rows 0 and 1
+    # find every key of chunk 1 masked (a partial with m = -inf) while
+    # rows 2 and 3 end in it. Chunks of 3 keys do not align with the
+    # blocks, as the kernel does not require
+    C, bs, M = 8, 4, 6
+    lens = [C - 1, C, C + 1, C + 2, 3, M * bs, 1]
+    q, kp, vp, bt = _case(len(lens), T, 2, 16, 48, bs, M, dtype, seed=5)
+    bt[6] = 0
+    sl = [max(n, T) for n in lens[:6]] + [1]
+    qo = [max(n - T, 0) for n in sl[:6]] + [0]
+    ref = _check(q, kp, vp, bt, sl, qo, dtype)
+    tdt = DTYPES[dtype][0]
+    targs = ([torch.from_numpy(a).to(tdt) for a in (q, kp, vp)]
+             + [torch.from_numpy(bt), torch.tensor(sl, dtype=torch.int32),
+                torch.tensor(qo, dtype=torch.int32)])
+    _, _, interp, _ = _both(q, kp, vp, bt, sl, qo, dtype)
+    atol, rtol = pallas_ops.PAGED_PARITY_TOL[dtype]
+    for chunk in (C, 3):
+        split = pa.paged_attention_split_ref(*targs, chunk=chunk)
+        split = split.float().numpy()
+        assert np.isfinite(split).all()
+        np.testing.assert_allclose(split, ref, atol=atol, rtol=rtol)
+        np.testing.assert_allclose(split, interp, atol=atol, rtol=rtol)
+
+
+def _drop_keys_out(q, kp, vp, bt, sl, qo, drop):
+    """The exact output with the key positions in ``drop`` left out, as a
+    kernel that lost them would give it, rounded to q's dtype."""
+    f32 = [t.float() for t in (q, kp, vp)]
+    k_view, v_view = pa.paged_view(f32[1], bt), pa.paged_view(f32[2], bt)
+    S = k_view.shape[1]
+    keep = pa.position_mask(qo, sl, q.shape[1], S)
+    keep = keep & ~torch.isin(torch.arange(S), torch.tensor(drop))
+    return attention(f32[0], k_view, v_view, mask=keep).to(q.dtype)
+
+
+@pytest.mark.parametrize("lens,T", [([1024, 1024], 1), ([2048, 300], 1),
+                                    ([257, 700], 4)],
+                         ids=["2x1024", "2048_beside_300", "verify_span"])
+@pytest.mark.parametrize("drop", [[300], list(range(320, 384))],
+                         ids=["one_key", "one_fetch"])
+def test_bf16_relative_bound_separates_rounding_from_a_dropped_key(
+        lens, T, drop):
+    # PAGED_PARITY_REL's bf16 bound against what it must tell apart, at
+    # the serving shapes (head_dim 64, blocks of 16): the kernel's own
+    # rounding (float32 arithmetic over chunks, the output rounded to bf16:
+    # paged_attention_split_ref) stays within bf16's unit roundoff of the
+    # plain version in float32 on the same values, below the bound, while
+    # one key, or one fetch of 64 keys, left out of each slot lands more
+    # than twice the bound away. The elementwise PAGED_PARITY_TOL misses
+    # the dropped key: that is why both are held.
+    g = torch.Generator().manual_seed(len(drop) + T)
+    B, H, Dh, bs, M = len(lens), 4, 64, 16, 128
+    q = torch.randn(B, T, H, Dh, generator=g).bfloat16()
+    kp, vp = (torch.randn(B * M + 1, bs, H, Dh, generator=g).bfloat16()
+              for _ in range(2))
+    bt = (torch.randperm(B * M, generator=g) + 1).view(B, M).int()
+    sl = torch.tensor(lens, dtype=torch.int32)
+    qo = sl - T
+    args = (q, kp, vp, bt, sl, qo)
+    exact = pa.paged_attention_ref(*[t.float() for t in args[:3]], *args[3:])
+    plain = pa.paged_attention_ref(*args)
+    bound = pa.PAGED_PARITY_REL[torch.bfloat16]
+    honest = pa.paged_attention_split_ref(*args, chunk=256)
+    assert pa.paged_rel_err(honest, exact) <= 2 ** -8
+    faulty = _drop_keys_out(*args, drop)
+    assert pa.paged_rel_err(faulty, exact) > 2 * bound
+    if drop == [300]:
+        atol, rtol = pa.PAGED_PARITY_TOL[torch.bfloat16]
+        err = (faulty.float() - plain.float()).abs()
+        assert bool((err <= atol + rtol * plain.float().abs()).all())
+
+
+def test_relative_error_is_per_slot_and_head():
+    want = torch.ones(2, 3, 4, 8)
+    got = want.clone()
+    assert pa.paged_rel_err(got, want) == 0.0
+    got[1, :, 2] *= 1.1     # one (slot, head): 10% off in norm
+    assert abs(pa.paged_rel_err(got, want) - 0.1) < 1e-6
+    got[0, 0, 0, 0] = float("nan")
+    assert not pa.paged_rel_err(got, want) <= 1.0

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -115,9 +116,15 @@ def main():
         "device_busy_share": busy_us / wall_us,
         "device_ms_per_step": sum(v[1] for v in by_name.values())
         / args.steps / 1e3,
+        # K4 is two kernels per call, the split pass and the combine
         "paged_attention_us_per_step": sum(
             us for name, (n, us) in by_name.items()
-            if "paged_attention" in name) / args.steps}))
+            if "paged_attention" in name) / args.steps,
+        "paged_attention_kernels": {
+            re.search(r"paged_attention_\w+?_kernel", name)[0]: {
+                "per_step": n / args.steps, "us_per_step": us / args.steps}
+            for name, (n, us) in by_name.items()
+            if "paged_attention" in name}}))
     return 0
 
 
