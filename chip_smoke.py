@@ -11,22 +11,42 @@ Phases, in order; any failure exits non-zero:
              registers, spill stores and shared memory of every kernel
              instance;
  3. kernels  the paged kernel K4 against its plain PyTorch version on the
-             card, float32 and bf16, head_dim 64 and 128, decode and a
-             4-row verify span, over ragged live lengths and lengths on the
-             edges of its split chunk, held elementwise to the stated
-             tolerance and, per (slot, head), relative to the plain
-             version computed in float32; then at two decode shapes (8
-             slots x 1024 live rows, 2 slots x 2048) launched twice for
-             bitwise-equal outputs, and the kernel (with L2 cold), its
-             plain version and one library call timed with CUDA events,
-             beside the least time the card could take;
+             card, float32 and bf16, head_dim 64 and 128, decode and verify
+             spans of 4, 5 and 8 rows, over ragged live lengths, lengths on
+             the edges of its split chunk and (spans of 5 and 8) lengths
+             past the table's last row, as a verify span at the cache
+             ceiling passes them, held elementwise to the stated tolerance
+             and, per (slot, head), relative to the plain version computed
+             in float32; then at two decode shapes (8 slots x 1024 live
+             rows, 2 slots x 2048) and one verify shape (8 slots x 5 rows
+             x 1024) launched twice for bitwise-equal outputs, and the
+             kernel (with L2 cold), its plain version and one library call
+             timed with CUDA events, beside the least time the card could
+             take;
  4. serving  gpt3-1.3B in bf16 (full width and depth, random weights from a
              seed) behind GenerationServer answers 16 requests; the decode
-             path must launch the paged kernel once per layer per decode
-             step and the plain version never;
+             step is captured once into a CUDA graph and replayed: one
+             capture, more steady steps than rebuilds, no demotion, the
+             paged kernel launched once per layer per step (counted on the
+             card by the kernel itself, per instance, over the timed
+             window; the replay count in Python agrees; torch.profiler
+             over steady replays sees the kernels inside the graph) and
+             the plain version never;
  5. parity   the same request through a kernel engine and a plain engine
-             on the card (gpt3-1.3B width, 2 layers, float32): decode
-             logits within tolerance, greedy tokens equal;
+             on the card (gpt3-1.3B width, 2 layers, float32), both
+             replaying their graphs: decode logits within tolerance,
+             greedy tokens equal; then speculative engines (K=4) with a
+             twin drafter (every draft accepted) and an independent
+             1-layer drafter: tokens equal to plain decode's, greedy and
+             sampled;
+ 5b. spec    speculative serving at full width: gpt3-1.3B bf16 verified,
+             gpt2-small bf16 drafting (seed 2), K=4, the same 16 requests;
+             every request finishes, both pools audit clean, and each
+             round launches the paged kernel n_layer times at a span of 5
+             rows (verify) and (K+1) x 12 times at 1 row (draft round), by
+             the card's count per instance and by torch.profiler; the
+             share of greedy requests and tokens equal to phase 4's plain
+             decode is reported (bf16: not asserted);
  6. kernels (training)  the flash-attention kernels K1-K3 against their
              plain versions over float32 and bf16, causal and not, head_dim
              64/96/128/256 and seq_len 128/256/2048, on strided unbind views
@@ -57,6 +77,11 @@ and replayed (``device_ms``), so the host's cost per call does not count;
 calls take copies of its pools in turn (``cold_copies``), so it reads them
 from device memory and not from L2; "warm_ms" is K4 on one copy.
 
+Every K4 row's "launches" is what the card counted for the row's instance
+over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
+one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
+the verify row.
+
 Prints a {"kernels": [...]} line and the nvidia-smi line before the last
 line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
 the repository beside it, it prints no result and exits 2.
@@ -64,6 +89,7 @@ the repository beside it, it prints no result and exits 2.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import re
 import subprocess
@@ -247,12 +273,16 @@ def check_close(got, want, tol, what):
 
 def paged_parity_cases():
     """``(dtype, Dh, T, seq_lens, seed)`` of the K4 parity sweep: float32
-    and bf16, head_dim 64 and 128, decode and a 4-row verify span, over
-    ragged live lengths and over lengths on the edges of the kernel's split
-    chunk C: C - 1, C and C + 1, a slot shorter than one chunk beside a slot
-    of 2048, and C + 2, whose 4-row span ends in two splits (rows 0 and 1
-    find every key of split 1 masked). Lane 6 is inactive and lane 7
-    shares lane 4's first 16 blocks (``paged_case``)."""
+    and bf16, head_dim 64 and 128, decode and verify spans of 4, 5 and 8
+    rows, over ragged live lengths and over lengths on the edges of the
+    kernel's split chunk C: C - 1, C and C + 1, a slot shorter than one
+    chunk beside a slot of 2048, and C + 2, whose 4-row span ends in two
+    splits (rows 0 and 1 find every key of split 1 masked). Spans of 5 and
+    8 rows (a verify of K = 4 and of the largest K, 7) also take lengths
+    past the table's 2048 rows, as a verify span at the cache ceiling
+    gives them: the kernel must stop at the table's last row, as the plain
+    version's view does. Lane 6 is inactive and lane 7 shares lane 4's
+    first 16 blocks (``paged_case``)."""
     from paddle_tpu_torch.ops import paged_attention as pa
 
     C = pa.split_keys()
@@ -261,8 +291,12 @@ def paged_parity_cases():
     edges = [C - 1, C, C + 1, 100, 2048, C + 2, 1, 3 * C + 1]
     for dtype in (torch.float32, torch.bfloat16):
         for Dh in (64, 128):
-            for T in (1, 4):
-                for i, lens in enumerate((ragged, edges)):
+            for T in (1, 4, 5, 8):
+                # cursors up to the table's last row, spans past it
+                ceiling = [2047 + T, 2046 + T, 2047, 64, 2048, 2044 + T, 1,
+                           2049]
+                cases = (ragged, edges) + ((ceiling,) if T >= 5 else ())
+                for i, lens in enumerate(cases):
                     yield (dtype, Dh, T, [max(n, T) for n in lens],
                            T + Dh + 2 * i)
 
@@ -312,12 +346,16 @@ def check_paged(what, dtype, err, n_bad, rel):
             f"{pa.PAGED_PARITY_REL[dtype]})")
 
 
-# timed K4 shapes, bf16 decode: the serving phase's batch (8 slots x 1024
-# live rows), and few long slots (2 slots x 2048), a server at low
-# concurrency holding long contexts, where the split matters most
-PAGED_TIMED = {"paged_attention": ("8 slots x 1024 live rows", [1024] * 8, 7),
-               "paged_attention_2x2048": ("2 slots x 2048 live rows",
-                                          [2048] * 2, 8)}
+# timed K4 shapes, bf16: (what, span rows, live lengths, seed). Decode: the
+# serving phase's batch (8 slots x 1024 live rows), and few long slots (2
+# slots x 2048), a server at low concurrency holding long contexts, where
+# the split matters most; a verify span of K + 1 = 5 rows over the serving
+# batch (phase 5b's verify)
+PAGED_TIMED = {
+    "paged_attention": ("8 slots x 1024 live rows", 1, [1024] * 8, 7),
+    "paged_attention_2x2048": ("2 slots x 2048 live rows", 1, [2048] * 2, 8),
+    "paged_attention_verify": ("8 slots x 5 rows x 1024 live rows", 5,
+                               [1024] * 8, 9)}
 
 
 def phase_kernels(dev):
@@ -335,8 +373,8 @@ def phase_kernels(dev):
 
     rows = []
     lib = torch.nn.functional.scaled_dot_product_attention
-    for name, (shape, lens, seed) in PAGED_TIMED.items():
-        args = paged_case(dev, torch.bfloat16, 1, lens, seed=seed)
+    for name, (shape, T, lens, seed) in PAGED_TIMED.items():
+        args = paged_case(dev, torch.bfloat16, T, lens, seed=seed)
         q, kp, vp, bt, sl, qo = args
         outs = [pa.paged_attention(*args) for _ in range(2)]
         err, n_bad, rel = paged_errors(outs[0], args)
@@ -348,10 +386,11 @@ def phase_kernels(dev):
                 f"paged_attention {shape}: two launches on the same inputs "
                 f"differ in {int((outs[0] != outs[1]).sum())} elements")
         k_view, v_view = pa.paged_view(kp, bt), pa.paged_view(vp, bt)
-        mask = pa.position_mask(qo, sl, 1, k_view.shape[1])
+        # the span's keep-mask: causal inside the span, live rows only
+        mask = pa.position_mask(qo, sl, T, k_view.shape[1])
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k_view, v_view))
         row_bytes = 2 * kp[0, 0].numel() * kp.element_size()  # a K and a V
-        copies = cold_copies(args, int(torch.minimum(qo + 1, sl).sum())
+        copies = cold_copies(args, int(torch.minimum(qo + T, sl).sum())
                              * row_bytes)
         cold = [lambda a=a: pa.paged_attention(*a) for a in copies]
         lib_cold = [lambda a=a: lib(*a[:3], attn_mask=a[3]) for a in
@@ -367,7 +406,7 @@ def phase_kernels(dev):
         n_copies = len(copies)
         del copies, cold, lib_cold
         bound_ms, bound_by = paged_bound(q, kp, bt, sl, qo)
-        log(f"kernels: paged_attention bf16 T=1 {shape}: max|err|={err:.3e}, "
+        log(f"kernels: paged_attention bf16 {shape}: max|err|={err:.3e}, "
             f"relative {rel:.3e}, two launches bitwise equal; kernel "
             f"{ms:.5f} / {ms2:.5f} ms (device time, CUDA graph, L2 cold: "
             f"{n_copies} copies of the pools in turn), {warm_ms:.5f} ms "
@@ -376,7 +415,7 @@ def phase_kernels(dev):
             f"L2 cold) {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
             f"({bound_by}), {bound_ms / min(ms, ms2):.1%} of it")
         rows.append({"name": name, "route": "cuda", "source": PAGED_SOURCE,
-                     "replaces": PAGED_REPLACES, "shape": f"bf16 T=1 {shape}",
+                     "replaces": PAGED_REPLACES, "shape": f"bf16 {shape}",
                      "max_abs_err": max_err,
                      "tolerance": {str(k)[6:]: v
                                    for k, v in pa.PAGED_PARITY_TOL.items()},
@@ -878,13 +917,150 @@ def serving_requests(vocab, n=16, seed=0):
     return out
 
 
-def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
-                  max_batch_size=8, block_size=16, n_requests=16,
-                  **cfg_over):
-    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
-                                             GPTModel)
+_SPLIT = re.compile(r"paged_attention_split_kernel<[^,>]+, ?(\d+), ?(\d+)>")
+
+
+def profile_steps(step, n):
+    """Run ``step()`` ``n`` times under torch.profiler and count what the
+    card ran: ``{"split": {(Dh, rows of the instance): launches of K4's
+    split pass}, "combine": launches of its combine, "kernels": every
+    kernel, "graph_launches": cudaGraphLaunch calls, "kernel_launches":
+    kernel launch calls made from the host}``. CUPTI reports each kernel
+    of a replayed CUDA graph as its own activity, so the kernels inside
+    the graph are counted one by one."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    out = {"split": {}, "combine": 0, "kernels": 0, "graph_launches": 0,
+           "kernel_launches": 0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out["kernels"] += 1
+            m = _SPLIT.search(e.name)
+            if m:
+                key = (int(m.group(1)), int(m.group(2)))
+                out["split"][key] = out["split"].get(key, 0) + 1
+            elif "paged_attention_combine_kernel" in e.name:
+                out["combine"] += 1
+        elif e.name == "cudaGraphLaunch":
+            out["graph_launches"] += 1
+        elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx"):
+            out["kernel_launches"] += 1
+    return out
+
+
+def fill_slots(engine, vocab, n_slots, prompt_len=512, seed=5):
+    """Admit ``n_slots`` prompts of random tokens into an idle engine."""
+    rng = np.random.default_rng(seed)
+    for slot in range(n_slots):
+        engine.prefill(slot, rng.integers(0, vocab, prompt_len).tolist(),
+                       seed=slot, max_new_tokens=64)
+
+
+def free_memory():
+    """Drop what a phase left: an engine and its captured graphs refer to
+    each other, so they go with a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve(srv, reqs, vocab):
+    """Serve ``reqs`` after one warm-up request (its decode step captures
+    the engine's graphs): returns the handles, the wall time and the
+    counters, graph replays and K4's launches as the card counted them
+    (``counts["device"]``, per instance) of the timed window."""
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving.engine import StepGraph
+
+    graphs = {a: g for a, g in vars(srv.engine).items()
+              if isinstance(g, StepGraph)}
+
+    c0 = registry.counters("serving")["decode_compiles"]
+    srv.generate(list(range(1, 40)), max_new_tokens=4)
+    compiles = registry.counters("serving")["decode_compiles"] - c0
+    for scope in ("kernels", "serving", "fastpath"):
+        registry.reset(scope)
+    pa.reset_device_launches()
+    replays = {a: g.replays for a, g in graphs.items()}
+    t0 = time.perf_counter()
+    handles = [srv.submit(p, **o) for p, o in reqs]
+    for h in handles:
+        h.result(timeout=600)
+    wall = time.perf_counter() - t0
+    bad = [h for h in handles if h.status != "done"
+           or len(h.tokens) != h.max_new_tokens]
+    if bad:
+        raise AssertionError(f"unfinished requests {bad}")
+    toks = [t for h in handles for t in h.tokens]
+    if not all(0 <= t < vocab for t in toks):
+        raise AssertionError("token id out of range")
+    counts = {scope: registry.counters(scope)
+              for scope in ("kernels", "serving", "fastpath")}
+    counts["device"] = pa.device_launches()
+    counts["captures_at_warmup"] = compiles
+    counts["replays"] = {a: g.replays - replays[a] for a, g in graphs.items()}
+    ttft = sorted(h.ttft_s for h in handles)
+    step_t = registry.timings("serving")["serving.decode_step"]
+    return handles, wall, counts, {
+        "requests": len(handles), "tokens": len(toks), "wall_s": wall,
+        "tokens_per_s": len(toks) / wall,
+        "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+        "decode_step_p50_ms": step_t["p50_ms"]}
+
+
+def instance_name(key):
+    """``"bfloat16 Dh=64 rows=1"`` for a K4 instance ``(dtype, Dh, rows)``
+    of ``paged_attention.device_launches``."""
+    return f"{key[0]} Dh={key[1]} rows={key[2]}"
+
+
+def check_device_launches(what, counts, want):
+    """K4's launches as the card counted them over the timed window, per
+    instance, against ``want``; the Python counter (replays x the launches
+    a capture recorded) must sum to the same."""
+    got = counts["device"]
+    derived = counts["kernels"]["paged_attention"]
+    named = {instance_name(k): v for k, v in got.items()}
+    if got != want or sum(got.values()) != derived:
+        raise AssertionError(
+            f"{what}: the card counted K4 launches {named}; want "
+            f"{dict((instance_name(k), v) for k, v in want.items())}, and "
+            f"{derived} by the replay count")
+    return named
+
+
+def weights_sum(model):
+    """The sum of every parameter in float64: two phases that build the
+    same model from one seed must agree on it."""
+    return float(sum(p.sum(dtype=torch.float64) for p in model.parameters()))
+
+
+def check_fast_path(what, counts, captures):
+    """One capture per graph at warm-up and none after; steady steps
+    outnumber rebuilds; no demotion."""
+    fp = counts["fastpath"]
+    if counts["captures_at_warmup"] != captures or \
+            counts["serving"]["decode_compiles"]:
+        raise AssertionError(
+            f"{what}: {counts['captures_at_warmup']} graph captures at "
+            f"warm-up (want {captures}) and "
+            f"{counts['serving']['decode_compiles']} after it (want 0)")
+    if not fp["decode_fast_steps"] > fp["decode_rebuilds"] or \
+            fp["decode_demotions"]:
+        raise AssertionError(f"{what}: fast path {fp}")
+
+
+def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
+                  max_batch_size=8, block_size=16, n_requests=16,
+                  profiled_steps=4, **cfg_over):
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
     from paddle_tpu_torch.serving import GenerationServer
 
     cfg = GPTConfig.preset(preset, dtype=dtype, **cfg_over)
@@ -894,76 +1070,110 @@ def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
     srv = GenerationServer(model, max_batch_size=max_batch_size,
                            block_size=block_size, max_queue_size=64,
                            device=dev)
+    eng = srv.engine
     log(f"serving: {preset} {dtype} n_layer={cfg.n_layer} built in "
         f"{time.perf_counter() - t0:.1f} s; paged kernel "
-        f"{srv.engine.paged_kernel!r}")
+        f"{eng.paged_kernel!r}")
     try:
-        # warm-up request: first cuBLAS handles and allocations
-        srv.generate(list(range(1, 40)), max_new_tokens=4)
-        reqs = serving_requests(cfg.vocab_size, n=n_requests)
-        registry.reset("kernels")
-        registry.reset("serving")
-        t0 = time.perf_counter()
-        handles = [srv.submit(p, **o) for p, o in reqs]
-        for h in handles:
-            h.result(timeout=600)
-        wall = time.perf_counter() - t0
-        counts = pa.launches()
-        serving = registry.counters("serving")
-        step_t = registry.timings("serving")["serving.decode_step"]
+        handles, wall, counts, result = serve(
+            srv, serving_requests(cfg.vocab_size, n=n_requests),
+            cfg.vocab_size)
     finally:
         srv.shutdown()
-    bad = [h for h in handles if h.status != "done"
-           or len(h.tokens) != h.max_new_tokens]
-    if bad:
-        raise AssertionError(f"serving: unfinished requests {bad}")
-    toks = [t for h in handles for t in h.tokens]
-    if not all(0 <= t < cfg.vocab_size for t in toks):
-        raise AssertionError("serving: token id out of range")
-    steps = serving["decode_steps"]
+    launches = counts["kernels"]
+    steps = counts["serving"]["decode_steps"]
     want = steps * cfg.n_layer
-    if dev.type == "cuda":
-        if srv.engine.paged_kernel != "cuda":
-            raise AssertionError(f"serving: the engine resolved "
-                                 f"{srv.engine.paged_kernel!r} on the card")
-        if counts["paged_attention"] != want or steps == 0:
-            raise AssertionError(
-                f"serving: {counts['paged_attention']} kernel launches for "
-                f"{steps} decode steps x {cfg.n_layer} layers = {want}")
-        if counts["paged_attention_ref"]:
-            raise AssertionError(f"serving: the plain version ran "
-                                 f"{counts['paged_attention_ref']} times")
-    if serving["prefix_hits"] < 3:
-        raise AssertionError(f"serving: {serving['prefix_hits']} prefix hits"
-                             " for four requests sharing a 256-token prefix")
-    srv.engine.pool.audit()
-    ttft = sorted(h.ttft_s for h in handles)
-    result = {"requests": len(handles), "tokens": len(toks),
-              "decode_steps": steps, "wall_s": wall,
-              "tokens_per_s": len(toks) / wall,
-              "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
-              "decode_step_p50_ms": step_t["p50_ms"],
-              "prefix_hits": serving["prefix_hits"], "launches": counts}
+    head_dim = cfg.d_model // cfg.n_head
+    if eng.paged_kernel != "cuda":
+        raise AssertionError(f"serving: the engine resolved "
+                             f"{eng.paged_kernel!r} on the card")
+    check_fast_path("serving", counts, captures=1)
+    if launches["paged_attention"] != want or steps == 0:
+        raise AssertionError(
+            f"serving: {launches['paged_attention']} kernel launches for "
+            f"{steps} decode steps x {cfg.n_layer} layers = {want}")
+    if launches["paged_attention_ref"]:
+        raise AssertionError(f"serving: the plain version ran "
+                             f"{launches['paged_attention_ref']} times")
+    device = check_device_launches("serving", counts,
+                                   {(dtype, head_dim, 1): want})
+    if counts["serving"]["prefix_hits"] < 3:
+        raise AssertionError(
+            f"serving: {counts['serving']['prefix_hits']} prefix hits for "
+            "four requests sharing a 256-token prefix")
+    eng.pool.audit()
+
+    # the launches inside the graph, seen by the profiler: steady replays
+    # of a full batch, after the rebuild that admitting it asks for
+    fill_slots(eng, cfg.vocab_size, max_batch_size)
+    eng.decode_step()
+    prof = profile_steps(eng.decode_step, profiled_steps)
+    split = prof["split"].get((head_dim, 1), 0)
+    if split != cfg.n_layer * profiled_steps or \
+            prof["combine"] != split or prof["graph_launches"] != \
+            profiled_steps or prof["kernel_launches"]:
+        raise AssertionError(
+            f"serving: over {profiled_steps} steady steps the profiler saw "
+            f"{prof}; want {cfg.n_layer * profiled_steps} split passes and "
+            f"combines, {profiled_steps} graph launches and no kernel "
+            "launched from the host")
+    result.update({
+        "decode_steps": steps, "prefix_hits":
+        counts["serving"]["prefix_hits"], "launches": launches,
+        "device_launches": device,
+        "decode_launches": counts["device"][(dtype, head_dim, 1)],
+        "fastpath": counts["fastpath"], "graph_captures": 1,
+        "profiled_steps": profiled_steps,
+        "profiled": {"split_passes": split, "combines": prof["combine"],
+                     "kernels_per_step": prof["kernels"] / profiled_steps,
+                     "graph_launches": prof["graph_launches"],
+                     "host_kernel_launches": prof["kernel_launches"]}})
     log("serving: " + json.dumps(result))
-    return result
+    plain = {"tokens": [h.tokens for h in handles],
+             "greedy": [not o.get("temperature") for _, o in
+                        serving_requests(cfg.vocab_size, n=n_requests)],
+             "weights_sum": weights_sum(model)}
+    del srv, eng, model
+    free_memory()
+    return result, plain
+
+
+def _spec_run(engine, prompt, n, **opts):
+    out = [engine.prefill(0, prompt, **opts)]
+    step = getattr(engine, "decode_step_spec", None)
+    while len(out) < n:
+        out.extend(step()[0] if step else [int(engine.decode_step()[0])])
+    engine.release(0)
+    return out[:n]
 
 
 def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
-                 tol=(1e-3, 1e-3), **cfg_over):
+                 tol=(1e-3, 1e-3), draft_k=4, spec_tokens=24, **cfg_over):
     """One request through a kernel engine and a plain engine sharing one
-    float32 model. Tolerance: float32 reduction order (kernel vs gather)
-    carried through two layers and the 50304-wide LM head."""
+    float32 model, both replaying their captured steps. Tolerance: float32
+    reduction order (kernel vs gather) carried through two layers and the
+    50304-wide LM head. Then speculative engines against plain decode on
+    the same model: a twin drafter (the same weights) must have every
+    draft accepted, and an independent 1-layer drafter must leave the
+    tokens as they are; greedy and sampled."""
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel)
-    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
 
     cfg = GPTConfig.preset(preset, n_layer=n_layer, dtype="float32",
                            **cfg_over)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    model = GPTForPretraining(GPTModel(cfg, device=dev, generator=gen))
+
+    def build(seed, layers=n_layer):
+        return GPTForPretraining(GPTModel(
+            GPTConfig.preset(preset, n_layer=layers, dtype="float32",
+                             **cfg_over), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed)))
+
+    model = build(1)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
                                                333).tolist()
-    kinds = ("cuda", "torch") if dev.type == "cuda" else ("torch", "torch")
+    kinds = ("cuda", "torch")
     engines = [GenerationEngine(model, max_batch_size=2, rng_seed=0,
                                 paged_kernel=k, device=dev) for k in kinds]
     toks = [[e.prefill(0, prompt, seed=0)] for e in engines]
@@ -975,10 +1185,162 @@ def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
         max_err = max(max_err, check_close(a, b, tol, "decode logits"))
     if toks[0] != toks[1]:
         raise AssertionError(f"parity: greedy tokens differ {toks}")
-    log(f"parity: {kinds[0]} vs {kinds[1]} engine, {cfg.n_layer} layers "
-        f"d_model {cfg.d_model} float32, {steps} decode steps: max "
-        f"|logit err| {max_err:.3e} (tol {tol}), greedy tokens equal")
+    if not all(e._decode_graph.captured for e in engines):
+        raise AssertionError("parity: an engine did not capture its step")
+    for e in engines:
+        e.release(0)
+    log(f"parity: {kinds[0]} vs {kinds[1]} engine (CUDA graphs), "
+        f"{cfg.n_layer} layers d_model {cfg.d_model} float32, {steps} "
+        f"decode steps: max |logit err| {max_err:.3e} (tol {tol}), greedy "
+        "tokens equal")
+
+    plain = engines[0]
+    drafters = {"twin": build(1), "independent 1-layer": build(2, 1)}
+    spec = {}
+    for name, drafter in drafters.items():
+        eng = DraftVerifyEngine(model, drafter, draft_k=draft_k,
+                                max_batch_size=2, rng_seed=0, device=dev)
+        for opts in (dict(seed=0), dict(seed=3, temperature=0.8,
+                                        top_p=0.9)):
+            c0 = registry.counters("serving")
+            got = _spec_run(eng, prompt, spec_tokens, **opts)
+            c1 = registry.counters("serving")
+            want = _spec_run(plain, prompt, spec_tokens, **opts)
+            if got != want:
+                raise AssertionError(f"parity: spec ({name} drafter, "
+                                     f"{opts}) tokens {got} != plain {want}")
+            acc = (c1["spec_accepted"] - c0["spec_accepted"]) / (
+                c1["spec_proposed"] - c0["spec_proposed"])
+            spec[f"{name} {'greedy' if len(opts) == 1 else 'sampled'}"] = acc
+            if name == "twin" and acc != 1.0:
+                raise AssertionError(f"parity: twin drafter acceptance "
+                                     f"{acc}, want 1.0 ({opts})")
+        eng.pool.audit()
+        eng.draft_pool.audit()
+    log(f"parity: spec engines (K={draft_k}, CUDA graphs) against plain "
+        f"decode, {spec_tokens} tokens each: tokens equal; acceptance "
+        + ", ".join(f"{k} {v:.3f}" for k, v in spec.items()))
+    del engines, plain, eng, drafters, model
+    free_memory()
     return max_err
+
+
+def spec_plain_match(spec_tokens, plain):
+    """How far the spec phase's greedy requests follow phase 4's plain
+    decode on the same prompts and weights: requests equal, and tokens
+    before each request's first difference. (Sampled requests are left
+    out: each server draws its own base key.) In bf16 the verify's logits
+    (M = B (K+1) rows, K4's 8-row instance) may differ in the last bits
+    from decode's (M = B, the 1-row instance), so this is reported, not
+    asserted; float32 equality is phase 5's."""
+    pairs = [(a, b) for a, b, g in zip(spec_tokens, plain["tokens"],
+                                       plain["greedy"]) if g]
+    same = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                 len(a)) for a, b in pairs]
+    return {"greedy_requests": len(pairs),
+            "requests_equal": sum(a == b for a, b in pairs),
+            "tokens": sum(len(a) for a, _ in pairs),
+            "tokens_before_first_difference": sum(same)}
+
+
+def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
+                       draft_preset="gpt2-small", dtype="bfloat16",
+                       draft_k=4, max_batch_size=8, block_size=16,
+                       n_requests=16, profiled_rounds=3, **cfg_over):
+    """Speculative serving at full width: the target verifies through K4 at
+    a span of K + 1 rows, the drafter proposes through K4 at one row.
+    ``plain``: phase 4's tokens on the same requests and target."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.serving import GenerationServer
+
+    cfg = GPTConfig.preset(preset, dtype=dtype, **cfg_over)
+    dcfg = GPTConfig.preset(draft_preset, seq_len=cfg.seq_len, dtype=dtype)
+    t0 = time.perf_counter()
+    model = GPTForPretraining(GPTModel(
+        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+    drafter = GPTForPretraining(GPTModel(
+        dcfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2)))
+    srv = GenerationServer(model, draft_model=drafter, draft_k=draft_k,
+                           max_batch_size=max_batch_size,
+                           block_size=block_size, max_queue_size=64,
+                           device=dev)
+    eng = srv.engine
+    log(f"spec: {preset} {dtype} verifying, {draft_preset} drafting "
+        f"(n_layer={dcfg.n_layer}, seed 2), K={draft_k}, built in "
+        f"{time.perf_counter() - t0:.1f} s; paged kernels "
+        f"{eng.paged_kernel!r} / {eng._draft_kernel!r}")
+    try:
+        handles, wall, counts, result = serve(
+            srv, serving_requests(cfg.vocab_size, n=n_requests),
+            cfg.vocab_size)
+    finally:
+        srv.shutdown()
+    check_fast_path("spec", counts, captures=2)
+    sc = counts["serving"]
+    rounds = sc["spec_rounds"]
+    verifies = counts["replays"]["_verify_graph"]
+    per_round = cfg.n_layer + (draft_k + 1) * dcfg.n_layer
+    launches = counts["kernels"]
+    if rounds == 0 or rounds != verifies or \
+            launches["paged_attention"] != rounds * per_round or \
+            launches["paged_attention_ref"]:
+        raise AssertionError(
+            f"spec: {launches} kernel launches for {rounds} rounds "
+            f"({verifies} verify replays) x ({cfg.n_layer} + "
+            f"{draft_k + 1} x {dcfg.n_layer})")
+    head_dim = cfg.d_model // cfg.n_head
+    verify_key = (dtype, head_dim, 8)
+    draft_key = (dtype, dcfg.d_model // dcfg.n_head, 1)
+    device = check_device_launches("spec", counts, {
+        verify_key: rounds * cfg.n_layer,
+        draft_key: rounds * (draft_k + 1) * dcfg.n_layer})
+    eng.pool.audit()
+    eng.draft_pool.audit()
+    if weights_sum(model) != plain["weights_sum"]:
+        raise AssertionError("spec: the target's weights differ from phase "
+                             "4's, so its tokens cannot be compared")
+    match = spec_plain_match([h.tokens for h in handles], plain)
+
+    fill_slots(eng, cfg.vocab_size, max_batch_size)
+    eng.decode_step_spec()
+    prof = profile_steps(eng.decode_step_spec, profiled_rounds)
+    want = {(head_dim, 8): cfg.n_layer * profiled_rounds,
+            (dcfg.d_model // dcfg.n_head, 1):
+            (draft_k + 1) * dcfg.n_layer * profiled_rounds}
+    if prof["split"] != want or prof["graph_launches"] != \
+            2 * profiled_rounds or prof["kernel_launches"]:
+        raise AssertionError(
+            f"spec: over {profiled_rounds} rounds the profiler saw {prof}; "
+            f"want split passes {want} ((Dh, rows of the instance): the "
+            f"verify's span of {draft_k + 1} rows takes the 8-row "
+            "instance), two graph launches a round and no kernel launched "
+            "from the host")
+    for slot in range(max_batch_size):
+        eng.release(slot)
+    eng.pool.audit()
+    eng.draft_pool.audit()
+    result.update({
+        "draft_k": draft_k, "rounds": rounds,
+        "acceptance": sc["spec_accepted"] / sc["spec_proposed"],
+        "emitted_per_round": sc["spec_emitted"] / rounds,
+        "emitted_per_slot_round": sc["spec_emitted"] / sc["spec_slot_rounds"],
+        "round_p50_ms": result.pop("decode_step_p50_ms"),
+        "launches": launches, "device_launches": device,
+        "verify_launches": counts["device"][verify_key],
+        "plain_match": match,
+        "fastpath": counts["fastpath"], "graph_captures": 2,
+        "profiled_rounds": profiled_rounds,
+        "profiled": {"split_passes": {f"Dh={k[0]} rows={k[1]}": v
+                                      for k, v in prof["split"].items()},
+                     "kernels_per_round": prof["kernels"] / profiled_rounds,
+                     "graph_launches": prof["graph_launches"],
+                     "host_kernel_launches": prof["kernel_launches"]}})
+    log("spec: " + json.dumps(result))
+    del srv, eng, model, drafter
+    free_memory()
+    return result
 
 
 # ------------------------------------------------------------------ main --
@@ -1068,10 +1430,13 @@ def main():
             f"stores, {r['smem_bytes']} bytes shared memory")
 
     paged = phase_kernels(dev)
-    served = phase_serving(dev)
-    for row in paged:
-        row["launches"] = served["launches"]["paged_attention"]
+    served, plain = phase_serving(dev)
     phase_parity(dev)
+    spec = phase_spec_serving(dev, plain)
+    for row in paged:  # launches the card counted on the main path
+        row["launches"] = (spec["verify_launches"]
+                           if row["name"] == "paged_attention_verify"
+                           else served["decode_launches"])
     flash = phase_flash_kernels(dev)
     trained = phase_training(dev)
     for name, row in flash.items():
@@ -1080,7 +1445,12 @@ def main():
     phase_training_parity_bf16(dev)
     log(f"serving on {smi}: {served['tokens_per_s']:.1f} tokens/s, p50 TTFT "
         f"{served['ttft_p50_ms']:.1f} ms, p50 decode step "
-        f"{served['decode_step_p50_ms']:.2f} ms")
+        f"{served['decode_step_p50_ms']:.2f} ms (CUDA graph)")
+    log(f"spec serving on {smi}: {spec['tokens_per_s']:.1f} tokens/s, p50 "
+        f"TTFT {spec['ttft_p50_ms']:.1f} ms, p50 round "
+        f"{spec['round_p50_ms']:.2f} ms, acceptance {spec['acceptance']:.4f}"
+        f", {spec['emitted_per_round']:.2f} tokens per round; against plain "
+        f"decode {json.dumps(spec['plain_match'])}")
     log(f"training on {smi}: {trained['preset']} bf16 batch "
         f"{trained['batch']} x {trained['seq_len']}: step "
         f"{trained['step_ms']:.1f} ms, {trained['tokens_per_s']:.0f} "

@@ -43,11 +43,13 @@
 //   * Combine pass, grid (head, slot): for each row it merges the splits'
 //     partials in split order, skipping splits with m = -inf, with l
 //     floored at 1e-30 as in the TPU kernel. The order is fixed and no
-//     atomics are used, so two launches on the same inputs give the same
-//     bits.
+//     atomic touches a result (the one atomic is the launch tally), so two
+//     launches on the same inputs give the same bits.
 // Routes: every instance takes this design: float32 and bf16, Dh 64 and
 // 128, T = 1 (decode) or 2 to 8 (a verify span, one instance sized for 8
 // rows), any block size.
+// A slot's keys end at the table's M bs rows even where seq_lens says more
+// (a verify span at the cache ceiling), as in the plain version's view.
 // Inactive lanes (zeroed table row, seq_len 1, cursor 0) read block 0 and
 // give a finite result. A group or a split whose keys are all masked for a
 // row keeps m = -inf and l = 0 and is skipped at the merge, so
@@ -68,6 +70,18 @@ constexpr int kSplitKeys = 256;
 
 int64_t num_splits(int M, int bs) {
   return (int64_t(M) * bs + kSplitKeys - 1) / kSplitKeys;
+}
+
+// Launches of the split pass per instance, counted on the card by the
+// first thread of block (0, 0, 0): a launch replayed from a CUDA graph
+// counts too, where a count kept on the host moves only at capture.
+// Slot of an instance: 4 x dtype (0 float32, 1 bf16) + 2 x (Dh == 128) +
+// (an 8-row span instance).
+constexpr int kTallies = 8;
+__device__ unsigned long long g_launch_tally[kTallies];
+
+__host__ __device__ constexpr int tally_index(int dtype, int dh, int max_t) {
+  return 4 * dtype + 2 * (dh == 128) + (max_t == 8);
 }
 
 template <typename T>
@@ -143,12 +157,18 @@ paged_attention_split_kernel(const T* __restrict__ q,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int s = blockIdx.z;
+  if ((h | b | s) == 0 && threadIdx.x == 0) {
+    constexpr int kTally = tally_index(sizeof(T) == 2, DH, MAX_T);
+    atomicAdd(&g_launch_tally[kTally], 1ull);
+  }
   const Partials part = partials(ws, b, h, s, gridDim.y, H, gridDim.z,
                                  n_rows, DH);
 
   const int sl = seq_lens[b];
   const int qo = q_offsets[b];
-  const int limit = min(qo + n_rows, sl);  // keys past this serve no row
+  // keys past this serve no row; a table holds M bs of them (a verify
+  // span at the cache ceiling passes seq_lens past that)
+  const int limit = min(min(qo + n_rows, sl), M * bs);
   const int lo = s * kSplitKeys;
   const int hi = min(lo + kSplitKeys, limit);
   if (lo >= hi) {  // the split starts at or past the live length
@@ -392,6 +412,30 @@ extern "C" int paged_attention_split_keys() { return kSplitKeys; }
 extern "C" int64_t paged_attention_workspace_floats(int B, int n_rows, int H,
                                                     int Dh, int M, int bs) {
   return int64_t(B) * H * num_splits(M, bs) * n_rows * (Dh + 2);
+}
+
+// The launch tally (g_launch_tally): its number of slots; the slot of the
+// instance that serves (dtype, Dh, n_rows); a copy of the counts into
+// out[kTallies] and a reset to zero, which wait for the card first and
+// return a cudaError_t.
+extern "C" int paged_attention_tally_slots() { return kTallies; }
+
+extern "C" int paged_attention_tally_index(int dtype, int Dh, int n_rows) {
+  return tally_index(dtype, Dh, n_rows == 1 ? 1 : 8);
+}
+
+extern "C" int paged_attention_launch_tally(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return int(err);
+  return int(cudaMemcpyFromSymbol(out, g_launch_tally,
+                                  sizeof(g_launch_tally)));
+}
+
+extern "C" int paged_attention_reset_tally() {
+  const unsigned long long zero[kTallies] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return int(err);
+  return int(cudaMemcpyToSymbol(g_launch_tally, zero, sizeof(zero)));
 }
 
 // q [B, T, H, Dh]; k_pool, v_pool [num_blocks, bs, H, Dh]; block_tables

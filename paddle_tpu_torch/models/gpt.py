@@ -99,13 +99,21 @@ class GPTConfig:
 def paged_write_rows(cache_offsets, seq_lens, block_tables, block_size, T):
     """Flat pool rows ``[B * T]`` the span's K/V land in: row ``t`` of slot
     ``b`` sits at logical position ``cache_offsets[b] + t``; positions at or
-    past ``seq_lens[b]`` are redirected to the garbage block 0."""
+    past ``seq_lens[b]``, or past the table's ``M * block_size`` rows, are
+    redirected to the garbage block 0.
+
+    The second bound is the port's: the reference clamps the logical block
+    to ``M - 1`` alone (``paddle_tpu/models/gpt.py:175-181``), so a
+    speculative verify span of a slot within ``K`` rows of the ceiling
+    writes its rows past ``M * block_size`` over live rows of the slot's
+    own last block, before the same layer's attention reads them."""
     M = block_tables.shape[1]
     rows = cache_offsets.long().unsqueeze(1) + torch.arange(
         T, device=cache_offsets.device)
     blk = (rows // block_size).clamp(max=M - 1)
     phys = block_tables.long().gather(1, blk)
-    writable = rows < seq_lens.long().unsqueeze(-1)
+    writable = ((rows < seq_lens.long().unsqueeze(-1))
+                & (rows < M * block_size))
     flat = torch.where(writable, phys * block_size + rows % block_size,
                        torch.zeros_like(rows))
     return flat.reshape(-1)

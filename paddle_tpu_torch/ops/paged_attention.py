@@ -22,7 +22,16 @@ and produce finite garbage the host discards.
 
 Launch counts live in the ``kernels`` registry scope:
 ``paged_attention`` counts kernel launches, ``paged_attention_ref`` calls
-of the plain version.
+of the plain version. The count is bumped in Python, so under CUDA-graph
+capture it runs once and launches nothing; the serving engine's
+``StepGraph`` takes what a capture added back out and adds it at each
+replay. The kernel also counts its own launches on the card, per instance
+(:func:`device_launches`), replays of a graph included: that count is
+measured, the one in Python is derived. The wrapper is capturable: it reads nothing back to the host, its
+output and the split-KV workspace come from ``torch.empty`` (the graph's
+private pool under capture), and it launches on the current stream. The
+library load and the workspace size (``_workspace_floats``) run at the
+first call, so a graph's warm-up does them before capture.
 """
 from __future__ import annotations
 
@@ -205,6 +214,8 @@ def _lib():
         lib.paged_attention_workspace_floats.argtypes = [ctypes.c_int] * 6
         lib.paged_attention_workspace_floats.restype = ctypes.c_int64
         lib.paged_attention_split_keys.restype = ctypes.c_int
+        lib.paged_attention_tally_index.argtypes = [ctypes.c_int] * 3
+        lib.paged_attention_launch_tally.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -257,6 +268,38 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
     _counters["paged_attention"] += 1
+    return out
+
+
+def _tally_call(fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"paged_attention launch tally: cudaError {err}")
+
+
+def reset_device_launches():
+    """Zero the kernel's launch tally on the card (after the card has
+    finished what was queued). CUDA machines only."""
+    _tally_call(_lib().paged_attention_reset_tally)
+
+
+def device_launches():
+    """Launches of the kernel's split pass since
+    :func:`reset_device_launches`, as the card counted them:
+    ``{(dtype name, Dh, rows of the instance): n}`` for each instance with
+    a launch; a span of 2 to 8 rows takes the 8-row instance. The first
+    thread of each launch counts it on the card, so replays of a CUDA graph
+    count too. Waits for the card; CUDA machines only."""
+    lib = _lib()
+    buf = (ctypes.c_ulonglong * lib.paged_attention_tally_slots())()
+    _tally_call(lib.paged_attention_launch_tally, buf)
+    out = {}
+    for dtype, code in _DTYPE_CODE.items():
+        for dh in HEAD_DIMS:
+            for rows in (1, MAX_SPAN):
+                n = buf[lib.paged_attention_tally_index(code, dh, rows)]
+                if n:
+                    out[(str(dtype).removeprefix("torch."), dh, rows)] = n
     return out
 
 

@@ -10,7 +10,8 @@ hands immutable prefix blocks to new requests by refcount
 
 * Prefill runs one request's prompt suffix (the part after its cached
   prefix), padded to a bucket length, through the masked gather path, and
-  samples the first token at the prompt's last position.
+  samples the first token at the prompt's last position. It runs eagerly,
+  on the stream the decode graph replays on, and writes the same pools.
 * The decode step runs every slot at ``[max_batch, 1]``: each slot's last
   token at its own position, its K/V row written through its block table,
   attention through the paged kernel chosen once per engine
@@ -19,9 +20,24 @@ hands immutable prefix blocks to new requests by refcount
   host discards; their zeroed table rows aim every write at the reserved
   garbage block 0, so batch membership is data, not shape.
 
+Decode fast path (the reference's jitted step with device-resident slot
+state, ``paddle_tpu/serving/engine.py:85-96``): the slot state lives in
+persistent device tensors (last tokens, cursors, keys, token indices,
+sampling knobs, activity, block tables), and one step body reads them,
+writes the tokens and float32 logits into static outputs, and advances
+the cursors in place, masked by activity. On a CUDA device the body is
+captured once per engine into a CUDA graph (``StepGraph``), so a steady
+step is one graph replay and one device-to-host copy of the token block;
+on the CPU the same body runs directly on the same buffers. Admission,
+release, reset and the end of a chunked prefill mark the device state
+stale; the next step copies the host mirrors into the same buffers (a
+rebuild, ``fastpath.decode_rebuilds``) without recapturing. The host
+mirrors advance in lockstep, and every ``_audit_every`` fast steps an
+audit compares them with the device buffers and demotes the fast path on
+a mismatch. A capture or replay error raises; there is no eager fallback.
+
 The pools are updated in place; the reference's engine returned new pools
-from pure jitted steps. Slot state lives in host numpy mirrors and is
-uploaded each step.
+from pure jitted steps.
 
 Slot lifecycle: free -> (admission: blocks allocated/shared, suffix
 prefill, first token sampled) -> active (each decode step appends one row
@@ -30,6 +46,7 @@ at the slot's own cursor, always inside its own blocks) -> released
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 
 import numpy as np
@@ -47,9 +64,82 @@ _counters = _registry.scoped_counters("serving", {
     "active_slot_steps": 0, "bucket_promotions": 0,
     "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
     "prefix_inserted_blocks": 0, "prefix_evicted_blocks": 0,
-    "kv_blocks_hwm": 0, "chunked_prefills": 0, "prefill_chunks": 0})
+    "kv_blocks_hwm": 0, "chunked_prefills": 0, "prefill_chunks": 0,
+    "decode_compiles": 0})
+# the decode fast path: steady steps on the device-resident slot state,
+# rebuilds from the host mirrors at batch boundaries, audits of the two,
+# and demotions after a failed audit (reference engine.py:94-96)
+_fp_counters = _registry.scoped_counters("fastpath", {
+    "decode_fast_steps": 0, "decode_rebuilds": 0, "decode_audit_runs": 0,
+    "decode_demotions": 0})
+_kernel_counters = _registry.scoped_counters("kernels")
 
+# fast steps between two audits of the device slot state (the reference's
+# AUDIT_EVERY, paddle_tpu/core/lazy.py:135)
+AUDIT_EVERY = 16
+# runs of a step body before its capture: the kernels' libraries load, their
+# workspace sizes resolve and cuBLAS picks its kernels outside the graph
+_CAPTURE_WARMUP = 3
 _MASK32 = 0xFFFFFFFF
+
+
+class StepGraph:
+    """A step body that works on persistent buffers: captured once into a
+    CUDA graph and replayed on a CUDA device, called directly on the CPU.
+
+    ``capture()`` warms the body up on a side stream (the kernels' library
+    loads, their workspace sizes resolve and cuBLAS picks its kernels),
+    then records it; the caller first puts the buffers in a state whose
+    writes are harmless, because the warm-up runs the body for real. Every
+    allocation of the body then comes from the graph's private pool, and
+    each replay runs on the current stream, after whatever eager work
+    (prefill, buffer copies) was queued there before it.
+
+    Launch accounting: a kernel wrapper bumps its ``kernels`` counter in
+    Python, which under capture runs once and launches nothing. The
+    counters that capture moved are put back and kept as the graph's
+    launches per replay, and each replay adds them, so the counters still
+    count launches. ``serving.decode_compiles`` counts captures."""
+
+    def __init__(self, body, device):
+        self._body = body
+        self._device = device
+        self._graph = None
+        self.launches = {}
+        self.replays = 0
+
+    @property
+    def captured(self):
+        return self._graph is not None
+
+    def capture(self):
+        dev = self._device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(_CAPTURE_WARMUP):
+                self._body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        before = dict(_kernel_counters)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._body()
+        self.launches = {k: v - before.get(k, 0)
+                         for k, v in _kernel_counters.items()
+                         if v != before.get(k, 0)}
+        for k, n in self.launches.items():
+            _kernel_counters[k] -= n
+        self._graph = graph
+        _counters["decode_compiles"] += 1
+
+    def __call__(self):
+        if self._device.type != "cuda":
+            self._body()
+            return
+        self._graph.replay()
+        self.replays += 1
+        for k, n in self.launches.items():
+            _kernel_counters[k] += n
 
 
 def _default_buckets(max_seq_len):
@@ -171,8 +261,31 @@ class GenerationEngine:
             self._base_key = torch.tensor([s & _MASK32, (s >> 32) & _MASK32],
                                           dtype=torch.int64)
         self._seed_counter = itertools.count()
-        # float32 [max_batch, vocab] logits of the latest decode step (a
-        # reference to a tensor the step made anyway), for parity checks
+
+        # the decode fast path: device copies of the slot state above, the
+        # step's static outputs, and the step body on them
+        dev = self.device
+        self._d_last = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._d_lens = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._d_keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+        self._d_gen = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._d_temps = torch.zeros(B, dtype=torch.float32, device=dev)
+        self._d_top_ks = torch.zeros(B, dtype=torch.int64, device=dev)
+        self._d_top_ps = torch.ones(B, dtype=torch.float32, device=dev)
+        self._d_active = torch.zeros(B, dtype=torch.bool, device=dev)
+        self._d_tables = torch.zeros((B, self.blocks_per_slot),
+                                     dtype=torch.int32, device=dev)
+        self._d_toks = torch.zeros(B, dtype=torch.int32, device=dev)
+        self._d_logits = torch.zeros((B, self._head_w.shape[0]),
+                                     dtype=torch.float32, device=dev)
+        self._decode_graph = StepGraph(self._decode_body, dev)
+        # False after a batch boundary: the next step rebuilds the device
+        # state from the host mirrors
+        self._fast = False
+        self._decode_since_audit = 0
+        self._audit_every = AUDIT_EVERY
+        # float32 [max_batch, vocab] logits of the latest decode step: the
+        # step's static output buffer, valid until the next step
         self.last_logits = None
 
     # ------------------------------------------------------------- slots --
@@ -200,6 +313,7 @@ class GenerationEngine:
         self._active[slot] = False
         self._cur_lens[slot] = 0
         self._gen_idx[slot] = 0
+        self._fast = False  # slot membership changed: rebuild
 
     def slot_len(self, slot):
         return int(self._cur_lens[slot])
@@ -298,27 +412,47 @@ class GenerationEngine:
         bt_row[:len(table_ids)] = table_ids
         return table_ids, bt_row, P
 
+    @contextlib.contextmanager
+    def _unwinding(self, table_ids):
+        """Give an admission's blocks back if the block raises: a failed
+        admission leaks nothing."""
+        try:
+            yield
+        except Exception:
+            self.pool.decref(table_ids)
+            self._note_pool()
+            raise
+
     def _upload(self, array, dtype=None):
         t = torch.from_numpy(np.ascontiguousarray(array))
         return t.to(device=self.device, dtype=dtype)
 
-    def _prefill_call(self, window, end, start, bt_row, key, temperature,
-                      top_k, top_p):
-        """One prefill pass over prompt[start:end], padded to its bucket.
-        Rows at or past ``end`` go to the garbage block; the sample is taken
-        at ``end - 1`` (intermediate chunks discard it)."""
+    def _paged_prefill(self, gpt, kv, window, end, start, bt_row):
+        """``gpt``'s paged forward over prompt[start:end] (``window``),
+        padded to its bucket, through the masked gather path; writes the
+        window's K/V rows into ``kv`` through ``bt_row``. Rows at or past
+        ``end`` go to the garbage block. Returns the hidden states."""
         L = self.bucket_for(len(window))
         ids = np.zeros((1, L), np.int64)
         ids[0, :len(window)] = window
         positions = np.minimum(start + np.arange(L), self.max_seq_len - 1)
+        hidden, _ = gpt(
+            self._upload(ids), position_ids=self._upload(positions[None]),
+            caches=kv,
+            cache_offsets=self._upload(np.asarray([start], np.int32)),
+            seq_lens=self._upload(np.asarray([end], np.int32)),
+            block_tables=self._upload(bt_row[None]))
+        return hidden
+
+    def _prefill_call(self, window, end, start, bt_row, key, temperature,
+                      top_k, top_p):
+        """One prefill pass over prompt[start:end], padded to its bucket;
+        the sample is taken at ``end - 1`` (intermediate chunks discard
+        it)."""
         with torch.no_grad(), \
                 _registry.time_block("prefill", scope="serving"):
-            hidden, _ = self._gpt(
-                self._upload(ids), position_ids=self._upload(positions[None]),
-                caches=self._kv,
-                cache_offsets=self._upload(np.asarray([start], np.int32)),
-                seq_lens=self._upload(np.asarray([end], np.int32)),
-                block_tables=self._upload(bt_row[None]))
+            hidden = self._paged_prefill(self._gpt, self._kv, window, end,
+                                         start, bt_row)
             last = hidden[0, end - 1 - start].float()
             logits = (last @ self._head_w.t()).unsqueeze(0)
             gum = _sampling.gumbel_rows(
@@ -331,8 +465,25 @@ class GenerationEngine:
                 self._upload(np.asarray([top_p], np.float32)), gum)
             return int(tok.item())
 
+    def _reserve_extra(self, slot, prompt, max_new_tokens):
+        """Subclass hook (spec decode): reserve extra per-slot resources
+        (the drafter's block budget) at admission. ``begin_prefill`` calls
+        it, so a chunked admission holds its whole footprint from its
+        start and a shortage surfaces as ``PagePoolExhausted`` there."""
+
+    def _chunk_extra(self, slot, prompt, start, end):
+        """Subclass hook (spec decode): extra work per prefill chunk (the
+        drafter ingests the same window)."""
+
+    def _install_extra(self, slot, prompt, max_new_tokens):
+        """Subclass hook (spec decode): extra admission work run before the
+        slot is installed. Raising here unwinds the admission."""
+
     def _install_slot(self, slot, prompt, table_ids, bt_row, tok, key,
-                      temperature, top_k, top_p, matched_prefix):
+                      temperature, top_k, top_p, matched_prefix,
+                      max_new_tokens):
+        with self._unwinding(table_ids):
+            self._install_extra(slot, prompt, max_new_tokens)
         if matched_prefix:
             _counters["prefix_hits"] += 1
             _counters["prefix_hit_tokens"] += matched_prefix
@@ -354,6 +505,7 @@ class GenerationEngine:
         self._top_ks[slot] = top_k
         self._top_ps[slot] = top_p
         self._keys[slot] = key
+        self._fast = False  # admission is a batch boundary: rebuild
         self._note_pool()
         _counters["prefills"] += 1
         _counters["tokens_generated"] += 1
@@ -374,15 +526,11 @@ class GenerationEngine:
         prompt = self._check_prompt(slot, prompt_ids)
         table_ids, bt_row, P = self._admit_blocks(prompt, max_new_tokens)
         key = self._request_key(seed)
-        try:
+        with self._unwinding(table_ids):
             tok = self._prefill_call(prompt[P:], len(prompt), P, bt_row, key,
                                      temperature, top_k, top_p)
-        except Exception:
-            self.pool.decref(table_ids)  # failed admission leaks nothing
-            self._note_pool()
-            raise
         self._install_slot(slot, prompt, table_ids, bt_row, tok, key,
-                           temperature, top_k, top_p, P)
+                           temperature, top_k, top_p, P, max_new_tokens)
         return tok
 
     # -------------------------------------------------- chunked prefill --
@@ -398,11 +546,14 @@ class GenerationEngine:
         bs = self.block_size
         chunk = max(bs, (int(chunk_tokens or bs) // bs) * bs)
         table_ids, bt_row, P = self._admit_blocks(prompt, max_new_tokens)
+        with self._unwinding(table_ids):
+            self._reserve_extra(slot, prompt, max_new_tokens)
         self._mid_prefill[slot] = {
             "prompt": prompt, "done": P, "chunk": chunk,
             "table_ids": table_ids, "bt_row": bt_row,
             "key": self._request_key(seed), "temperature": temperature,
-            "top_k": top_k, "top_p": top_p, "matched": P}
+            "top_k": top_k, "top_p": top_p, "matched": P,
+            "max_new_tokens": max_new_tokens}
         self._note_pool()
         _counters["chunked_prefills"] += 1
         return -(-(len(prompt) - P) // chunk)
@@ -413,62 +564,137 @@ class GenerationEngine:
         token, installs the slot and returns that token. Earlier chunks are
         a longer prefix whose length is data, so a chunked prompt gives the
         tokens an unchunked one gives."""
-        st = self._mid_prefill.get(slot)
+        st = self._mid_prefill.pop(slot, None)
         if st is None:
             raise RuntimeError(f"slot {slot} has no prefill in progress")
         prompt, start = st["prompt"], st["done"]
         end = min(start + st["chunk"], len(prompt))
-        try:
+        # on a failure the admission ends here; reserved extras (drafter
+        # blocks) come back when the scheduler releases the slot
+        with self._unwinding(st["table_ids"]):
             tok = self._prefill_call(
                 prompt[start:end], end, start, st["bt_row"], st["key"],
                 st["temperature"], st["top_k"], st["top_p"])
-        except Exception:
-            del self._mid_prefill[slot]
-            self.pool.decref(st["table_ids"])
-            self._note_pool()
-            raise
+            self._chunk_extra(slot, prompt, start, end)
         st["done"] = end
         _counters["prefill_chunks"] += 1
         if end < len(prompt):
+            self._mid_prefill[slot] = st
             return None
-        del self._mid_prefill[slot]
         self._install_slot(
             slot, prompt, st["table_ids"], st["bt_row"], tok, st["key"],
-            st["temperature"], st["top_k"], st["top_p"], st["matched"])
+            st["temperature"], st["top_k"], st["top_p"], st["matched"],
+            st["max_new_tokens"])
         return tok
 
     # ------------------------------------------------------------- decode --
+    def _decode_body(self):
+        """The decode step on the device slot state: every slot's last
+        token at its own position, sampled into ``_d_toks`` with its float32
+        logits in ``_d_logits``; the cursors of active slots advance in
+        place. Decode semantics of the reference (``_decode_pure``):
+        positions clamp to ``max_seq_len - 1``, ``seq_lens = cur_lens + 1``,
+        ``q_offsets = positions``, the LM head runs in float32."""
+        with torch.no_grad():
+            lens = self._d_lens
+            positions = lens.clamp(max=self.max_seq_len - 1)
+            hidden, _ = self._gpt(
+                self._d_last.unsqueeze(1),
+                position_ids=positions.long().unsqueeze(1), caches=self._kv,
+                cache_offsets=positions, seq_lens=lens + 1,
+                block_tables=self._d_tables,
+                paged_kernel=self._paged_kernel)
+            logits = hidden[:, 0].float() @ self._head_w.t()
+            gum = _sampling.gumbel_rows(self._d_keys, self._d_gen,
+                                        logits.shape[-1])
+            toks = _sampling.sample_tokens(logits, self._d_temps,
+                                           self._d_top_ks, self._d_top_ps,
+                                           gum)
+            self._d_logits.copy_(logits)
+            self._d_toks.copy_(toks)
+            active = self._d_active
+            self._d_last.copy_(torch.where(active, toks.long(),
+                                           self._d_last))
+            lens.add_(active.int())
+            self._d_gen.add_(active.long())
+
+    def _mirrors(self):
+        """(device buffer, host mirror) pairs of the slot state: what a
+        rebuild copies and the audit compares."""
+        return [(self._d_last, self._last_tokens),
+                (self._d_lens, self._cur_lens), (self._d_keys, self._keys),
+                (self._d_gen, self._gen_idx), (self._d_temps, self._temps),
+                (self._d_top_ks, self._top_ks),
+                (self._d_top_ps, self._top_ps),
+                (self._d_active, self._active),
+                (self._d_tables, self._block_tables)]
+
+    def _prepare_fast(self, graphs):
+        """Before a step: audit at its cadence, and after a batch boundary
+        (or a failed audit) capture what is not captured yet and copy the
+        host mirrors into the device buffers (a rebuild). Capture runs the
+        bodies for real during warm-up, so it starts from an idle state:
+        every slot inactive on the garbage block. (A spec engine's plain
+        ``decode_step`` after its rounds finds its own graph uncaptured.)"""
+        capture = self.device.type == "cuda" and \
+            not all(g.captured for g in graphs)
+        if capture:
+            self._fast = False
+        if self._fast and self._decode_since_audit + 1 >= self._audit_every:
+            self._audit_fast()
+        if self._fast:
+            self._decode_since_audit += 1
+            _fp_counters["decode_fast_steps"] += 1
+            return
+        if capture:
+            for buf, _ in self._mirrors():
+                buf.zero_()
+            for g in graphs:
+                if not g.captured:
+                    g.capture()
+        for buf, host in self._mirrors():
+            buf.copy_(torch.from_numpy(host))
+        self._fast = True
+        self._decode_since_audit = 0
+        _fp_counters["decode_rebuilds"] += 1
+
+    def _audit_fast(self):
+        """The device slot state must equal the host mirrors bit for bit;
+        a mismatch demotes the fast path (the next step rebuilds from the
+        mirrors, which stay authoritative) with an explainer record."""
+        _fp_counters["decode_audit_runs"] += 1
+        self._decode_since_audit = 0
+        if all(np.array_equal(buf.cpu().numpy(), host)
+               for buf, host in self._mirrors()):
+            return
+        _fp_counters["decode_demotions"] += 1
+        self._fast = False
+        _explain.record(
+            "fastpath_demoted", op="serving.decode", reason="decode_audit",
+            why="decode audit: the device slot state diverged from the host "
+                "mirrors; rebuilding from the host state")
+
     def decode_step(self):
         """One continuous-batching iteration over all slots; returns the
         int32 ``[max_batch]`` token block (junk on inactive lanes) and
-        advances every active slot's cursor and token index.
-
-        Decode semantics of the reference: positions clamp to
-        ``max_seq_len - 1``, ``seq_lens = cur_lens + 1``, ``q_offsets =
-        positions``, and the LM head runs in float32."""
+        advances every active slot's cursor and token index. A steady step
+        is one replay of the captured body and one read of the token
+        block; after a batch boundary the step first rebuilds the device
+        state from the host mirrors."""
         active = self._active
         n_active = int(active.sum())
         if n_active == 0:
             raise RuntimeError("decode_step with no active slots")
-        positions = np.minimum(self._cur_lens, self.max_seq_len - 1)
-        with torch.no_grad(), \
-                _registry.time_block("decode_step", scope="serving"):
-            hidden, _ = self._gpt(
-                self._upload(self._last_tokens[:, None]),
-                position_ids=self._upload(positions[:, None], torch.int64),
-                caches=self._kv, cache_offsets=self._upload(positions),
-                seq_lens=self._upload(self._cur_lens + 1),
-                block_tables=self._upload(self._block_tables),
-                paged_kernel=self._paged_kernel)
-            logits = hidden[:, 0].float() @ self._head_w.t()
-            self.last_logits = logits
-            gum = _sampling.gumbel_rows(self._upload(self._keys),
-                                        self._upload(self._gen_idx),
-                                        logits.shape[-1])
-            toks = _sampling.sample_tokens(
-                logits, self._upload(self._temps),
-                self._upload(self._top_ks), self._upload(self._top_ps),
-                gum).cpu().numpy()
+        with _registry.time_block("decode_step", scope="serving"):
+            self._prepare_fast((self._decode_graph,))
+            self._decode_graph()
+            toks = self._d_toks.cpu().numpy()
+        self.last_logits = self._d_logits
+        self._finish_decode(active, n_active, toks)
+        return toks
+
+    def _finish_decode(self, active, n_active, toks):
+        # host mirrors advance in lockstep with the device copies
         self._cur_lens[active] += 1
         self._gen_idx[active] += 1
         self._last_tokens[active] = toks[active]
@@ -477,7 +703,6 @@ class GenerationEngine:
         _counters["tokens_generated"] += n_active
         _registry.gauge_set("serving.batch_occupancy",
                             n_active / self.max_batch_size)
-        return toks
 
     # -------------------------------------------------------------- stats --
     @property

@@ -5,8 +5,9 @@ Each ``step()`` (1) fails queued requests whose deadline passed, (2) admits
 queued requests into free slots while the KV block pool can cover their
 worst case — one prefill each, which yields the request's first token —
 (2b) advances one chunk of every chunked admission, then (3) runs one
-decode iteration over every active slot and applies per-request stop
-conditions (EOS, max tokens, cache capacity, deadline). A finished
+decode iteration over every active slot (a speculative engine's round
+emits several tokens per slot) and applies per-request stop conditions
+(EOS, max tokens, cache capacity, deadline) token by token. A finished
 request's slot frees this iteration and can be refilled the next.
 
 ``submit()`` on a full queue raises ``QueueFullError`` at once (fast-fail
@@ -244,12 +245,28 @@ class ContinuousBatchScheduler:
                 _registry.timing("ttft", req.ttft_s, scope="serving")
                 self._append_token(req, first)
 
-        # (3) one decode iteration over every active slot
+        # (3) one decode iteration over every active slot. A speculative
+        # engine (decode_step_spec) emits 1..K+1 tokens per slot, each equal
+        # to plain decode's; stop conditions apply per token in emission
+        # order, and tokens after a stop are dropped
         if self._active:
-            toks = self.engine.decode_step()
-            now = time.monotonic()
-            for slot, req in list(self._active.items()):
-                self._append_token(req, int(toks[slot]), now)
+            spec = getattr(self.engine, "decode_step_spec", None)
+            if spec is not None:
+                per_slot = spec()
+                now = time.monotonic()
+                for slot, req in list(self._active.items()):
+                    toks = per_slot[slot]
+                    base = self.engine.slot_len(slot) - len(toks)
+                    for i, t in enumerate(toks):
+                        self._append_token(req, int(t), now,
+                                           slot_len=base + i + 1)
+                        if req.done:
+                            break
+            else:
+                toks = self.engine.decode_step()
+                now = time.monotonic()
+                for slot, req in list(self._active.items()):
+                    self._append_token(req, int(toks[slot]), now)
 
         self._update_throughput()
         return self.has_work()
@@ -311,14 +328,19 @@ class ContinuousBatchScheduler:
         self._append_token(req, first, now)
         return True
 
-    def _append_token(self, req, token, now=None):
+    def _append_token(self, req, token, now=None, slot_len=None):
+        # slot_len: the sequence length as of this token. A speculative
+        # round appends several tokens at once, with the engine's cursor
+        # already past them; the length stop must see each token's own
+        # position, as plain decode would have
         req.tokens.append(token)
+        if slot_len is None and req.slot is not None:
+            slot_len = self.engine.slot_len(req.slot)
         if req.eos_id is not None and token == req.eos_id:
             self._finish(req, RequestStatus.DONE, stop_reason="eos")
         elif len(req.tokens) >= req.max_new_tokens:
             self._finish(req, RequestStatus.DONE, stop_reason="max_tokens")
-        elif req.slot is not None and \
-                self.engine.slot_len(req.slot) >= self.engine.max_seq_len:
+        elif req.slot is not None and slot_len >= self.engine.max_seq_len:
             self._finish(req, RequestStatus.DONE, stop_reason="length")
         elif req.deadline is not None and \
                 (now or time.monotonic()) > req.deadline:

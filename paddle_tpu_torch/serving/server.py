@@ -22,26 +22,35 @@ from ..profiler import explainer as _explain
 from .engine import GenerationEngine
 from .scheduler import (ContinuousBatchScheduler, GenerationRequest,
                         RequestStatus)
+from .spec_decode import DraftVerifyEngine
 
 
 class GenerationServer:
     """Serve a GPT model (or a prebuilt ``engine``). Engine options are
     those of ``GenerationEngine``; ``device=None`` runs on the current CUDA
-    device and raises without one."""
+    device and raises without one. ``draft_model`` (with ``draft_k``)
+    serves through a ``DraftVerifyEngine``."""
 
     def __init__(self, model=None, engine=None, max_batch_size=4,
                  buckets=None, max_seq_len=None, max_queue_size=16,
                  idle_wait_s=0.005, block_size=16, num_blocks=None,
-                 prefill_chunk_tokens=None, paged_kernel=None, device=None):
+                 prefill_chunk_tokens=None, paged_kernel=None, device=None,
+                 draft_model=None, draft_k=4):
         if engine is None:
             if model is None:
                 raise ValueError("GenerationServer needs a model or an "
                                  "engine")
-            engine = GenerationEngine(
-                model, max_batch_size=max_batch_size, buckets=buckets,
-                max_seq_len=max_seq_len, block_size=block_size,
-                num_blocks=num_blocks, paged_kernel=paged_kernel,
-                device=device)
+            ekw = dict(max_batch_size=max_batch_size, buckets=buckets,
+                       max_seq_len=max_seq_len, block_size=block_size,
+                       num_blocks=num_blocks, paged_kernel=paged_kernel,
+                       device=device)
+            if draft_model is not None:
+                # speculative decoding: the drafter proposes draft_k tokens
+                # per iteration and the target verifies them in one forward
+                engine = DraftVerifyEngine(model, draft_model,
+                                           draft_k=draft_k, **ekw)
+            else:
+                engine = GenerationEngine(model, **ekw)
         self.engine = engine
         self.scheduler = ContinuousBatchScheduler(
             engine, max_queue_size=max_queue_size,

@@ -29,10 +29,11 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _case(dev, dtype, T, Dh, bs, lens, seed):
+def _case(dev, dtype, T, Dh, bs, lens, seed, M=None):
     g = torch.Generator().manual_seed(seed)
     B, H = len(lens), 4
-    M = max(-(-n // bs) for n in lens) + 1
+    if M is None:
+        M = max(-(-n // bs) for n in lens) + 1
     Nb = 1 + B * M
     q = torch.randn(B, T, H, Dh, generator=g).to(dev, dtype)
     kp = torch.randn(Nb, bs, H, Dh, generator=g).to(dev, dtype)
@@ -58,10 +59,14 @@ SPLIT_LENS = {"ragged": lambda C: [37, 9, 16, 300],
 @pytest.mark.parametrize("lens", list(SPLIT_LENS.values()),
                          ids=list(SPLIT_LENS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T", [1, 3, 8])
+@pytest.mark.parametrize("T", [1, 3, 5, 8])
 @pytest.mark.parametrize("Dh,bs", [(64, 16), (128, 16), (64, 5), (128, 1)])
 def test_kernel_matches_plain_version(cuda, dtype, T, Dh, bs, lens):
     args = _case(cuda, dtype, T, Dh, bs, lens(pa.split_keys()), seed=T + bs)
+    _assert_kernel_matches(args, dtype)
+
+
+def _assert_kernel_matches(args, dtype):
     out = pa.paged_attention(*args)
     torch.cuda.synchronize()
     ref = pa.paged_attention_ref(*args)
@@ -73,11 +78,48 @@ def test_kernel_matches_plain_version(cuda, dtype, T, Dh, bs, lens):
     assert pa.paged_rel_err(out, exact) <= pa.PAGED_PARITY_REL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [5, 8])
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_kernel_stops_at_the_tables_last_row(cuda, dtype, T, Dh):
+    # a verify span at the cache ceiling: cursors up to the table's last
+    # row (M = 4 blocks of 16), seq_lens = cursor + T past it; the keys end
+    # at row 63, as in the plain version's view
+    args = _case(cuda, dtype, T, Dh, 16, [63 + T, 9, 62 + T, 60 + T],
+                 seed=T + Dh, M=4)
+    _assert_kernel_matches(args, dtype)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     args = list(_case(cuda, torch.float32, 1, 64, 16, [20, 9, 16, 30], 0))
     args[3] = args[3].long()
     with pytest.raises(ValueError, match="int32"):
         pa.paged_attention(*args)
+
+
+def test_launch_tally_counts_each_instance_and_graph_replays(cuda):
+    # the card counts every launch of the split pass per instance, replays
+    # of a captured graph included (the Python counter moves at capture)
+    dec = _case(cuda, torch.bfloat16, 1, 64, 16, [20, 9, 16, 30], 1)
+    ver = _case(cuda, torch.float32, 5, 128, 16, [20, 9, 16, 30], 2)
+    pa.paged_attention(*dec)
+    pa.paged_attention(*ver)  # loads the library, sizes the workspaces
+    pa.reset_device_launches()
+    pa.paged_attention(*ver)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(*dec)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        pa.paged_attention(*dec)
+    for _ in range(3):
+        graph.replay()
+    assert pa.device_launches() == {("bfloat16", 64, 1): 4,
+                                    ("float32", 128, 8): 1}
+    pa.reset_device_launches()
+    assert pa.device_launches() == {}
 
 
 def test_engine_tokens_kernel_equals_plain(cuda):
@@ -100,6 +142,70 @@ def test_engine_tokens_kernel_equals_plain(cuda):
             toks.extend(eng.decode_step().tolist())
         outs.append(toks)
     assert outs[0] == outs[1]
+
+
+def _tiny_gpt(dev, n_layer, seed):
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+
+    cfg = GPTConfig(vocab_size=512, n_layer=n_layer, n_head=4, d_model=256,
+                    seq_len=256, initializer_range=0.2)
+    return GPTForPretraining(GPTModel(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(seed)))
+
+
+def test_graph_step_equals_its_body_called_eagerly(cuda):
+    import numpy as np
+
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _tiny_gpt(cuda, 2, 0)
+    outs = []
+    for replay in (True, False):
+        eng = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                               block_size=16, device=cuda)
+        toks = [eng.prefill(0, list(range(3, 40)), seed=0),
+                eng.prefill(1, list(range(7, 20)), seed=1, temperature=0.8)]
+        if not replay:  # the same buffers, the body run from Python
+            for buf, host in eng._mirrors():
+                buf.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+        for _ in range(12):
+            if replay:
+                toks.extend(eng.decode_step().tolist())
+            else:
+                eng._decode_body()
+                t = eng._d_toks.cpu().numpy()
+                eng._finish_decode(eng._active, 2, t)
+                toks.extend(t.tolist())
+        outs.append(toks)
+    assert outs[0] == outs[1]
+    assert eng._decode_graph.replays == 0
+
+
+@pytest.mark.parametrize("drafter_seed,n_layer", [(0, 2), (5, 1)],
+                         ids=["twin", "independent"])
+def test_spec_graphs_equal_plain_decode(cuda, drafter_seed, n_layer):
+    from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
+
+    model = _tiny_gpt(cuda, 2, 0)
+    spec = DraftVerifyEngine(model, _tiny_gpt(cuda, n_layer, drafter_seed),
+                             draft_k=4, max_batch_size=2, rng_seed=3,
+                             block_size=16, device=cuda)
+    plain = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                             block_size=16, device=cuda)
+    for opts in (dict(seed=0), dict(seed=2, temperature=0.8)):
+        got = [spec.prefill(0, list(range(3, 40)), **opts)]
+        while len(got) < 30:
+            got.extend(spec.decode_step_spec()[0])
+        want = [plain.prefill(0, list(range(3, 40)), **opts)]
+        while len(want) < 30:
+            want.append(int(plain.decode_step()[0]))
+        assert got[:30] == want[:30]
+        spec.release(0)
+        plain.release(0)
+    assert spec._verify_graph.captured and spec._draft_graph.captured
+    spec.pool.audit()
+    spec.draft_pool.audit()
 
 
 def _flash_case(dev, dtype, B, T, N, H, seed, strided=False):
@@ -184,7 +290,8 @@ def test_flash_kernels_repeat_bitwise(cuda, B, T, N, H):
                          ids=["8x1024", "2x2048"])
 def test_paged_kernel_repeats_bitwise(cuda, lens):
     # the split pass and the combine read the splits in a fixed order with
-    # no atomics: two launches on the same inputs give the same bits
+    # no atomic touching a result: two launches on the same inputs give
+    # the same bits
     g = torch.Generator().manual_seed(5)
     B, H, Dh, bs, M = len(lens), 32, 64, 16, 128
     q = torch.randn(B, 1, H, Dh, generator=g).to(cuda, torch.bfloat16)

@@ -1,18 +1,35 @@
 #!/usr/bin/env python3
-"""Where a decode step of paddle_tpu_torch's serving engine spends its time.
+"""Where a decode step of paddle_tpu_torch's serving engine spends its time:
+the steady step through its CUDA graph against the same step body run
+eagerly, and one speculative round, in one run.
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_decode_profile.py [--preset gpt3-1.3B] [--steps 10]
+        [--draft-preset gpt2-small] [--draft-k 4]
         [--trace decode_trace.json]
 
-Builds the preset in bf16 with random weights from seed 0, fills every one
-of 8 slots with a 512-token prompt, warms up, then times 30 decode steps on
-the host clock and traces 10 more with ``torch.profiler``. Prints the card
-(nvidia-smi name and power limit), the step-time p50, the kernels launched
-per step, the device-busy share of the traced window (union of kernel
-intervals over wall time) and the device time by kernel; ``--trace``
-also writes the chrome trace to that path.
+Builds the preset in bf16 with random weights from seed 0 and fills every
+one of 8 slots with a 512-token prompt. Then, on the same engine and
+slots:
+
+* graph: the steady step as the engine runs it (one replay of the
+  captured body and one read of the token block), 30 steps timed on the
+  host clock, 10 more traced with ``torch.profiler``;
+* eager: the same body called from Python on the same buffers (the
+  engine's private ``_decode_body``; the engine itself never takes this
+  route on a GPU), timed and traced the same way.
+
+Then a ``DraftVerifyEngine`` over the same target, the drafter preset in
+bf16 from seed 2 drafting ``--draft-k`` tokens, with the same 8 prompts:
+rounds timed and traced the same way.
+
+Prints the card (nvidia-smi name and power limit) and, for each route,
+the host-clock p50, the kernels per step, the kernels launched from the
+host per step (cudaLaunchKernel calls), the graph launches per step, the
+device time per step and its busy share of the traced window (union of
+kernel intervals over wall time), and the device time by kernel;
+``--trace`` writes the graph route's chrome trace to that path.
 """
 from __future__ import annotations
 
@@ -28,6 +45,8 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+_HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                  "cuLaunchKernel", "cuLaunchKernelEx")
 
 
 def _busy_union(intervals):
@@ -42,54 +61,29 @@ def _busy_union(intervals):
     return total
 
 
-def main():
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", default="gpt3-1.3B")
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--prompt-len", type=int, default=512)
-    ap.add_argument("--trace", default=None,
-                    help="write the chrome trace of the window here")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(REPO))
-    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
-                                             GPTModel)
-    from paddle_tpu_torch.serving import GenerationEngine
-
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60).stdout.strip()
-    dev = torch.device("cuda", 0)
-    cfg = GPTConfig.preset(args.preset, dtype="bfloat16")
-    model = GPTForPretraining(GPTModel(
-        cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)))
-    eng = GenerationEngine(model, max_batch_size=8, block_size=16,
-                           device=dev)
-    rng = np.random.default_rng(0)
-    for slot in range(8):
-        eng.prefill(slot, rng.integers(0, cfg.vocab_size,
-                                       args.prompt_len).tolist(), seed=slot)
+def measure(step, steps, trace=None):
+    """Host-clock p50 over 30 calls of ``step``, then ``steps`` more under
+    torch.profiler: returns (summary dict, [(name, (count, us))] by device
+    time)."""
     for _ in range(3):
-        eng.decode_step()
+        step()
     host = []
     for _ in range(30):
         t0 = time.perf_counter()
-        eng.decode_step()
+        step()
         host.append(time.perf_counter() - t0)
     host.sort()
-
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            eng.decode_step()
+        for _ in range(steps):
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
+    events = prof.events()
+    kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = _busy_union((e.time_range.start, e.time_range.end)
                           for e in kernels)
@@ -98,33 +92,112 @@ def main():
         rec = by_name.setdefault(e.name, [0, 0.0])
         rec[0] += 1
         rec[1] += e.time_range.end - e.time_range.start
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
-    if args.trace:
-        Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-
-    print(f"card: {smi}")
-    print(f"{args.preset} bf16, 8 slots x {args.prompt_len}-token prompts")
-    for name, (n, us) in top[:15]:
-        print(f"  {us / args.steps:9.1f} us/step  {n // args.steps:4d}/step  "
-              f"{name[:90]}")
-    print(json.dumps({
-        "card": smi, "preset": args.preset,
-        "decode_step_p50_ms": host[len(host) // 2] * 1e3,
-        "traced_step_ms": wall_us / args.steps / 1e3,
-        "kernels_per_step": len(kernels) / args.steps,
-        "device_busy_share": busy_us / wall_us,
+    if trace:
+        Path(trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(trace)
+    cpu = [e.name for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    summary = {
+        "host_p50_ms": host[len(host) // 2] * 1e3,
+        "traced_step_ms": wall_us / steps / 1e3,
+        "kernels_per_step": len(kernels) / steps,
+        "host_kernel_launches_per_step":
+            sum(n in _HOST_LAUNCHES for n in cpu) / steps,
+        "graph_launches_per_step": cpu.count("cudaGraphLaunch") / steps,
         "device_ms_per_step": sum(v[1] for v in by_name.values())
-        / args.steps / 1e3,
+        / steps / 1e3,
+        "device_busy_share": busy_us / wall_us,
         # K4 is two kernels per call, the split pass and the combine
         "paged_attention_us_per_step": sum(
             us for name, (n, us) in by_name.items()
-            if "paged_attention" in name) / args.steps,
+            if "paged_attention" in name) / steps,
         "paged_attention_kernels": {
-            re.search(r"paged_attention_\w+?_kernel", name)[0]: {
-                "per_step": n / args.steps, "us_per_step": us / args.steps}
+            re.search(r"paged_attention_\w+?_kernel<[^(]*?>", name)[0]: {
+                "per_step": n / steps, "us_per_step": us / steps}
             for name, (n, us) in by_name.items()
-            if "paged_attention" in name}}))
+            if "paged_attention" in name}}
+    return summary, sorted(by_name.items(), key=lambda kv: -kv[1][1])
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="gpt3-1.3B")
+    ap.add_argument("--draft-preset", default="gpt2-small")
+    ap.add_argument("--draft-k", type=int, default=4)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--trace", default=None,
+                    help="write the graph route's chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    cfg = GPTConfig.preset(args.preset, dtype="bfloat16")
+    model = GPTForPretraining(GPTModel(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)))
+    prompts = [np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, args.prompt_len))[i].tolist()
+        for i in range(8)]
+
+    def fill(eng):
+        for slot, prompt in enumerate(prompts):
+            eng.prefill(slot, prompt, seed=slot)
+
+    eng = GenerationEngine(model, max_batch_size=8, block_size=16,
+                           device=dev)
+    fill(eng)
+
+    def eager_step():
+        # the body the graph holds, called from Python on the same buffers
+        active = eng._active
+        eng._decode_body()
+        eng._finish_decode(active, int(active.sum()),
+                           eng._d_toks.cpu().numpy())
+
+    routes = {}
+    routes["graph"] = measure(eng.decode_step, args.steps, args.trace)
+    routes["eager"] = measure(eager_step, args.steps)
+    del eng
+
+    drafter = GPTForPretraining(GPTModel(
+        GPTConfig.preset(args.draft_preset, seq_len=cfg.seq_len,
+                         dtype="bfloat16"),
+        device=dev, generator=torch.Generator(dev).manual_seed(2)))
+    spec = DraftVerifyEngine(model, drafter, draft_k=args.draft_k,
+                             max_batch_size=8, block_size=16, device=dev)
+    fill(spec)
+    registry.reset("serving")
+    routes["spec_round"] = measure(spec.decode_step_spec, args.steps)
+    c = registry.counters("serving")
+    routes["spec_round"][0].update({
+        "draft_k": args.draft_k, "rounds": c["spec_rounds"],
+        "acceptance": c["spec_accepted"] / c["spec_proposed"],
+        "emitted_per_slot_round": c["spec_emitted"] / c["spec_slot_rounds"]})
+
+    print(f"card: {smi}")
+    print(f"{args.preset} bf16, 8 slots x {args.prompt_len}-token prompts; "
+          f"spec: {args.draft_preset} drafting K={args.draft_k}")
+    for route, (summary, top) in routes.items():
+        print(f"{route}: " + ", ".join(
+            f"{k} {v:.4g}" for k, v in summary.items()
+            if isinstance(v, float)))
+        for name, (n, us) in top[:12]:
+            print(f"  {us / args.steps:9.1f} us/step  "
+                  f"{n / args.steps:6.1f}/step  {name[:90]}")
+    print(json.dumps({"card": smi, "preset": args.preset,
+                      "draft_preset": args.draft_preset,
+                      **{route: summary
+                         for route, (summary, _) in routes.items()}}))
     return 0
 
 
