@@ -32,6 +32,21 @@ Phases, in order; any failure exits non-zero:
              window; the replay count in Python agrees; torch.profiler
              over steady replays sees the kernels inside the graph) and
              the plain version never;
+ 4c. swap    the same mix on a fresh server (seed-0 weights, driven step by
+             step on this thread) with a swap to seed-1 weights, given as a
+             reference-layout numpy state, landing mid-decode: every
+             request finishes, one swap and no failure is counted, the
+             decode graph is not recaptured, the card counts n_layer K4
+             launches per decode step of the window, and afterwards 8
+             greedy requests equal a fresh server's on the new weights
+             token for token; then a swap of a truncated state is refused
+             and the tokens do not change. The swap's staging and copy,
+             and the decode step before and after it, are reported;
+ 4d. retry   a fault injected after a step's graph replay (the device
+             cursors advanced, the host's view not) is retried once on a
+             recaptured graph: one retry, one re-prime, one capture, and
+             the greedy tokens of an unfaulted run; two faults in a row
+             fail the batch through the server's worker loop;
  5. parity   the same request through a kernel engine and a plain engine
              on the card (gpt3-1.3B width, 2 layers, float32), both
              replaying their graphs: decode logits within tolerance,
@@ -47,6 +62,11 @@ Phases, in order; any failure exits non-zero:
              the card's count per instance and by torch.profiler; the
              share of greedy requests and tokens equal to phase 4's plain
              decode is reported (bf16: not asserted);
+ 5c. spec swap  a speculative engine's target and drafter swapped together
+             mid-stream: in float32 at 2 layers the tokens equal plain
+             decode's under the same swap, with two weight generations of
+             acceptance; at full width in bf16 (gpt2-small drafting) the
+             match is reported;
  6. kernels (training)  the flash-attention kernels K1-K3 against their
              plain versions over float32 and bf16, causal and not, head_dim
              64/96/128/256 and seq_len 128/256/2048, on strided unbind views
@@ -63,6 +83,18 @@ Phases, in order; any failure exits non-zero:
              batch 4 x 2048: 3 warm-up and 5 timed steps on one batch; the
              loss must be finite and falling, and every step must launch
              K1, K2 and K3 once per layer and the plain attention never;
+ 7b. train -> serve  the trained model saved as a checkpoint (model state,
+             float32 on disk, into a temporary directory that is removed
+             after); a running server on the seed-0 weights, answering a
+             stream of requests, follows the directory and swaps it in
+             with no failed request and no recapture; its greedy tokens
+             then equal a fresh server's on the trained model. The save,
+             its bytes, the follower's load and swap and the swap's stall
+             are reported. Then the whole training state (2 layers, full
+             width: model, AdamW moments and master weights, step count,
+             cosine LR) through a checkpoint into a fresh model and
+             optimizer: 2 more steps equal the uninterrupted run's,
+             bitwise;
  8. training parity  one model through the kernel route and the plain
              route on the card (gpt3-1.3B width, 2 layers): in float32 at
              seq_len 256, loss and every gradient of one step, and the
@@ -91,9 +123,12 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -672,13 +707,14 @@ def phase_flash_kernels(dev):
 
 
 # -------------------------------------------------------------- training --
-def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
-                   **cfg_over):
+def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
+                   learning_rate=1e-4, **cfg_over):
     """The pretraining step of ``bench.py``: ``preset`` in bf16 (dropout 0,
-    random weights from seed 0), ``GPTPretrainingCriterion``, ``AdamW(1e-4,
-    multi_precision=True)`` under ``TrainStep``, and one fixed batch of
-    tokens from seed 0 with its next-token labels. Returns ``(cfg, model,
-    opt, train, tokens, labels)``; ``train(tokens, labels)`` is one step."""
+    random weights from ``seed``), ``GPTPretrainingCriterion``,
+    ``AdamW(learning_rate, multi_precision=True)`` under ``TrainStep``, and
+    one fixed batch of tokens from seed 0 with its next-token labels.
+    Returns ``(cfg, model, opt, train, tokens, labels)``; ``train(tokens,
+    labels)`` is one step."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel,
@@ -688,9 +724,10 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
     cfg = GPTConfig.preset(preset, seq_len=seq_len, dtype="bfloat16",
                            dropout=0.0, **cfg_over)
     model = GPTForPretraining(GPTModel(
-        cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(0)))
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
     crit = GPTPretrainingCriterion()
-    opt = AdamW(learning_rate=1e-4, multi_precision=True,
+    opt = AdamW(learning_rate=learning_rate, multi_precision=True,
                 parameters=model.parameters())
 
     def step_fn(tokens, labels):
@@ -710,6 +747,7 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
 
 def phase_training(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
                    warmup=3, steps=5, **cfg_over):
+    """Returns the result and the trained model (its optimizer dropped)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.profiler import registry
 
@@ -752,16 +790,17 @@ def phase_training(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
                                  f"{c['flash_attention_ref']} times")
     tokens_per_step = batch * seq_len
     result = {"preset": preset, "batch": batch, "seq_len": seq_len,
-              "steps": steps, "step_ms": dt * 1e3,
+              "steps": steps, "trained_steps": warmup + steps,
+              "step_ms": dt * 1e3,
               "tokens_per_s": tokens_per_step / dt,
               "mfu": cfg.flops_per_token() * tokens_per_step / dt
               / PEAK_FLOPS[torch.bfloat16],
               "losses": losses, "peak_memory_gb": peak_gb,
               "launches": counts}
     log("training: " + json.dumps(result))
-    del model, opt, train
-    torch.cuda.empty_cache()
-    return result
+    del opt, train
+    free_memory()
+    return result, model
 
 
 def phase_training_parity(dev, preset="gpt3-1.3B", n_layer=2, seq_len=256,
@@ -874,6 +913,172 @@ def phase_training_parity_bf16(dev, preset="gpt3-1.3B", n_layer=2,
         raise AssertionError(f"bf16 parity: loss {loss_err:.3e} or grad "
                              f"{worst} {rel[worst]:.3e} out of bounds")
     return {"loss": loss_err, "grad": rel[worst]}
+
+
+# --------------------------------------------------------- train -> serve --
+def phase_train_to_serve(dev, trained, step, preset="gpt3-1.3B",
+                         dtype="bfloat16", max_batch_size=8, block_size=16,
+                         prompt_len=64, new_tokens=64, interval=0.2):
+    """7b: phase 7's trained model saved with ``save_checkpoint`` (model
+    state only, float32 on disk) into a temporary directory; a server on
+    the seed-0 weights, answering a stream of requests, follows the
+    directory (``watch_checkpoints``) and swaps the checkpoint in mid-flight
+    with no failed request; its greedy tokens then equal a fresh server's
+    built on the trained model itself."""
+    from paddle_tpu_torch.incubate import checkpoint as ckpt
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationServer
+
+    cfg = GPTConfig.preset(preset, dtype=dtype)
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        log(f"train->serve: {shutil.disk_usage(base).free / 1e9:.1f} GB "
+            f"free under {os.path.dirname(base)}")
+        t_ck = registry.timings("checkpoint")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(base, ckpt.capture_training_state(trained),
+                             step)
+        save_s = time.perf_counter() - t0
+        t_ck1 = registry.timings("checkpoint")
+        payload = Path(base, f"ckpt-{step:08d}", "data-rank00000.pkl")
+        result = {
+            "step": step, "bytes": payload.stat().st_size, "save_s": save_s,
+            "snapshot_s": t_ck1["checkpoint.save.snapshot"]["total_s"]
+            - t_ck.get("checkpoint.save.snapshot", {"total_s": 0})["total_s"],
+            "pickle_crc_write_fsync_s":
+            t_ck1["checkpoint.save.write"]["total_s"]
+            - t_ck.get("checkpoint.save.write", {"total_s": 0})["total_s"]}
+
+        srv = GenerationServer(GPTForPretraining(GPTModel(
+            cfg, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))),
+            max_batch_size=max_batch_size, block_size=block_size,
+            max_queue_size=64, device=dev).start()
+        try:
+            srv.generate(list(range(1, 40)), max_new_tokens=4)
+            c0, sw0 = registry.counters("serving"), swap_timings()
+            rng = np.random.default_rng(7)
+            handles = []
+
+            def feed():
+                while srv.scheduler.queued() < max_batch_size:
+                    handles.append(srv.submit(
+                        rng.integers(0, cfg.vocab_size, prompt_len).tolist(),
+                        max_new_tokens=new_tokens, seed=len(handles)))
+
+            t0 = time.perf_counter()
+            srv.watch_checkpoints(base, interval=interval)
+            while srv.last_swap_step != step:
+                err = srv.scheduler.last_swap_error
+                if err is not None or time.perf_counter() - t0 > 600:
+                    raise AssertionError(f"train->serve: the follower did "
+                                         f"not swap in 600 s ({err!r})")
+                feed()
+                time.sleep(0.005)
+            follow_s = time.perf_counter() - t0
+            in_flight = srv.scheduler.active()
+            feed()
+            for h in handles:
+                h.result(timeout=600)
+            c1, sw1 = registry.counters("serving"), swap_timings()
+            bad = [h for h in handles if h.status != "done"
+                   or len(h.tokens) != new_tokens]
+            if bad or c1["requests_failed"] != c0["requests_failed"] or \
+                    c1["weight_swaps"] != c0["weight_swaps"] + 1 or \
+                    c1["decode_compiles"] != c0["decode_compiles"]:
+                raise AssertionError(
+                    f"train->serve: {len(bad)} requests unfinished, "
+                    f"counters {c0} -> {c1}")
+            reqs = greedy_requests(cfg.vocab_size, 5)
+            got = [h.result(timeout=600).tokens
+                   for h in [srv.submit(p, **o) for p, o in reqs]]
+        finally:
+            srv.shutdown(timeout=600)
+        del srv
+        free_memory()
+        fresh = GenerationServer(trained, max_batch_size=max_batch_size,
+                                 block_size=block_size, max_queue_size=64,
+                                 device=dev).start()
+        try:
+            want = [h.result(timeout=600).tokens
+                    for h in [fresh.submit(p, **o) for p, o in reqs]]
+        finally:
+            fresh.shutdown(timeout=600)
+        if got != want:
+            raise AssertionError("train->serve: the follower's tokens differ "
+                                 "from a fresh server's on the trained model")
+        result.update({
+            "follow_load_and_swap_s": follow_s,
+            "swap_stage_s": sw1["stage"] - sw0["stage"],
+            "swap_commit_s": sw1["commit"] - sw0["commit"],
+            "requests_served_across": len(handles),
+            "requests_in_flight_at_swap": in_flight,
+            "greedy_tokens_equal_fresh_server": True})
+        log("train->serve: " + json.dumps(result))
+        return result
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        free_memory()
+
+
+def phase_train_state_round_trip(dev, preset="gpt3-1.3B", n_layer=2,
+                                 seq_len=2048, batch=4, before=3, after=2):
+    """7b: the whole training state (model, AdamW moments and master
+    weights, step count, LR schedule) through a checkpoint at full width
+    and 2 layers: saved after ``before`` steps, restored into a fresh
+    model and optimizer, then ``after`` steps whose losses, parameters and
+    optimizer slots must equal the uninterrupted run's, bitwise."""
+    from paddle_tpu_torch.incubate import checkpoint as ckpt
+    from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay
+
+    def setup(seed):
+        sched = CosineAnnealingDecay(1e-4, T_max=10)
+        out = training_setup(dev, preset, batch, seq_len, seed=seed,
+                             learning_rate=sched, n_layer=n_layer)
+        return (sched,) + out
+
+    def steps(run, n):
+        sched, _, _, _, train, tokens, labels = run
+        losses = []
+        for _ in range(n):
+            losses.append(float(train(tokens, labels).detach()))
+            sched.step()
+        return losses
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_state_")
+    try:
+        run = setup(0)
+        steps(run, before)
+        ckpt.save_checkpoint(base, ckpt.capture_training_state(run[2],
+                                                               run[3]),
+                             before - 1)
+        want = steps(run, after)
+        state, man = ckpt.load_latest(base)
+        resumed = setup(5)
+        ckpt.restore_training_state(resumed[2], resumed[3], state)
+        got = steps(resumed, after)
+        opt_step = resumed[3]._opt_step
+        pairs = list(zip(run[2].parameters(), resumed[2].parameters()))
+        a, b = run[3].state_dict(), resumed[3].state_dict()
+        pairs += [(a[k], b[k]) for k in a if isinstance(a[k], torch.Tensor)]
+        same = all(torch.equal(x, y) for x, y in pairs)
+        lr = (run[0](), resumed[0]())
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    if got != want or not same or opt_step != before + after or \
+            lr[0] != lr[1]:
+        raise AssertionError(
+            f"training state round trip: losses {got} vs {want}, "
+            f"parameters and slots equal: {same}, step count {opt_step}, "
+            f"learning rates {lr}")
+    log(f"train->serve: training state of {preset} (n_layer={n_layer}, "
+        f"bf16, AdamW with master weights, cosine LR) through checkpoint "
+        f"step {man['step']}: {after} resumed steps equal the uninterrupted "
+        f"run's bitwise (losses {got}, {len(pairs)} parameters and slots)")
+    free_memory()
+    return got
 
 
 def _parity_models(dev, preset, n_layer, seq_len, batch, dtype):
@@ -1343,6 +1548,381 @@ def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
     return result
 
 
+# ------------------------------------------------ weight swap and retry --
+def reference_state(model):
+    """``model``'s trunk state as the reference's checkpoints hold it:
+    float32 numpy in the reference's names, Linear weights ``[in, out]``."""
+    from paddle_tpu_torch import convert
+
+    return {k: v.to(torch.float32, memory_format=torch.contiguous_format)
+            .cpu().numpy()
+            for k, v in convert.state_to_paddle_tpu(model.gpt).items()}
+
+
+def greedy_requests(vocab, seed):
+    """The 8 greedy requests of ``serving_requests(vocab, seed=seed)``."""
+    return [(p, dict(max_new_tokens=o["max_new_tokens"], seed=o["seed"]))
+            for p, o in serving_requests(vocab, seed=seed)
+            if not o.get("temperature")]
+
+
+def run_sync(sched, reqs, step_s=None):
+    """Submit ``reqs`` and step ``sched`` on this thread until it is idle;
+    every request must finish with all its tokens. Returns the tokens;
+    ``step_s`` collects each step's wall time."""
+    from paddle_tpu_torch.serving import GenerationRequest
+
+    handles = [sched.submit(GenerationRequest(p, **o)) for p, o in reqs]
+    while sched.has_work():
+        t = time.perf_counter()
+        sched.step()
+        if step_s is not None:
+            step_s.append(time.perf_counter() - t)
+    bad = [h for h in handles if h.status != "done"
+           or len(h.tokens) != h.max_new_tokens]
+    if bad:
+        raise AssertionError(f"unfinished requests {bad}")
+    return [h.tokens for h in handles]
+
+
+class DecodeFaults:
+    """Test code: raise from ``engine._finish_decode`` on chosen calls, that
+    is after the step's graph replay has advanced the device cursors and
+    before the host mirrors advance."""
+
+    def __init__(self, engine):
+        self.calls = 0
+        self.at = set()
+        self._orig = engine._finish_decode
+        engine._finish_decode = self
+
+    def arm(self, *offsets):
+        self.at = {self.calls + k for k in offsets}
+
+    def __call__(self, *args):
+        self.calls += 1
+        if self.calls in self.at:
+            raise RuntimeError(f"injected decode fault (call {self.calls})")
+        return self._orig(*args)
+
+
+def swap_timings():
+    from paddle_tpu_torch.profiler import registry
+
+    t = registry.timings("serving")
+    return {k: t.get(f"serving.swap_{k}", {"total_s": 0.0})["total_s"]
+            for k in ("stage", "commit")}
+
+
+def _p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] * 1e3 if xs else None
+
+
+def phase_swap(dev, preset="gpt3-1.3B", dtype="bfloat16", max_batch_size=8,
+               block_size=16, n_requests=16, swap_after=40):
+    """4c: phase 4's mix on weights A (seed 0) with a swap to B (seed 1),
+    given as a reference-layout numpy state, staged after ``swap_after``
+    decode steps (every request admitted, the second wave mid-decode);
+    then a refused swap. 4d: a fault after the graph replay, retried, and
+    two in a row. The scheduler is driven on this thread, step by step."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationRequest, GenerationServer
+
+    cfg = GPTConfig.preset(preset, dtype=dtype)
+
+    def build(seed):
+        return GPTForPretraining(GPTModel(
+            cfg, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed)))
+
+    def server(model):
+        return GenerationServer(model, max_batch_size=max_batch_size,
+                                block_size=block_size, max_queue_size=64,
+                                device=dev)
+
+    model_b = build(1)
+    state_b = reference_state(model_b)
+    srv = server(build(0))
+    sched, eng = srv.scheduler, srv.engine
+    run_sync(sched, [(list(range(1, 40)), dict(max_new_tokens=4))])
+
+    # 4c: the swap lands between two decode steps of the served mix
+    c0, t0 = registry.counters("serving"), swap_timings()
+    k0 = registry.counters("kernels")["paged_attention"]
+    pa.reset_device_launches()
+    handles = [sched.submit(GenerationRequest(p, **o))
+               for p, o in serving_requests(cfg.vocab_size, n=n_requests)]
+    steps, staged, active_at_swap = [], False, None
+    while sched.has_work():
+        c = registry.counters("serving")
+        if not staged and c["decode_steps"] - c0["decode_steps"] \
+                >= swap_after:
+            sched.request_swap(state_b, source="chip_smoke phase 4c")
+            staged, active_at_swap = True, sched.active()
+        prefills, swaps = c["prefills"], sched.swap_count
+        t = time.perf_counter()
+        sched.step()
+        steps.append((time.perf_counter() - t,
+                      registry.counters("serving")["prefills"] != prefills,
+                      sched.swap_count != swaps))
+    c1, t1 = registry.counters("serving"), swap_timings()
+    device = pa.device_launches()
+    k1 = registry.counters("kernels")["paged_attention"]
+    n_steps = c1["decode_steps"] - c0["decode_steps"]
+    bad = [h for h in handles if h.status != "done"
+           or len(h.tokens) != h.max_new_tokens]
+    if bad or c1["requests_failed"] != c0["requests_failed"]:
+        raise AssertionError(f"swap: failed requests {bad}")
+    if c1["weight_swaps"] != c0["weight_swaps"] + 1 or \
+            c1["swap_failures"] != c0["swap_failures"] or not active_at_swap:
+        raise AssertionError(
+            f"swap: weight_swaps {c0['weight_swaps']} -> "
+            f"{c1['weight_swaps']}, swap_failures {c0['swap_failures']} -> "
+            f"{c1['swap_failures']}, {active_at_swap} requests in flight")
+    if c1["decode_compiles"] != c0["decode_compiles"]:
+        raise AssertionError("swap: the decode graph was recaptured")
+    check_device_launches(
+        "swap", {"device": device, "kernels": {"paged_attention": k1 - k0}},
+        {(dtype, cfg.d_model // cfg.n_head, 1): n_steps * cfg.n_layer})
+    at = next(i for i, (_, _, sw) in enumerate(steps) if sw)
+    steady = [(i, dt) for i, (dt, pf, sw) in enumerate(steps)
+              if not pf and not sw]
+    result = {
+        "decode_steps": n_steps, "decode_steps_before_swap": sum(
+            1 for i, _ in steady if i < at),
+        "requests_in_flight_at_swap": active_at_swap,
+        "swap_stage_s": t1["stage"] - t0["stage"],
+        "swap_commit_s": t1["commit"] - t0["commit"],
+        "step_with_swap_ms": steps[at][0] * 1e3,
+        "steady_step_p50_ms_before": _p50([dt for i, dt in steady
+                                           if i < at]),
+        "steady_step_p50_ms_after": _p50([dt for i, dt in steady
+                                          if i > at]),
+        "k4_launches": {instance_name(k): v for k, v in device.items()}}
+
+    # the swapped server against a fresh one built on B; new prompts each
+    # time, so neither server finds them in its prefix cache
+    fresh = server(model_b)
+    want = {s: run_sync(fresh.scheduler, greedy_requests(cfg.vocab_size, s))
+            for s in (1, 2, 3)}
+    del fresh
+    if run_sync(sched, greedy_requests(cfg.vocab_size, 1)) != want[1]:
+        raise AssertionError("swap: greedy tokens after the swap differ "
+                             "from a fresh server's on the new weights")
+    bad_state = dict(state_b)
+    name = "blocks.0.attn.qkv_proj.weight"
+    bad_state[name] = bad_state[name][:-1]
+    c2 = registry.counters("serving")
+    sched.request_swap(bad_state, source="chip_smoke phase 4c (truncated)")
+    if run_sync(sched, greedy_requests(cfg.vocab_size, 2)) != want[2]:
+        raise AssertionError("swap: a refused swap changed the tokens")
+    c3 = registry.counters("serving")
+    if c3["swap_failures"] != c2["swap_failures"] + 1 or \
+            c3["weight_swaps"] != c2["weight_swaps"]:
+        raise AssertionError(f"swap: a truncated weight was not refused "
+                             f"({c2} -> {c3})")
+    result["refused_swap"] = repr(sched.last_swap_error)[:160]
+    log("swap: " + json.dumps(result))
+
+    # 4d: one fault after the replay is retried on a recaptured graph
+    faults = DecodeFaults(eng)
+    faults.arm(6)
+    c4 = registry.counters("serving")
+    step_s = []
+    got = run_sync(sched, greedy_requests(cfg.vocab_size, 3), step_s)
+    c5 = registry.counters("serving")
+    moved = {k: c5[k] - c4[k] for k in ("step_retries", "reprimes",
+                                        "decode_compiles",
+                                        "requests_failed")}
+    # (the card captures graphs; the CPU, where the script is rehearsed,
+    # runs the step body directly)
+    if moved != {"step_retries": 1, "reprimes": 1,
+                 "decode_compiles": int(dev.type == "cuda"),
+                 "requests_failed": 0}:
+        raise AssertionError(f"retry: counters moved {moved}")
+    if got != want[3]:
+        raise AssertionError("retry: tokens after the retry differ from an "
+                             "unfaulted run's")
+    # two in a row fail the batch, through the server's worker loop
+    faults.arm(3, 4)
+    srv.start()
+    try:
+        hs = [srv.submit(p, **o)
+              for p, o in greedy_requests(cfg.vocab_size, 4)]
+        for h in hs:
+            h.result(timeout=600)
+    finally:
+        srv.shutdown(timeout=600)
+    if any(h.status != "error" for h in hs) or \
+            "injected decode fault" not in str(srv.last_error):
+        raise AssertionError(f"retry: two faults in a row left {hs}, "
+                             f"last error {srv.last_error!r}")
+    retry = {"counters_moved": moved, "tokens_equal_unfaulted": True,
+             "retried_step_ms": max(step_s[1:]) * 1e3,
+             "other_steps_p50_ms": _p50(sorted(step_s[1:])[:-1]),
+             "second_fault": repr(srv.last_error)[:120],
+             "failed_requests": len(hs)}
+    log("retry: " + json.dumps(retry))
+    del srv, sched, eng, model_b, state_b, faults
+    free_memory()
+    return result, retry
+
+
+def phase_spec_swap(dev, preset="gpt3-1.3B", draft_preset="gpt2-small",
+                    n_layer=2, draft_k=4, n_tokens=24, n_bf16=4):
+    """5c: a ``DraftVerifyEngine`` whose target and drafter swap together
+    in the middle of a stream, against plain decode under the same swap.
+    float32 at 2 layers (twin drafters, from the target's seed): the
+    tokens must be equal. Then bf16 at full width (gpt2-small drafting),
+    one stream per greedy prompt, swapped A -> B mid-stream and back
+    between streams: the match is reported."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
+
+    def build(seed, preset=preset, **over):
+        return GPTForPretraining(GPTModel(
+            GPTConfig.preset(preset, **over), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed)))
+
+    def stream(engine, prompt, n, swap, swap_at, logits=None):
+        """Greedy ``prompt``; ``swap(engine)`` once ``swap_at(tokens)``.
+        ``logits`` collects a plain engine's logits of each decode step."""
+        spec = getattr(engine, "decode_step_spec", None)
+        out, at = [engine.prefill(0, prompt, seed=0)], None
+        while len(out) < n:
+            if at is None and swap_at(out):
+                swap(engine)
+                at = len(out)
+            if spec:
+                out.extend(spec()[0])
+                continue
+            out.append(int(engine.decode_step()[0]))
+            if logits is not None:
+                logits.append(engine.last_logits[0].clone())
+        engine.release(0)
+        return out, at
+
+    def first_difference(got, want, logits):
+        """Index of the first differing token, and there the plain logits'
+        margin of plain decode's token over the spec engine's."""
+        i = next((i for i, (x, y) in enumerate(zip(got, want)) if x != y),
+                 None)
+        if i is None:
+            return len(got), None
+        row = logits[i - 1]
+        return i, float(row[want[i]] - row[got[i]])
+
+    f32 = dict(n_layer=n_layer, dtype="float32")
+    state_b = build(3, **f32).state_dict()
+    eng = DraftVerifyEngine(build(1, **f32), build(1, **f32),
+                            draft_k=draft_k, max_batch_size=2, rng_seed=0,
+                            device=dev)
+    prompt = np.random.default_rng(1).integers(
+        0, eng._gpt.cfg.vocab_size, 333).tolist()
+    c0 = registry.counters("serving")
+    rounds = []
+    got, at = stream(eng, prompt, n_tokens,
+                     lambda e: e.swap_weights(state_b, draft_state=state_b),
+                     lambda out: rounds.append(1) or len(rounds) > 3)
+    c1 = registry.counters("serving")
+    plain = GenerationEngine(build(1, **f32), max_batch_size=2, rng_seed=0,
+                             device=dev)
+    want, _ = stream(plain, prompt, len(got),
+                     lambda e: e.swap_weights(state_b),
+                     lambda out: len(out) == at)
+    gens = eng.acceptance_by_generation()
+    if c1["draft_swaps"] != c0["draft_swaps"] + 1 or len(gens) != 2:
+        raise AssertionError(f"spec swap: draft_swaps "
+                             f"{c1['draft_swaps'] - c0['draft_swaps']}, "
+                             f"generations {gens}")
+    if got != want:
+        raise AssertionError(f"spec swap: tokens {got} != plain decode's "
+                             f"{want} under the same swap")
+    eng.pool.audit()
+    eng.draft_pool.audit()
+    result = {"float32": {"tokens": len(got), "swapped_after": at,
+                          "tokens_equal": True,
+                          "acceptance_by_generation": gens}}
+    # the drafter catches up: an independent drafter swapped, mid-stream,
+    # to the target's own weights (the target "swapped" to itself). Its KV
+    # is rebuilt from the history, so it must now agree with the target
+    # on every draft
+    state_a = build(1, **f32).state_dict()
+    eng = DraftVerifyEngine(build(1, **f32), build(2, **f32),
+                            draft_k=draft_k, max_batch_size=2, rng_seed=0,
+                            device=dev)
+    rounds = []
+    got, at = stream(eng, prompt, n_tokens,
+                     lambda e: e.swap_weights(state_a, draft_state=state_a),
+                     lambda out: rounds.append(1) or len(rounds) > 3)
+    plain.swap_weights(state_a)  # back from B
+    want, _ = stream(plain, prompt, len(got), None, lambda out: False)
+    gens = eng.acceptance_by_generation()
+    if got != want or list(gens.values())[-1] != 1.0:
+        raise AssertionError(f"spec swap: after the drafter's swap to the "
+                             f"target's weights, acceptance {gens} (want "
+                             f"1.0 in the new generation) and tokens "
+                             f"{'equal' if got == want else 'differ'}")
+    result["float32"]["drafter_to_target_acceptance"] = gens
+    del eng, plain, state_a, state_b
+    free_memory()
+
+    bf = dict(dtype="bfloat16")
+    seq = GPTConfig.preset(preset).seq_len
+    target, drafter = build(0, **bf), build(2, draft_preset, seq_len=seq,
+                                            **bf)
+    snap = ({k: v.clone() for k, v in target.state_dict().items()},
+            {k: v.clone() for k, v in drafter.state_dict().items()})
+    new = (build(1, **bf).state_dict(),
+           build(3, draft_preset, seq_len=seq, **bf).state_dict())
+    eng = DraftVerifyEngine(target, drafter, draft_k=draft_k,
+                            max_batch_size=1, rng_seed=0, device=dev)
+    plain = GenerationEngine(build(0, **bf), max_batch_size=1, rng_seed=0,
+                             device=dev)
+    match, lengths, margins, control = [], [], [], []
+    for prompt, opts in greedy_requests(eng._gpt.cfg.vocab_size, 0)[:n_bf16]:
+        n = opts["max_new_tokens"]
+        rounds, logits = [], []
+        got, at = stream(eng, prompt, n,
+                         lambda e: e.swap_weights(new[0],
+                                                  draft_state=new[1]),
+                         lambda out: rounds.append(1) or len(rounds) > 2)
+        eng.swap_weights(snap[0], draft_state=snap[1])
+        want, _ = stream(plain, prompt, len(got),
+                         lambda e: e.swap_weights(new[0]),
+                         lambda out: len(out) == at, logits)
+        plain.swap_weights(snap[0])
+        lengths.append(len(got))
+        i, margin = first_difference(got, want, logits)
+        match.append(i)
+        margins.append(margin)
+        # the same stream with no swap: phase 5b's spec-against-plain
+        # comparison, one stream at a time
+        logits = []
+        got, _ = stream(eng, prompt, n, None, lambda out: False)
+        want, _ = stream(plain, prompt, len(got), None, lambda out: False,
+                         logits)
+        control.append(first_difference(got, want, logits))
+    eng.pool.audit()
+    eng.draft_pool.audit()
+    result["bfloat16"] = {
+        "streams": len(match), "tokens_before_first_difference": match,
+        "streams_equal": sum(m == n for m, n in zip(match, lengths)),
+        "logit_margin_at_first_difference": margins,
+        "without_swap": control,
+        "acceptance_by_generation": eng.acceptance_by_generation()}
+    log("spec swap: " + json.dumps(result))
+    del eng, plain, target, drafter, snap, new
+    free_memory()
+    return result
+
+
 # ------------------------------------------------------------------ main --
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
                     r"_kernel(?:_sm90)?)I(\w*?)E+v")
@@ -1431,16 +2011,23 @@ def main():
 
     paged = phase_kernels(dev)
     served, plain = phase_serving(dev)
+    swapped, retried = phase_swap(dev)
     phase_parity(dev)
     spec = phase_spec_serving(dev, plain)
+    phase_spec_swap(dev)
     for row in paged:  # launches the card counted on the main path
         row["launches"] = (spec["verify_launches"]
                            if row["name"] == "paged_attention_verify"
                            else served["decode_launches"])
     flash = phase_flash_kernels(dev)
-    trained = phase_training(dev)
+    trained, model = phase_training(dev)
     for name, row in flash.items():
         row["launches"] = trained["launches"][name]
+    followed = phase_train_to_serve(dev, model,
+                                    step=trained["trained_steps"])
+    del model
+    free_memory()
+    phase_train_state_round_trip(dev)
     phase_training_parity(dev)
     phase_training_parity_bf16(dev)
     log(f"serving on {smi}: {served['tokens_per_s']:.1f} tokens/s, p50 TTFT "
@@ -1451,6 +2038,16 @@ def main():
         f"{spec['round_p50_ms']:.2f} ms, acceptance {spec['acceptance']:.4f}"
         f", {spec['emitted_per_round']:.2f} tokens per round; against plain "
         f"decode {json.dumps(spec['plain_match'])}")
+    log(f"swap on {smi}: stage {swapped['swap_stage_s']:.3f} s, copy "
+        f"{swapped['swap_commit_s'] * 1e3:.2f} ms, step with the swap "
+        f"{swapped['step_with_swap_ms']:.1f} ms, steady step p50 "
+        f"{swapped['steady_step_p50_ms_before']:.2f} ms before / "
+        f"{swapped['steady_step_p50_ms_after']:.2f} ms after; retry "
+        f"{json.dumps(retried['counters_moved'])}")
+    log(f"train->serve on {smi}: {followed['bytes'] / 1e9:.2f} GB saved in "
+        f"{followed['save_s']:.1f} s, followed (load and swap) in "
+        f"{followed['follow_load_and_swap_s']:.1f} s, swap stage "
+        f"{followed['swap_stage_s']:.3f} s")
     log(f"training on {smi}: {trained['preset']} bf16 batch "
         f"{trained['batch']} x {trained['seq_len']}: step "
         f"{trained['step_ms']:.1f} ms, {trained['tokens_per_s']:.0f} "

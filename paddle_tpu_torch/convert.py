@@ -1,10 +1,13 @@
-"""Carry weights and optimizer state from the JAX package into the port.
+"""Carry weights and optimizer state between the JAX package and the port.
 
 ``state_from_paddle_tpu`` turns a ``paddle_tpu`` model's ``state_dict()`` —
 as ``{name: numpy array}``, or the path of a ``paddle_tpu.framework.save``
 pickle of it — into ``{name: torch.Tensor}`` named like the port's modules;
 ``load_paddle_tpu_state`` checks it against a port model and copies it in.
 ``optimizer_state_from_paddle_tpu`` does the same for an Adam/AdamW state.
+The other way, ``state_to_paddle_tpu`` and ``optimizer_state_to_paddle_tpu``
+give a port model's and optimizer's state in the reference's names and
+layout (what ``incubate.checkpoint`` writes).
 
 Name mapping: the reference's layer names are the port's module names, so
 names map one to one; a ``gpt.`` prefix (the reference's
@@ -23,13 +26,19 @@ from torch import nn
 
 
 def _leaf(v):
-    """A numpy array from one state entry: an array, a tensor-like with
-    ``.numpy()``, or a ``framework.save`` tensor record."""
+    """A numpy array from one state entry: an array, a torch tensor, a
+    tensor-like with ``.numpy()``, or a ``framework.save`` tensor record.
+    bf16 values (torch's or ``ml_dtypes``') are widened to float32, which
+    is exact."""
     if isinstance(v, dict) and v.get("__tensor__"):
         v = v["data"]
-    if hasattr(v, "numpy") and not isinstance(v, np.ndarray):
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        v = (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+    elif hasattr(v, "numpy") and not isinstance(v, np.ndarray):
         v = v.numpy()
-    return np.asarray(v)
+    a = np.asarray(v)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
 def _linear_weight_names(model):
@@ -140,4 +149,35 @@ def optimizer_state_from_paddle_tpu(np_opt_state, optimizer, model):
                                 "transpose)" if id(p) in linear else ""))
         out[key] = torch.from_numpy(np.array(arr, np.float32, order="C")).to(
             p.device)
+    return out
+
+
+def state_to_paddle_tpu(model):
+    """``model``'s state in the reference's names and layout: its
+    ``state_dict()`` with every Linear weight transposed to ``[in, out]``
+    (found by module type: a square weight cannot be told by its shape).
+    The tensors alias the live ones (Linear weights as transposed views);
+    ``framework.save`` snapshots them."""
+    linear = _linear_weight_names(model)
+    return {name: t.t() if name in linear else t
+            for name, t in model.state_dict().items()}
+
+
+def optimizer_state_to_paddle_tpu(optimizer, model):
+    """``optimizer.state_dict()`` in the reference's layout: the slots of a
+    Linear weight of ``model`` transposed to ``[in, out]`` as the weight
+    is. Keys (``"<accumulator>/p<i>"``, ``_opt_step``, ``LR_Scheduler``)
+    are the reference's already."""
+    params = optimizer._parameter_list
+    linear = {id(mod.weight) for mod in model.modules()
+              if isinstance(mod, nn.Linear)}
+    out = {}
+    for key, value in optimizer.state_dict().items():
+        if isinstance(value, torch.Tensor):
+            i = int(key.rpartition("/p")[2])
+            if id(params[i]) in linear:
+                value = value.t()
+        elif isinstance(value, dict):
+            value = dict(value)
+        out[key] = value
     return out

@@ -39,6 +39,10 @@ def gauge_set(name, value):
     _gauges[name] = value
 
 
+def gauge_drop(name):
+    _gauges.pop(name, None)
+
+
 def timing(name, seconds, scope="timings"):
     """Accumulate one duration: ``[count, total_seconds, reservoir]``."""
     s = _timing_scopes.get(scope)

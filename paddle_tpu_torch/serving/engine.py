@@ -39,6 +39,14 @@ a mismatch. A capture or replay error raises; there is no eager fallback.
 The pools are updated in place; the reference's engine returned new pools
 from pure jitted steps.
 
+Weight hot-swap (``swap_weights``): every incoming weight is checked and
+staged on the device before the first write, then copied into the live
+parameters in place, so the captured graph, which reads fixed addresses,
+serves the new weights with no recapture; the float32 LM-head copy of a
+bf16 model is refreshed the same way. ``reprime`` drops the captured graphs
+after a step error: the next step recaptures and rebuilds the slot state
+from the host mirrors, which advance only after a step succeeds.
+
 Slot lifecycle: free -> (admission: blocks allocated/shared, suffix
 prefill, first token sampled) -> active (each decode step appends one row
 at the slot's own cursor, always inside its own blocks) -> released
@@ -48,10 +56,12 @@ from __future__ import annotations
 
 import contextlib
 import itertools
+import time
 
 import numpy as np
 import torch
 
+from ..convert import _leaf, _linear_weight_names
 from ..device import resolve_device
 from ..ops.paged_attention import select_paged_kernel
 from ..profiler import explainer as _explain
@@ -65,7 +75,7 @@ _counters = _registry.scoped_counters("serving", {
     "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
     "prefix_inserted_blocks": 0, "prefix_evicted_blocks": 0,
     "kv_blocks_hwm": 0, "chunked_prefills": 0, "prefill_chunks": 0,
-    "decode_compiles": 0})
+    "decode_compiles": 0, "weight_swaps": 0, "reprimes": 0})
 # the decode fast path: steady steps on the device-resident slot state,
 # rebuilds from the host mirrors at batch boundaries, audits of the two,
 # and demotions after a failed audit (reference engine.py:94-96)
@@ -81,6 +91,29 @@ AUDIT_EVERY = 16
 # workspace sizes resolve and cuBLAS picks its kernels outside the graph
 _CAPTURE_WARMUP = 3
 _MASK32 = 0xFFFFFFFF
+
+
+class WeightSwapError(RuntimeError):
+    """A proposed weight swap does not fit the running engine (missing
+    names, a shape mismatch, a value that is no number, or two weight
+    layouts mixed). Raised before any weight is written: the engine keeps
+    serving the old weights, and the KV cache is never touched."""
+
+
+class FatalEngineError(RuntimeError):
+    """Non-transient engine death (device lost). The scheduler's retry
+    path never swallows it: it reaches the server loop, which stops
+    driving the engine so a supervisor can take over its requests."""
+
+
+def _refresh_head(gpt, head_w):
+    """Copy ``gpt``'s embedding into its float32 LM-head weight ``head_w``
+    where that is a separate tensor (a bf16 model); in float32 it is the
+    weight itself."""
+    wte = gpt.embeddings.word_embeddings.weight
+    if head_w.data_ptr() != wte.data_ptr():
+        with torch.no_grad():
+            head_w.copy_(wte)
 
 
 class StepGraph:
@@ -211,6 +244,12 @@ class GenerationEngine:
         self.prefix_cache = RadixPrefixCache(self.pool, self.block_size)
 
         model.eval()
+        # the weights a swap replaces, by the decoder's own names (the
+        # reference's names), and which of them are Linear weights: those
+        # the reference stores [in, out]
+        self._state = dict(gpt.state_dict(keep_vars=True))
+        self._names = list(self._state)
+        self._linear = _linear_weight_names(gpt)
         wte = gpt.embeddings.word_embeddings.weight
         self._dtype = wte.dtype
         # the LM head runs in float32, as in the reference; .float() is
@@ -703,6 +742,149 @@ class GenerationEngine:
         _counters["tokens_generated"] += n_active
         _registry.gauge_set("serving.batch_occupancy",
                             n_active / self.max_batch_size)
+
+    # ------------------------------------------------------- weight swap --
+    def _resolve_swap_state(self, state, names=None):
+        """Map an incoming state nest onto this engine's weight names (or
+        an explicit ``names`` list: the spec-decode drafter reuses it on
+        its own). Accepts the decoder's own state dict, a wrapper model's
+        (one common name prefix, e.g. ``gpt.``), or a checkpoint nest
+        ``{"model": ..., "optimizer": ...}`` (the optimizer part is
+        ignored)."""
+        names = self._names if names is None else names
+        if not isinstance(state, dict):
+            raise WeightSwapError(
+                f"swap state must be a dict of name -> array, got "
+                f"{type(state).__name__}")
+        if isinstance(state.get("model"), dict) and "model" not in names:
+            state = state["model"]
+        if all(n in state for n in names):
+            return {n: state[n] for n in names}
+        probe = names[0]
+        for key in state:
+            if key.endswith(probe) and key != probe:
+                pre = key[:-len(probe)]
+                if all(pre + n in state for n in names):
+                    return {n: state[pre + n] for n in names}
+        missing = [n for n in names if n not in state]
+        raise WeightSwapError(
+            f"swap state is missing {len(missing)}/{len(names)} weights "
+            f"(first: {missing[:3]}); a partial swap would serve "
+            "inconsistent weights, refusing")
+
+    def _stage_swap(self, resolved, names, bound, linear):
+        """Check every value of a resolved swap against the live tensors
+        ``bound``, then stage each on the device in its parameter's dtype.
+        Returns the staged list, or raises with nothing written.
+
+        The layout follows the value type, and one swap holds one type:
+        torch tensors are in the port's layout (``model.state_dict()``);
+        numpy arrays, tensor records and other array-likes are in the
+        reference's, whose Linear weights (``linear``) are ``[in, out]``:
+        they cross to the device as they are and are transposed there,
+        which is much faster than on the host. Square Linear weights
+        cannot be told apart by shape, so the layout is never guessed
+        from it."""
+        torch_values = {isinstance(resolved[n], torch.Tensor) for n in names}
+        if len(torch_values) > 1:
+            raise WeightSwapError(
+                "swap state mixes torch tensors (the port's [out, in] "
+                "Linear layout) with arrays (the reference's [in, out] "
+                "layout); pass one or the other")
+        port_layout = torch_values == {True}
+        checked = []  # (tensor as given, transpose it on the device)
+        for n in names:
+            cur, v = bound[n], resolved[n]
+            if port_layout:
+                t = v.detach()
+                if t.dtype == torch.bool or t.is_complex():
+                    raise WeightSwapError(
+                        f"swap value for {n!r} has dtype {t.dtype}, which "
+                        "does not cast to a floating-point weight")
+            else:
+                a = _leaf(v)
+                if a.dtype.kind not in "fiu":
+                    raise WeightSwapError(
+                        f"swap value for {n!r} has dtype {a.dtype}, which "
+                        "does not cast to a floating-point weight")
+                t = torch.from_numpy(np.ascontiguousarray(a))
+            flip = n in linear and not port_layout
+            shape = tuple(t.shape)[::-1] if flip else tuple(t.shape)
+            if shape != tuple(cur.shape):
+                raise WeightSwapError(
+                    f"shape mismatch for {n!r}: engine holds "
+                    f"{tuple(cur.shape)}, swap offers {shape}"
+                    + (" after the [in, out] -> [out, in] transpose"
+                       if flip else "") + " — this is a different model")
+            checked.append((t, flip))
+        staged = []
+        for n, (t, flip) in zip(names, checked):
+            t = t.to(device=self.device)
+            staged.append((t.t() if flip else t).to(
+                dtype=bound[n].dtype, memory_format=torch.contiguous_format))
+        return staged
+
+    @staticmethod
+    def _commit_swap(names, bound, staged):
+        with torch.no_grad():
+            for n, t in zip(names, staged):
+                bound[n].copy_(t)
+
+    def swap_weights(self, state, source=None):
+        """Replace every weight between two steps, all or nothing. Call it
+        on the engine's driving thread (``scheduler.request_swap`` and
+        ``server.swap_weights`` are the thread-safe frontends).
+
+        Every value is resolved, checked and staged on the device before
+        the first write, so a refusal (missing name, shape mismatch, a
+        mixed layout) raises ``WeightSwapError`` with the engine still
+        serving the complete old weights. Then each staged tensor is
+        copied into its live parameter in place, on the stream the decode
+        graph replays on, so the graph replays the new weights with no
+        recapture (``serving.decode_compiles`` stays put); the float32
+        LM-head copy of a bf16 model is refreshed in place too. In-flight
+        requests keep their KV cache and decode their next token on the
+        new weights; the prefix cache moves to a new generation, since
+        its blocks hold KV of the old weights."""
+        t0 = time.perf_counter()
+        resolved = self._resolve_swap_state(state)
+        staged = self._stage_swap(resolved, self._names, self._state,
+                                  self._linear)
+        t1 = time.perf_counter()
+        self._commit_swap(self._names, self._state, staged)
+        _refresh_head(self._gpt, self._head_w)
+        if self.device.type == "cuda":  # swap_commit times the copies
+            torch.cuda.synchronize(self.device)
+        t2 = time.perf_counter()
+        _registry.timing("swap_stage", t1 - t0, scope="serving")
+        _registry.timing("swap_commit", t2 - t1, scope="serving")
+        self._fast = False
+        self.prefix_cache.new_generation()
+        self._note_pool()
+        _counters["weight_swaps"] += 1
+        _explain.record(
+            "serving_weight_swap", op="swap_weights",
+            why=f"swapped {len(staged)} weights"
+                + (f" from {source}" if source else "")
+                + " in place; in-flight requests keep their KV cache and "
+                  "decode the next token on the new weights; the prefix "
+                  "cache is flushed (old-weight KV is unreusable)",
+            weights=len(staged), source=source,
+            generation=self.prefix_cache.generation)
+
+    def reprime(self):
+        """Transient-fault recovery: drop the captured decode graph, so the
+        next step captures it anew (``serving.decode_compiles`` + 1 on the
+        card), and mark the device slot state stale, so that step first
+        rebuilds it from the host mirrors. A failed replay may have
+        advanced the device cursors in place; the mirrors advance only
+        after a step succeeds. The prefix cache is flushed too: a fault
+        mid-step may have left cached blocks in an unknown state."""
+        self._decode_graph = StepGraph(self._decode_body, self.device)
+        self._fast = False
+        self.prefix_cache.new_generation()
+        self._note_pool()
+        _counters["reprimes"] += 1
 
     # -------------------------------------------------------------- stats --
     @property

@@ -14,6 +14,11 @@ request's slot frees this iteration and can be refilled the next.
 backpressure). Request transitions set a ``threading.Event`` so a frontend
 can block on ``request.result()`` from another thread; ``step()`` itself is
 driven from one thread (``serving.GenerationServer`` owns that loop).
+
+A weight swap staged with ``request_swap`` (from any thread) lands at the
+top of the next ``step()``, between two decode iterations. A decode error
+re-primes the engine and retries the iteration once; a second error in a
+row, or a ``FatalEngineError``, propagates to the caller.
 """
 from __future__ import annotations
 
@@ -25,11 +30,13 @@ import time
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from .block_pool import PagePoolExhausted
+from .engine import FatalEngineError
 
 _counters = _registry.scoped_counters("serving", {
     "requests_submitted": 0, "requests_completed": 0,
     "requests_rejected": 0, "requests_timeout": 0, "requests_failed": 0,
-    "pool_exhausted": 0})
+    "pool_exhausted": 0, "swap_failures": 0, "step_retries": 0,
+    "requeued_requests": 0})
 
 
 class QueueFullError(RuntimeError):
@@ -120,6 +127,10 @@ class ContinuousBatchScheduler:
         self._t0 = None
         # the engine's counters share this scope's dict
         self._tok_base = _counters.get("tokens_generated", 0)
+        # (state, source, draft_state) of the newest staged swap
+        self._pending_swap = None
+        self.swap_count = 0
+        self.last_swap_error = None
 
     # ---------------------------------------------------------- frontend --
     def submit(self, request):
@@ -145,6 +156,15 @@ class ContinuousBatchScheduler:
     def has_work(self):
         return bool(self._queue or self._active or self._prefilling)
 
+    def prefilling(self):
+        return len(self._prefilling)
+
+    def queued(self):
+        return len(self._queue)
+
+    def active(self):
+        return len(self._active)
+
     def close(self):
         """Stop accepting; queued and in-flight requests drain. Lock-free
         on purpose: a signal handler may call it on a thread that already
@@ -168,6 +188,74 @@ class ContinuousBatchScheduler:
                 + list(self._prefilling.values()):
             self._finish(req, RequestStatus.ERROR, error=str(exc))
 
+    def takeover_requests(self):
+        """Replica-death path: hand back every queued and in-flight request
+        unfinished. Their events stay unset, so callers blocked on
+        ``result()`` keep waiting for the replay, and their tokens are
+        cleared, so the replay regenerates them. Sampling depends only on
+        (engine base key, request seed, token index), so a replica built
+        with the same ``rng_seed`` reproduces each request whose seed was
+        pinned. Call only after the driving thread has stopped."""
+        self.close()
+        with self._lock:
+            queued = list(self._queue)
+            self._queue.clear()
+        inflight = list(self._active.values()) \
+            + list(self._prefilling.values())
+        self._active.clear()
+        self._prefilling.clear()
+        try:
+            self.engine.reset()
+        except Exception as e:  # a dead engine needs no slots back
+            _explain.record("serving_takeover_reset_failed",
+                            op="takeover_requests", error=repr(e))
+        out = []
+        for req in inflight + queued:
+            if req.done:
+                continue
+            req.slot = None
+            req.tokens = []
+            req.status = RequestStatus.QUEUED
+            req.stop_reason = None
+            req.error = None
+            out.append(req)
+        _counters["requeued_requests"] += len(out)
+        return out
+
+    # ----------------------------------------------------- weight swaps --
+    def request_swap(self, state, source=None, draft_state=None):
+        """Stage a weight swap; thread-safe, O(1). The driving thread
+        applies it at the top of the next ``step()``, between two decode
+        iterations, so no request sees a half-swapped model. A newer stage
+        replaces one not applied yet. ``draft_state`` (spec-decode engines)
+        swaps the drafter in the same commit."""
+        with self._lock:
+            self._pending_swap = (state, source, draft_state)
+
+    def _apply_pending_swap(self):
+        with self._lock:
+            pending, self._pending_swap = self._pending_swap, None
+        if pending is None:
+            return
+        state, source, draft_state = pending
+        kw = {} if draft_state is None else {"draft_state": draft_state}
+        try:
+            self.engine.swap_weights(state, source=source, **kw)
+        except Exception as e:
+            # refused, or failed while staging: the engine writes nothing
+            # before every weight is staged, so the old weights serve on
+            _counters["swap_failures"] += 1
+            self.last_swap_error = e
+            _explain.record(
+                "serving_swap_failed", op="swap_weights",
+                why=f"weight swap{f' from {source}' if source else ''} "
+                    f"failed ({type(e).__name__}: {e}); serving continues "
+                    "on the pre-swap weights",
+                source=source, error=str(e))
+            return
+        self.swap_count += 1
+        self.last_swap_error = None
+
     # ---------------------------------------------------------- the loop --
     def step(self):
         """One continuous-batching iteration; returns True while any work
@@ -175,6 +263,11 @@ class ContinuousBatchScheduler:
         now = time.monotonic()
         if self._t0 is None:
             self._t0 = now
+
+        # (0) a staged weight swap lands here, between decode iterations:
+        # every token is computed on one consistent set of weights
+        if self._pending_swap is not None:
+            self._apply_pending_swap()
 
         if self._queue:
             # (1) deadline expired while queued: fail, never take a slot
@@ -252,7 +345,7 @@ class ContinuousBatchScheduler:
         if self._active:
             spec = getattr(self.engine, "decode_step_spec", None)
             if spec is not None:
-                per_slot = spec()
+                per_slot = self._decode_with_retry(spec)
                 now = time.monotonic()
                 for slot, req in list(self._active.items()):
                     toks = per_slot[slot]
@@ -263,13 +356,34 @@ class ContinuousBatchScheduler:
                         if req.done:
                             break
             else:
-                toks = self.engine.decode_step()
+                toks = self._decode_with_retry(self.engine.decode_step)
                 now = time.monotonic()
                 for slot, req in list(self._active.items()):
                     self._append_token(req, int(toks[slot]), now)
 
         self._update_throughput()
         return self.has_work()
+
+    def _decode_with_retry(self, step_fn):
+        """One decode iteration, retried once: a transient engine error
+        re-primes the engine (which recaptures its graphs and rebuilds the
+        slot state from the host mirrors) and runs the iteration again;
+        the second error in a row propagates, and the server loop then
+        fails the batch. A ``FatalEngineError`` is never retried."""
+        try:
+            return step_fn()
+        except FatalEngineError:
+            raise
+        except Exception as e:
+            _counters["step_retries"] += 1
+            _explain.record(
+                "serving_step_retry", op="decode_step",
+                why=f"transient decode failure ({type(e).__name__}: {e}); "
+                    "re-priming the engine and retrying once before "
+                    "failing the batch",
+                error=str(e))
+            self.engine.reprime()
+            return step_fn()
 
     def drain(self, timeout=None):
         """Run step() until idle; True if fully drained."""

@@ -46,9 +46,15 @@ ceiling (``models.gpt.paged_write_rows``).
 The drafter's KV rides its own ``BlockPool`` and block tables with the
 target's block geometry, budgeted at admission like the target's.
 
-Not ported yet: ``swap_weights`` and the drafter-KV rebuild after it,
-``reprime``, ``import_request_kv``, the mesh refusals,
-``describe_sharding``, per-generation acceptance gauges and fault hooks.
+Weight hot-swap: ``swap_weights(state, draft_state=...)`` stages both
+states before either model changes, copies them in place (neither graph is
+recaptured), and rebuilds every in-flight slot's drafter KV from its token
+history under the new drafter weights. Acceptance is kept per weight
+generation (``acceptance_by_generation``), so a swap's effect on it is
+visible. ``reprime`` drops all three graphs.
+
+Not ported yet: ``import_request_kv``, the mesh refusals,
+``describe_sharding`` and fault hooks.
 """
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from . import sampling as _sampling
 from .block_pool import BlockPool
-from .engine import GenerationEngine, StepGraph
+from ..convert import _linear_weight_names
+from .engine import GenerationEngine, StepGraph, _refresh_head
 from .engine import _counters as _serving_counters
 
 __all__ = ["DraftVerifyEngine"]
@@ -68,7 +75,10 @@ __all__ = ["DraftVerifyEngine"]
 _counters = _registry.scoped_counters("serving", {
     "spec_rounds": 0, "spec_slot_rounds": 0, "spec_proposed": 0,
     "spec_accepted": 0, "spec_emitted": 0, "draft_prefills": 0,
-    "draft_kv_blocks_hwm": 0})
+    "draft_kv_blocks_hwm": 0, "draft_swaps": 0})
+# weight generations whose acceptance keeps its own gauge; older ones fold
+# into one ".historic" rollup, so frequent swaps add no registry keys
+SPEC_ACCEPT_KEEP_GENERATIONS = 4
 
 
 class DraftVerifyEngine(GenerationEngine):
@@ -115,6 +125,9 @@ class DraftVerifyEngine(GenerationEngine):
         dwte = dgpt.embeddings.word_embeddings.weight
         self._ddtype = dwte.dtype
         self._dhead_w = dwte.detach().float()
+        self._dstate = dict(dgpt.state_dict(keep_vars=True))
+        self._dnames = list(self._dstate)
+        self._dlinear = _linear_weight_names(dgpt)
 
         # the drafter's paged kernel resolves separately against its own
         # head_dim and dtype, with the same requested policy
@@ -140,6 +153,16 @@ class DraftVerifyEngine(GenerationEngine):
         # prompt rows the drafter's KV holds per slot (it has no prefix
         # cache, so it can trail the target's chunk cursor)
         self._draft_ingested = [0] * B
+        # per-slot token history, prompt and every emitted token (the
+        # pending last one included): len == cur_len + 1 for an installed
+        # slot, and the drafter's KV rows 0..cur_len-1 hold
+        # history[:cur_len], which is what a swap re-ingests
+        self._slot_tokens = [[] for _ in range(B)]
+        # weight generation (swaps applied so far) -> [accepted, proposed];
+        # a re-prime changes no weights and opens no generation
+        self._weight_gen = 0
+        self._gen_accept = {}
+        self._accept_historic = [0, 0]
 
         dev = self.device
         self._d_dtables = torch.zeros((B, M), dtype=torch.int32, device=dev)
@@ -277,6 +300,14 @@ class DraftVerifyEngine(GenerationEngine):
             self._drop_draft(slot)
             raise
 
+    def _install_slot(self, slot, prompt, table_ids, bt_row, tok, key,
+                      temperature, top_k, top_p, matched_prefix,
+                      max_new_tokens):
+        super()._install_slot(slot, prompt, table_ids, bt_row, tok, key,
+                              temperature, top_k, top_p, matched_prefix,
+                              max_new_tokens)
+        self._slot_tokens[slot] = [int(t) for t in prompt] + [int(tok)]
+
     def _drop_draft(self, slot):
         if self._draft_blocks[slot]:
             self.draft_pool.decref(self._draft_blocks[slot])
@@ -286,7 +317,83 @@ class DraftVerifyEngine(GenerationEngine):
 
     def release(self, slot):
         self._drop_draft(slot)
+        self._slot_tokens[slot] = []
         super().release(slot)
+
+    def _finish_decode(self, active, n_active, toks):
+        # a plain decode_step on a spec engine keeps the history too
+        super()._finish_decode(active, n_active, toks)
+        for b in np.nonzero(active)[0]:
+            self._slot_tokens[b].append(int(toks[b]))
+
+    # ------------------------------------------------------- weight swap --
+    def swap_weights(self, state, source=None, draft_state=None):
+        """Target hot-swap, optionally with the drafter in the same commit.
+
+        Without ``draft_state`` this is the inherited target swap: tokens
+        stay those of plain decode (every draft is checked against the new
+        target), but the drafter guesses from stale weights, so acceptance
+        falls. With it, the drafter's state is resolved, checked and staged
+        before the target's, so a refusal of either leaves both models as
+        they were; then both are copied in place and every in-flight
+        slot's drafter KV is rebuilt from its token history under the new
+        drafter weights."""
+        dstaged = None
+        if draft_state is not None:
+            dresolved = self._resolve_swap_state(draft_state,
+                                                 names=self._dnames)
+            dstaged = self._stage_swap(dresolved, self._dnames,
+                                       self._dstate, self._dlinear)
+        super().swap_weights(state, source=source)
+        self._weight_gen += 1
+        if dstaged is None:
+            return
+        self._commit_swap(self._dnames, self._dstate, dstaged)
+        _refresh_head(self._dgpt, self._dhead_w)
+        self._rebuild_draft_kv()
+        _counters["draft_swaps"] += 1
+        _explain.record(
+            "serving_draft_swap", op="swap_weights",
+            why=f"swapped {len(dstaged)} drafter weights"
+                + (f" from {source}" if source else "")
+                + "; every in-flight slot's drafter KV was rebuilt from "
+                  "its token history",
+            weights=len(dstaged), source=source)
+
+    def _rebuild_draft_kv(self):
+        """Recompute every in-flight slot's drafter KV under the current
+        drafter weights by re-ingesting its token history through
+        ``_draft_ingest``, in windows no longer than the largest bucket. A
+        slot in the middle of a chunked admission redoes the prompt rows
+        its drafter had ingested. Rows past the re-ingested span hold
+        stale values, like rejected speculation rows: every read masks
+        them and the next round overwrites them."""
+        maxw = self.buckets[-1]
+        for slot in range(self.max_batch_size):
+            if self._active[slot]:
+                hist = self._slot_tokens[slot]
+                end = int(self._cur_lens[slot])
+            elif slot in self._mid_prefill:
+                hist = list(self._mid_prefill[slot]["prompt"])
+                end = self._draft_ingested[slot]
+            else:
+                continue
+            if len(hist) < end:
+                raise RuntimeError(
+                    f"slot {slot}: token history ({len(hist)}) shorter "
+                    f"than cur_len ({end}); the drafter KV cannot be "
+                    "rebuilt")
+            self._draft_ingested[slot] = 0
+            while self._draft_ingested[slot] < end:
+                self._draft_ingest(
+                    slot, hist, min(self._draft_ingested[slot] + maxw, end))
+
+    def reprime(self):
+        """Transient-fault recovery: drop the draft-round and verify graphs
+        with the plain decode graph (see ``GenerationEngine.reprime``)."""
+        super().reprime()
+        self._draft_graph = StepGraph(self._draft_body, self.device)
+        self._verify_graph = StepGraph(self._verify_body, self.device)
 
     # ------------------------------------------------------------ decode --
     def decode_step_spec(self):
@@ -309,6 +416,8 @@ class DraftVerifyEngine(GenerationEngine):
         out = [[] for _ in range(self.max_batch_size)]
         total = 0
         c = _counters
+        gen = self._weight_gen
+        gen_acc = self._gen_accept.setdefault(gen, [0, 0])
         for b in np.nonzero(active)[0]:
             m = int(emitted[b])
             toks = [int(t) for t in sampled[b, :m]]
@@ -319,11 +428,18 @@ class DraftVerifyEngine(GenerationEngine):
             self._gen_idx[b] += m
             if m:
                 self._last_tokens[b] = toks[-1]
+                self._slot_tokens[b].extend(toks)
             c["spec_accepted"] += int(accepts[b])
             c["spec_proposed"] += K
             c["spec_emitted"] += m
+            gen_acc[0] += int(accepts[b])
+            gen_acc[1] += K
         c["spec_rounds"] += 1
         c["spec_slot_rounds"] += n_active
+        _registry.gauge_set(f"serving.spec_acceptance.gen{gen}",
+                            round(gen_acc[0] / gen_acc[1], 4))
+        if len(self._gen_accept) > SPEC_ACCEPT_KEEP_GENERATIONS:
+            self._retire_old_generations()
         sc = _serving_counters
         sc["decode_steps"] += 1
         sc["active_slot_steps"] += n_active
@@ -336,6 +452,29 @@ class DraftVerifyEngine(GenerationEngine):
     def acceptance_rate(self):
         p = _counters["spec_proposed"]
         return _counters["spec_accepted"] / p if p else 0.0
+
+    def _retire_old_generations(self):
+        """Fold the generations beyond the newest
+        ``SPEC_ACCEPT_KEEP_GENERATIONS`` into the ``.historic`` rollup and
+        drop their gauges."""
+        while len(self._gen_accept) > SPEC_ACCEPT_KEEP_GENERATIONS:
+            g = min(self._gen_accept)
+            acc, prop = self._gen_accept.pop(g)
+            self._accept_historic[0] += acc
+            self._accept_historic[1] += prop
+            _registry.gauge_drop(f"serving.spec_acceptance.gen{g}")
+        if self._accept_historic[1]:
+            _registry.gauge_set(
+                "serving.spec_acceptance.historic",
+                round(self._accept_historic[0]
+                      / self._accept_historic[1], 4))
+
+    def acceptance_by_generation(self):
+        """Acceptance rate per weight generation (the number of swaps
+        applied before the round): a swap that also swapped the drafter
+        shows recovery here, a target-only swap shows decay."""
+        return {int(g): (a / p if p else 0.0)
+                for g, (a, p) in sorted(self._gen_accept.items())}
 
     def accepted_len_mean(self):
         """Mean tokens emitted per slot per round (1.0 = plain decode's

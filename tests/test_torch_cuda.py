@@ -208,6 +208,64 @@ def test_spec_graphs_equal_plain_decode(cuda, drafter_seed, n_layer):
     spec.draft_pool.audit()
 
 
+def _greedy(eng, n=16):
+    toks = [eng.prefill(0, list(range(3, 40)), seed=0)]
+    while len(toks) < n:
+        toks.append(int(eng.decode_step()[0]))
+    eng.release(0)
+    return toks
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_swap_on_a_captured_engine_copies_in_place(cuda, dtype):
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    def build(seed):
+        cfg = GPTConfig(vocab_size=512, n_layer=2, n_head=4, d_model=256,
+                        seq_len=256, initializer_range=0.2, dtype=dtype)
+        return GPTForPretraining(GPTModel(
+            cfg, device=cuda,
+            generator=torch.Generator(cuda).manual_seed(seed)))
+
+    kw = dict(max_batch_size=2, rng_seed=3, block_size=16, device=cuda)
+    eng = GenerationEngine(build(0), **kw)
+    _greedy(eng)  # captures the decode graph
+    assert eng._decode_graph.captured
+    ptrs = {k: v.data_ptr() for k, v in eng._state.items()}
+    head = eng._head_w.data_ptr()
+    b = build(1)
+    # the reference's layout, as a checkpoint holds it
+    state = {k: v.float().cpu().numpy()
+             for k, v in convert.state_to_paddle_tpu(b.gpt).items()}
+    c0 = registry.counters("serving")["decode_compiles"]
+    eng.swap_weights(state)
+    assert {k: v.data_ptr() for k, v in eng._state.items()} == ptrs
+    assert eng._head_w.data_ptr() == head
+    got = _greedy(eng)
+    assert registry.counters("serving")["decode_compiles"] == c0
+    assert got == _greedy(GenerationEngine(b, **kw))
+
+
+def test_reprime_recaptures_once(cuda):
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(_tiny_gpt(cuda, 2, 0), max_batch_size=2,
+                           rng_seed=3, block_size=16, device=cuda)
+    want = _greedy(eng)
+    c0 = registry.counters("serving")
+    eng.reprime()
+    assert not eng._decode_graph.captured
+    assert _greedy(eng) == want
+    c1 = registry.counters("serving")
+    assert c1["decode_compiles"] == c0["decode_compiles"] + 1
+    assert c1["reprimes"] == c0["reprimes"] + 1
+
+
 def _flash_case(dev, dtype, B, T, N, H, seed, strided=False):
     """q, k, v [B, T, N, H] (as unbind views of one fused projection when
     ``strided``) and an output gradient, from a seeded CPU generator."""
