@@ -47,6 +47,43 @@ Phases, in order; any failure exits non-zero:
              recaptured graph: one retry, one re-prime, one capture, and
              the greedy tokens of an unfaulted run; two faults in a row
              fail the batch through the server's worker loop;
+ 4e. handoff disaggregated serving (gpt3-1.3B bf16, full width and
+             depth, seed-0 weights): engine A (rng_seed 7) prefills phase
+             4's 16 requests and exports each; engine B's scheduler
+             (rng_seed 99: the exported key must rule) adopts the
+             payloads and decodes; B's tokens equal a monolithic engine
+             M's (rng_seed 7) bitwise, greedy and sampled; B runs no
+             prefill, counts 16 imports and n_layer K4 launches per decode
+             step (on the card), both pools audit clean and B's prefix
+             cache holds the adopted prompts' full blocks. Export and
+             import time per request against the payload's bytes, B's p50
+             TTFT and decode step are reported. Then a spec engine
+             (float32, 2 layers, twin drafter) adopts a handoff with plain
+             decode's tokens, and the staleness cases: a re-prime on the
+             decode side alone is adopted; a swap between export and
+             import is refused and prefilled again, with a fresh engine's
+             tokens on the new weights; a re-prime on the prefill side
+             then a swap on the decode side is refused;
+ 4f. prefill graphs  one prompt per bucket (16..2048) on a fresh engine:
+             one graph captured per bucket, the replay's first token and
+             K/V rows bitwise equal to the same body called directly on
+             the same buffers, both timed (host and device), the graphs'
+             shared pool measured; phase 4 has checked that its prefills
+             captured one graph per bucket they used, all at warm-up;
+ 4g. observability  4e's mix again with tracing on: every request's
+             trace holds queue_wait, prefill, kv_export, kv_import,
+             kv_adopt and decode; a chrome trace loads back; the ttft and
+             inter_token histogram p50s lie within one bucket of the
+             measured p50s; the decode step with tracing on and off. Then
+             the fault points (testing.faults): page_pool_exhausted keeps
+             requests queued and changes no token; decode_error is retried
+             once; kill_during_swap leaves the old weights serving;
+             replica_kill fails the batch through the server's loop, which
+             dumps the flight recorder; draft_garbage (float32, 2 layers)
+             changes no spec token; an engine captured with
+             kernel_mismatch armed gives K4 output phase 3's parity check
+             rejects (and passes with it off). Every fault is disarmed in
+             a finally;
  5. parity   the same request through a kernel engine and a plain engine
              on the card (gpt3-1.3B width, 2 layers, float32), both
              replaying their graphs: decode logits within tolerance,
@@ -123,6 +160,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -1174,21 +1212,50 @@ def free_memory():
     torch.cuda.empty_cache()
 
 
+class BucketLog:
+    """Test instrumentation: the prompt buckets an engine's prefills use,
+    recorded where its prefill looks its bucket up
+    (``GenerationEngine._prefill_bucket``, the target's prefill only)."""
+
+    def __init__(self, engine):
+        self.used = set()
+        self._orig = engine._prefill_bucket
+        engine._prefill_bucket = self
+
+    def __call__(self, L):
+        self.used.add(L)
+        return self._orig(L)
+
+
 def serve(srv, reqs, vocab):
-    """Serve ``reqs`` after one warm-up request (its decode step captures
-    the engine's graphs): returns the handles, the wall time and the
-    counters, graph replays and K4's launches as the card counted them
-    (``counts["device"]``, per instance) of the timed window."""
+    """Serve ``reqs`` after a warm-up: one request whose decode step
+    captures the engine's decode graphs, then one single-token request per
+    prompt bucket up to the mix's longest prompt, whose prefills capture
+    the buckets' graphs, so the timed window captures nothing. Returns the
+    handles, the wall time and the counters, graph replays and K4's
+    launches as the card counted them (``counts["device"]``, per instance)
+    of the timed window, with the prefill buckets used
+    (``counts["prefill_buckets"]``, warm-up and window)."""
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.profiler import registry
     from paddle_tpu_torch.serving.engine import StepGraph
 
-    graphs = {a: g for a, g in vars(srv.engine).items()
+    eng = srv.engine
+    graphs = {a: g for a, g in vars(eng).items()
               if isinstance(g, StepGraph)}
+    buckets = BucketLog(eng)
 
-    c0 = registry.counters("serving")["decode_compiles"]
+    c0 = registry.counters("serving")
     srv.generate(list(range(1, 40)), max_new_tokens=4)
-    compiles = registry.counters("serving")["decode_compiles"] - c0
+    top = eng.bucket_for(max(len(p) for p, _ in reqs))
+    rng = np.random.default_rng(99)
+    for b in eng.buckets:
+        if b <= top:
+            srv.generate(rng.integers(0, vocab, b - 1).tolist(),
+                         max_new_tokens=1)
+    c1 = registry.counters("serving")
+    compiles = c1["decode_compiles"] - c0["decode_compiles"]
+    prefill_captures = c1["prefill_compiles"] - c0["prefill_compiles"]
     for scope in ("kernels", "serving", "fastpath"):
         registry.reset(scope)
     pa.reset_device_launches()
@@ -1209,6 +1276,9 @@ def serve(srv, reqs, vocab):
               for scope in ("kernels", "serving", "fastpath")}
     counts["device"] = pa.device_launches()
     counts["captures_at_warmup"] = compiles
+    counts["prefill_captures_at_warmup"] = prefill_captures
+    counts["prefill_buckets"] = sorted(buckets.used)
+    del eng._prefill_bucket  # the instrumentation goes
     counts["replays"] = {a: g.replays - replays[a] for a, g in graphs.items()}
     ttft = sorted(h.ttft_s for h in handles)
     step_t = registry.timings("serving")["serving.decode_step"]
@@ -1248,8 +1318,17 @@ def weights_sum(model):
 
 def check_fast_path(what, counts, captures):
     """One capture per graph at warm-up and none after; steady steps
-    outnumber rebuilds; no demotion."""
+    outnumber rebuilds; no demotion. One prefill graph captured per
+    distinct bucket its prompts used, all at warm-up."""
     fp = counts["fastpath"]
+    if counts["prefill_captures_at_warmup"] != \
+            len(counts["prefill_buckets"]) or \
+            counts["serving"]["prefill_compiles"]:
+        raise AssertionError(
+            f"{what}: {counts['prefill_captures_at_warmup']} prefill "
+            f"graphs captured at warm-up and "
+            f"{counts['serving']['prefill_compiles']} after it, for the "
+            f"buckets {counts['prefill_buckets']}")
     if counts["captures_at_warmup"] != captures or \
             counts["serving"]["decode_compiles"]:
         raise AssertionError(
@@ -1325,6 +1404,8 @@ def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
     result.update({
         "decode_steps": steps, "prefix_hits":
         counts["serving"]["prefix_hits"], "launches": launches,
+        "prefill_buckets": counts["prefill_buckets"],
+        "prefill_graphs": counts["prefill_captures_at_warmup"],
         "device_launches": device,
         "decode_launches": counts["device"][(dtype, head_dim, 1)],
         "fastpath": counts["fastpath"], "graph_captures": 1,
@@ -1923,6 +2004,656 @@ def phase_spec_swap(dev, preset="gpt3-1.3B", draft_preset="gpt2-small",
     return result
 
 
+# ---------------------------------------------- prefill→decode handoff --
+def build_gpt(dev, seed, preset="gpt3-1.3B", **over):
+    """A random model of ``preset`` on the card, its weights from ``seed``."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+
+    return GPTForPretraining(GPTModel(
+        GPTConfig.preset(preset, **over), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
+
+
+class Timed:
+    """Test instrumentation: ``obj.name`` replaced by a wrapper that keeps
+    each call's host seconds, up to the end of the card's work."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name = obj, name
+        self._orig = getattr(obj, name)
+        self.seconds = []
+        setattr(obj, name, self)
+
+    def __call__(self, *args, **kw):
+        t = time.perf_counter()
+        out = self._orig(*args, **kw)
+        torch.cuda.synchronize()
+        self.seconds.append(time.perf_counter() - t)
+        return out
+
+    def restore(self):
+        delattr(self.obj, self.name)
+
+
+def export_all(engine, reqs):
+    """The prefill side of a handoff: prefill each request in slot 0 of
+    ``engine``, export it and release the slot. The prefix cache is
+    flushed first, so the prefills hit the prefixes a fresh monolithic
+    engine hits on the same sequence: a prefix hit prefills a shorter
+    window, whose bf16 rows may round otherwise. Returns the payloads and
+    each export's host seconds (the copy to the host synchronises)."""
+    engine.prefix_cache.flush()
+    payloads, secs = [], []
+    for p, o in reqs:
+        engine.prefill(0, p, **o)
+        t = time.perf_counter()
+        payloads.append(engine.export_request_kv(0))
+        secs.append(time.perf_counter() - t)
+        engine.release(0)
+    return payloads, secs
+
+
+def payload_bytes(payload):
+    return sum(t.numel() * t.element_size()
+               for t in payload["kv_k"] + payload["kv_v"])
+
+
+def adopt_all(sched, reqs, payloads, step_ends=None):
+    """The decode side: submit ``reqs`` carrying their payloads and step
+    ``sched`` on this thread until it is idle; every request must finish
+    with all its tokens. ``step_ends`` collects, after each step, the
+    monotonic clock and every request's token count. Returns the
+    handles."""
+    handles = [sched.submit(r) for r in handoff_requests(reqs, payloads)]
+    while sched.has_work():
+        sched.step()
+        if step_ends is not None:
+            step_ends.append((time.monotonic(),
+                              [len(h.tokens) for h in handles]))
+    bad = [h for h in handles if h.status != "done"
+           or len(h.tokens) != h.max_new_tokens]
+    if bad:
+        raise AssertionError(f"unfinished requests {bad}")
+    return handles
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def first_difference(got, want):
+    """``(request, token)`` of the first difference of two token lists of
+    lists, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return i, next((j for j, (x, y) in enumerate(zip(a, b))
+                            if x != y), min(len(a), len(b)))
+    return None if len(got) == len(want) else (min(len(got), len(want)), 0)
+
+
+def phase_handoff(dev, preset="gpt3-1.3B", dtype="bfloat16",
+                  max_batch_size=8, block_size=16, n_requests=16):
+    """4e: disaggregated serving at full width. A prefills each of phase
+    4's requests, exports and releases it; B's scheduler adopts the
+    payloads and decodes; M, a monolithic engine on the same weights and
+    base key as A, serves the same requests. B's key differs on purpose:
+    the exported request key must rule. Then a handoff into a spec engine
+    and the staleness cases. Returns the result and, for 4f and 4g, the
+    engines and the reference tokens."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import (ContinuousBatchScheduler,
+                                          GenerationEngine)
+
+    t0 = time.perf_counter()
+    model = build_gpt(dev, 0, preset, dtype=dtype)
+    cfg = model.gpt.cfg
+    ekw = dict(max_batch_size=max_batch_size, block_size=block_size,
+               device=dev)
+    a = GenerationEngine(model, rng_seed=7, **ekw)
+    m = GenerationEngine(model, rng_seed=7, **ekw)
+    b = GenerationEngine(build_gpt(dev, 0, preset, dtype=dtype),
+                         rng_seed=99, **ekw)
+    log(f"handoff: {preset} {dtype}, engines A (prefill, rng_seed 7), B "
+        f"(decode, rng_seed 99), M (monolithic, rng_seed 7) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = serving_requests(cfg.vocab_size, n=n_requests)
+    want = run_sync(ContinuousBatchScheduler(m, max_queue_size=64), reqs)
+    sched = ContinuousBatchScheduler(b, max_queue_size=64)
+    warm = [(list(range(1, 40)), dict(max_new_tokens=4, seed=99))]
+    adopt_all(sched, warm, export_all(a, warm)[0])  # captures B's graph
+
+    payloads, export_s = export_all(a, reqs)
+    for scope in ("kernels", "serving", "fastpath"):
+        registry.reset(scope)
+    pa.reset_device_launches()
+    imports = Timed(b, "import_request_kv")
+    t = time.perf_counter()
+    try:
+        handles = adopt_all(sched, reqs, payloads)
+    finally:
+        imports.restore()
+    wall = time.perf_counter() - t
+    c = registry.counters("serving")
+    got = [h.tokens for h in handles]
+    diff = first_difference(got, want)
+    if diff is not None:
+        raise AssertionError(f"handoff: B's tokens differ from M's at "
+                             f"(request, token) {diff}")
+    moved = {k: c[k] for k in ("prefills", "handoff_imports",
+                               "handoff_stale", "requests_completed",
+                               "decode_compiles", "prefill_compiles")}
+    if moved != {"prefills": 0, "handoff_imports": n_requests,
+                 "handoff_stale": 0, "requests_completed": n_requests,
+                 "decode_compiles": 0, "prefill_compiles": 0}:
+        raise AssertionError(f"handoff: B's counters moved {moved}")
+    for e in (a, b, m):
+        e.pool.audit()
+    short = [i for i, (p, _) in enumerate(reqs)
+             if len(b.prefix_cache.match(p)) != len(p) // block_size]
+    if short:
+        raise AssertionError(f"handoff: B's prefix cache lacks the full "
+                             f"blocks of requests {short}")
+    steps = c["decode_steps"]
+    device = check_device_launches(
+        "handoff", {"device": pa.device_launches(),
+                    "kernels": registry.counters("kernels")},
+        {(dtype, cfg.d_model // cfg.n_head, 1): steps * cfg.n_layer})
+    nbytes = [payload_bytes(p) for p in payloads]
+    ttft = sorted(h.ttft_s for h in handles)
+    result = {
+        "requests": n_requests, "tokens_equal_monolithic": True,
+        "greedy_and_sampled": True, "decode_steps": steps,
+        "k4_launches": device, "payload_mb_p50": _median(nbytes) / 1e6,
+        "payload_mb_max": max(nbytes) / 1e6,
+        "export_ms_p50": _p50(export_s), "import_ms_p50": _p50(
+            imports.seconds),
+        "export_gb_s": sum(nbytes) / sum(export_s) / 1e9,
+        "import_gb_s": sum(nbytes) / sum(imports.seconds) / 1e9,
+        "ttft_p50_ms": ttft[len(ttft) // 2] * 1e3,
+        "decode_step_p50_ms":
+            registry.timings("serving")["serving.decode_step"]["p50_ms"],
+        "tokens_per_s": sum(map(len, got)) / wall}
+    log("handoff: " + json.dumps(result))
+    result["spec"] = phase_spec_handoff(dev, preset)
+    model_1 = build_gpt(dev, 1, preset, dtype=dtype)
+    result["stale"] = phase_stale_handoff(dev, a, model, model_1, reqs,
+                                          want, ekw, preset, dtype)
+    return result, {"a": a, "b": b, "model": model, "model_1": model_1,
+                    "reqs": reqs, "want": want,
+                    "decode_step_p50_ms": result["decode_step_p50_ms"]}
+
+
+def phase_spec_handoff(dev, preset, n_layer=2, draft_k=4, n_tokens=24):
+    """4e, spec: a plain engine's export adopted by a ``DraftVerifyEngine``
+    (float32, ``n_layer`` layers at full width, a twin drafter): its tokens
+    equal plain decode's, greedy and sampled, and the drafter, which
+    ingests the prompt again, has every draft accepted."""
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
+
+    target = build_gpt(dev, 1, preset, n_layer=n_layer, dtype="float32")
+    plain = GenerationEngine(target, max_batch_size=2, rng_seed=7,
+                             device=dev)
+    spec = DraftVerifyEngine(
+        target, build_gpt(dev, 1, preset, n_layer=n_layer, dtype="float32"),
+        draft_k=draft_k, max_batch_size=2, rng_seed=99, device=dev)
+    prompt = np.random.default_rng(1).integers(
+        0, target.gpt.cfg.vocab_size, 333).tolist()
+    out = {}
+    for opts in (dict(seed=0), dict(seed=3, temperature=0.8, top_p=0.9)):
+        want = _spec_run(plain, prompt, n_tokens, **opts)
+        payload = export_all(plain, [(prompt, opts)])[0][0]
+        c0 = registry.counters("serving")
+        got = [spec.import_request_kv(0, payload, prompt_ids=prompt)]
+        while len(got) < n_tokens:
+            got.extend(spec.decode_step_spec()[0])
+        spec.release(0)
+        c1 = registry.counters("serving")
+        if got[:n_tokens] != want:
+            raise AssertionError(f"handoff: spec tokens {got} != plain "
+                                 f"decode's {want} ({opts})")
+        acc = (c1["spec_accepted"] - c0["spec_accepted"]) / (
+            c1["spec_proposed"] - c0["spec_proposed"])
+        if acc != 1.0:
+            raise AssertionError(f"handoff: twin drafter acceptance {acc}")
+        out["sampled" if len(opts) > 1 else "greedy"] = "equal"
+    spec.pool.audit()
+    spec.draft_pool.audit()
+    log(f"handoff: spec engine ({n_layer} layers float32, twin drafter, "
+        f"K={draft_k}) adopting a plain engine's export: {n_tokens} tokens "
+        f"equal plain decode's, {out}, acceptance 1.0")
+    return out
+
+
+def phase_stale_handoff(dev, a, model, model_1, reqs, want, ekw, preset,
+                        dtype):
+    """4e, staleness, on a decode engine D of its own (seed-0 weights,
+    rng_seed 99) against exports from A: a re-prime on D alone leaves
+    the weight generation and the handoff is adopted; a swap on D (to
+    seed-1 weights) between an export and its import gets the payload
+    refused and prefilled again on D, with the tokens of a fresh engine
+    on seed-1 weights; a re-prime on A followed by a swap on D (back to
+    seed 0) is refused too."""
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import (ContinuousBatchScheduler,
+                                          GenerationEngine, StaleHandoffError)
+
+    two = reqs[:2]  # one greedy, one sampled
+    d = GenerationEngine(build_gpt(dev, 0, preset, dtype=dtype),
+                         rng_seed=99, **ekw)
+    fresh = run_sync(ContinuousBatchScheduler(
+        GenerationEngine(model_1, rng_seed=99, **ekw)), two)
+
+    def adopt(payloads):
+        c0 = registry.counters("serving")
+        got = [h.tokens for h in adopt_all(ContinuousBatchScheduler(d),
+                                           two, payloads)]
+        c1 = registry.counters("serving")
+        return got, {k: c1[k] - c0[k] for k in (
+            "handoff_imports", "handoff_stale", "prefills")}
+
+    out = {}
+    d.reprime()
+    got, moved = adopt(export_all(a, two)[0])
+    if got != want[:2] or moved != {"handoff_imports": 2,
+                                    "handoff_stale": 0, "prefills": 0}:
+        raise AssertionError(f"stale: after a re-prime on D: {moved}, "
+                             f"tokens equal M's: {got == want[:2]}")
+    out["reprime_on_decode_side"] = "adopted"
+    payloads = export_all(a, two)[0]
+    d.swap_weights({k: v.detach() for k, v in
+                    model_1.gpt.state_dict().items()})
+    got, moved = adopt(payloads)
+    if got != fresh or moved != {"handoff_imports": 0, "handoff_stale": 2,
+                                 "prefills": 2}:
+        raise AssertionError(f"stale: a swap between export and import: "
+                             f"{moved}, tokens equal a fresh engine's on "
+                             f"the new weights: {got == fresh}")
+    out["swap_between_export_and_import"] = \
+        "refused, prefilled again, tokens equal a fresh engine's"
+    a.reprime()
+    payload = export_all(a, two[:1])[0][0]
+    d.swap_weights({k: v.detach() for k, v in model.gpt.state_dict().items()})
+    try:
+        d.import_request_kv(0, payload, prompt_ids=two[0][0])
+    except StaleHandoffError:
+        out["reprime_on_prefill_side_then_swap"] = "refused"
+    else:
+        raise AssertionError("stale: a payload exported after a re-prime "
+                             "on A was adopted by D after a swap")
+    d.pool.audit()
+    log("handoff (staleness): " + json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------- prefill graphs --
+def host_and_device_ms(fn, n=5):
+    """Median host milliseconds (to the end of the card's work) and device
+    milliseconds (CUDA events) of ``n`` calls of ``fn``."""
+    host, device = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        host.append((time.perf_counter() - t) * 1e3)
+        device.append(e0.elapsed_time(e1))
+    return sorted(host)[n // 2], sorted(device)[n // 2]
+
+
+def phase_prefill_graphs(dev, model, max_batch_size=8, block_size=16):
+    """4f: one prompt per bucket (16..2048) on a fresh engine: one graph
+    captured per bucket; the replay's first token and K/V rows equal
+    those of the same body called directly on the same input buffers,
+    bitwise; each timed both ways; the graphs' shared pool measured."""
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(model, max_batch_size=max_batch_size,
+                           block_size=block_size, rng_seed=7, device=dev)
+    vocab = model.gpt.cfg.vocab_size
+    rng = np.random.default_rng(4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_stats(dev)
+    c0 = registry.counters("serving")["prefill_compiles"]
+    rows = {}
+    for L in eng.buckets:
+        prompt = rng.integers(0, vocab, L - 1).tolist()
+        tok = eng.prefill(0, prompt, seed=L, temperature=0.8, top_p=0.9,
+                          max_new_tokens=1)
+        pb = eng._prefill_buckets[L]
+        idx = torch.tensor(eng._slot_blocks[0], device=dev)
+
+        def kv_rows():
+            return [(k[idx].clone(), v[idx].clone()) for k, v in eng._kv]
+
+        graph_kv = kv_rows()
+        with torch.no_grad():
+            pb.body()  # the same body, called directly on the buffers
+        direct_tok, direct_kv = int(pb.token.item()), kv_rows()
+        if direct_tok != tok or not all(
+                torch.equal(x, y) for g, d in zip(graph_kv, direct_kv)
+                for x, y in zip(g, d)):
+            raise AssertionError(
+                f"prefill graphs: bucket {L}: the graph's token {tok} and "
+                f"K/V rows against the direct call's {direct_tok}: not "
+                "bitwise equal")
+        graph_ms = host_and_device_ms(pb.graph)
+        direct_ms = host_and_device_ms(pb.body)
+        rows[L] = {"graph_host_ms": graph_ms[0],
+                   "graph_device_ms": graph_ms[1],
+                   "direct_host_ms": direct_ms[0],
+                   "direct_device_ms": direct_ms[1]}
+        eng.release(0)
+        del graph_kv, direct_kv
+    captures = registry.counters("serving")["prefill_compiles"] - c0
+    # (the CPU, where the script is rehearsed, runs the bodies directly)
+    if captures != len(eng.buckets) * (dev.type == "cuda") or \
+            sorted(eng._prefill_buckets) != list(eng.buckets):
+        raise AssertionError(f"prefill graphs: {captures} captures for "
+                             f"the buckets {eng.buckets}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m1 = torch.cuda.memory_stats(dev)
+    key = "reserved_bytes.all.current"
+    result = {"buckets": list(eng.buckets), "captures": captures,
+              "bitwise_equal_direct": True, "per_bucket": rows,
+              "graph_pool_reserved_mb": (m1[key] - m0[key]) / 1e6,
+              "reserved_before_mb": m0[key] / 1e6,
+              "reserved_after_mb": m1[key] / 1e6}
+    log("prefill graphs: " + json.dumps(result))
+    del eng
+    free_memory()
+    return result
+
+
+# ------------------------------------ traces, histograms, fault points --
+class RouteRecorder:
+    """Test instrumentation: the model's K4 route calls made while a CUDA
+    graph captures, as (arguments, output). The tensors stay referenced,
+    so the graph's replays rewrite them in place."""
+
+    def __init__(self):
+        from paddle_tpu_torch.models import gpt
+
+        self._mod, self._orig = gpt, gpt.paged_attention_route
+        self.calls = []
+        gpt.paged_attention_route = self
+
+    def __call__(self, kernel, *args, **kw):
+        out = self._orig(kernel, *args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            self.calls.append((args, out))
+        return out
+
+    def restore(self):
+        self._mod.paged_attention_route = self._orig
+
+
+def hist_index(ms):
+    """The histogram bucket a duration of ``ms`` falls in."""
+    from paddle_tpu_torch.profiler import registry
+
+    return math.frexp(ms / 1e3)[1] - registry.HIST_EMIN
+
+
+def token_gaps(step_ends):
+    """Each request's gaps between consecutive tokens, from the clock read
+    after each step (the scheduler stamps a step's tokens with one clock
+    read). A step that gave a request two tokens (its admission and its
+    first decode) hides the gap between them, which is left out."""
+    gaps = []
+    for r in range(len(step_ends[0][1])):
+        last = None
+        for t, counts in step_ends:
+            n = counts[r] - (last[1] if last else 0)
+            if n and last is not None and last[1]:
+                gaps.append(t - last[0])
+            if n:
+                last = (t, counts[r])
+    return gaps
+
+
+def phase_observability(dev, ctx, n_layer=2):
+    """4g: traces, histograms and the serving fault points at full width
+    on 4e's engines A and B (``ctx``), every fault disarmed in a
+    ``finally``."""
+    from paddle_tpu_torch.profiler import registry, tracing
+    from paddle_tpu_torch.serving import (ContinuousBatchScheduler,
+                                          DraftVerifyEngine, GenerationEngine,
+                                          GenerationServer)
+    from paddle_tpu_torch.testing import faults
+
+    a, b, reqs, want = ctx["a"], ctx["b"], ctx["reqs"], ctx["want"]
+    greedy = [i for i, (_, o) in enumerate(reqs) if not o.get("temperature")]
+    out = {}
+    flight_dir = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    old_dir = os.environ.get("PADDLE_TPU_FLIGHT_DIR")
+    os.environ["PADDLE_TPU_FLIGHT_DIR"] = flight_dir
+    try:
+        # traces and histograms: 4e's mix again with tracing on
+        off_p50 = ctx["decode_step_p50_ms"]
+        registry.reset("serving")
+        tracing.drain_spans()
+        tracing.enable()
+        step_ends = []
+        handles = adopt_all(ContinuousBatchScheduler(b, max_queue_size=64),
+                            reqs, export_all(a, reqs)[0], step_ends)
+        tracing.disable()
+        spans = tracing.drain_spans()
+        if [h.tokens for h in handles] != want:
+            raise AssertionError("traces: tokens with tracing on differ")
+        names = {"queue_wait", "prefill", "kv_export", "kv_import",
+                 "kv_adopt", "decode"}
+        for (_, o), h in zip(reqs, handles):
+            tid = tracing.trace_id_for_seed(o["seed"])
+            mine = {s[1] for s in spans if s[0] == tid}
+            if h.trace_id != tid or not names <= mine:
+                raise AssertionError(f"traces: request seed {o['seed']}: "
+                                     f"trace {h.trace_id} spans {mine}")
+        col = tracing.FleetTraceCollector()
+        col.add_spans("chip_smoke", spans, pid=os.getpid())
+        with tempfile.TemporaryDirectory() as d:
+            with open(col.write(os.path.join(d, "trace.json"))) as f:
+                doc = json.load(f)
+        events = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        if len(events) != len(spans) or len(col.traces()) != len(reqs) + 1:
+            raise AssertionError(f"traces: the chrome trace holds "
+                                 f"{len(events)} of {len(spans)} spans")
+        hists, times = registry.histograms("serving"), \
+            registry.timings("serving")
+        # the measured p50 at the histogram's rank: the smallest value
+        # that half the observations do not exceed
+        measured = {"ttft": [h.ttft_s for h in handles],
+                    "inter_token": token_gaps(step_ends)}
+        pairs = {}
+        for k, xs in measured.items():
+            exact_ms = sorted(xs)[math.ceil(len(xs) / 2) - 1] * 1e3
+            pairs[k] = (hists[f"serving.{k}"]["p50_ms"], exact_ms)
+            if abs(hist_index(pairs[k][0]) - 1 - hist_index(exact_ms)) > 1:
+                raise AssertionError(f"histograms: {k} p50 {pairs[k][0]} "
+                                     f"ms against {exact_ms} ms measured")
+        pairs["ttft_reservoir_p50_ms"] = times["serving.ttft"]["p50_ms"]
+        out["traces"] = {
+            "spans": len(spans), "requests_traced": len(reqs),
+            "chrome_trace_events": len(events),
+            "hist_vs_measured_p50_ms": pairs,
+            "decode_step_p50_ms_tracing_on": times["serving.decode_step"][
+                "p50_ms"],
+            "decode_step_p50_ms_tracing_off": off_p50}
+
+        # page_pool_exhausted: requests stay queued, then all finish
+        payloads = export_all(a, reqs)[0]
+        c0 = registry.counters("serving")
+        faults.configure("page_pool_exhausted:times=3")
+        sched = ContinuousBatchScheduler(b, max_queue_size=64)
+        handles = [sched.submit(h) for h in handoff_requests(reqs, payloads)]
+        queued = []
+        while sched.has_work():
+            sched.step()
+            queued.append(sched.queued())
+        faults.reset()
+        c1 = registry.counters("serving")
+        if queued[:3] != [len(reqs)] * 3 or [h.tokens for h in handles] \
+                != want or c1["pool_exhausted"] - c0["pool_exhausted"] != 3:
+            raise AssertionError(f"page_pool_exhausted: queued {queued[:4]}"
+                                 f", tokens equal "
+                                 f"{[h.tokens for h in handles] == want}")
+        out["page_pool_exhausted"] = {"queued_after_steps": queued[:4],
+                                      "tokens_equal": True}
+
+        # decode_error beside phase 4d's own injection
+        sub = [reqs[i] for i in greedy]
+        payloads = export_all(a, sub)[0]
+        c0 = registry.counters("serving")
+        faults.configure("decode_error:fails=1")
+        got = [h.tokens for h in adopt_all(
+            ContinuousBatchScheduler(b, max_queue_size=64), sub, payloads)]
+        faults.reset()
+        c1 = registry.counters("serving")
+        moved = {k: c1[k] - c0[k] for k in ("step_retries", "reprimes",
+                                            "decode_compiles",
+                                            "requests_failed")}
+        if moved != {"step_retries": 1, "reprimes": 1,
+                     "decode_compiles": int(dev.type == "cuda"),
+                     "requests_failed": 0} or \
+                got != [want[i] for i in greedy]:
+            raise AssertionError(f"decode_error: {moved}, tokens equal "
+                                 f"{got == [want[i] for i in greedy]}")
+        out["decode_error"] = moved
+
+        # kill_during_swap: the old weights serve the same tokens
+        payloads = export_all(a, sub)[0]
+        gen0 = b._weight_gen
+        c0 = registry.counters("serving")
+        faults.configure("kill_during_swap")
+        sched = ContinuousBatchScheduler(b, max_queue_size=64)
+        sched.request_swap({k: v.detach() for k, v in
+                            ctx["model_1"].gpt.state_dict().items()})
+        got = [h.tokens for h in adopt_all(sched, sub, payloads)]
+        faults.reset()
+        c1 = registry.counters("serving")
+        if c1["swap_failures"] - c0["swap_failures"] != 1 or \
+                c1["weight_swaps"] != c0["weight_swaps"] or \
+                b._weight_gen != gen0 or got != [want[i] for i in greedy]:
+            raise AssertionError(f"kill_during_swap: {sched.last_swap_error}"
+                                 f", tokens equal "
+                                 f"{got == [want[i] for i in greedy]}")
+        out["kill_during_swap"] = repr(sched.last_swap_error)[:100]
+
+        # replica_kill: the worker loop fails the batch and dumps
+        payloads = export_all(a, sub)[0]
+        srv = GenerationServer(engine=b, max_queue_size=64)
+        faults.configure("replica_kill:nth=5")
+        try:
+            hs = [srv.submit_request(r)
+                  for r in handoff_requests(sub, payloads)]
+            for h in hs:
+                h.result(timeout=600)
+        finally:
+            faults.reset()
+            srv.shutdown(timeout=600)
+        path = tracing.flight_dump_path()
+        dump = tracing.load_flight_dump(path)
+        fatal = [e for e in dump["events"] if e["event"] == "fatal"]
+        if any(h.status != "error" for h in hs) or \
+                "replica_kill" not in str(srv.fatal_error) or not fatal or \
+                not dump["reason"].startswith("fatal_engine_error"):
+            raise AssertionError(f"replica_kill: {hs}, fatal "
+                                 f"{srv.fatal_error!r}, dump {dump['reason']}")
+        out["replica_kill"] = {"failed_requests": len(hs),
+                               "flight_events": len(dump["events"]),
+                               "fatal": fatal[-1]["detail"]["error"][:80]}
+
+        # draft_garbage and kernel_mismatch, float32 at n_layer layers
+        target = build_gpt(dev, 1, n_layer=n_layer, dtype="float32")
+        prompt = np.random.default_rng(1).integers(
+            0, target.gpt.cfg.vocab_size, 333).tolist()
+        plain = GenerationEngine(target, max_batch_size=2, rng_seed=0,
+                                 device=dev)
+        spec = DraftVerifyEngine(
+            target, build_gpt(dev, 1, n_layer=n_layer, dtype="float32"),
+            draft_k=4, max_batch_size=2, rng_seed=0, device=dev)
+        c0 = registry.counters("serving")
+        faults.configure("draft_garbage:rounds=3")
+        got = _spec_run(spec, prompt, 24, seed=3, temperature=0.8)
+        faults.reset()
+        c1 = registry.counters("serving")
+        if got != _spec_run(plain, prompt, 24, seed=3, temperature=0.8) \
+                or c1["spec_accepted"] - c0["spec_accepted"] >= \
+                c1["spec_proposed"] - c0["spec_proposed"]:
+            raise AssertionError("draft_garbage: spec tokens differ from "
+                                 "plain decode's, or every draft was "
+                                 "accepted")
+        out["draft_garbage"] = {
+            "tokens_equal_plain": True,
+            "accepted": c1["spec_accepted"] - c0["spec_accepted"],
+            "proposed": c1["spec_proposed"] - c0["spec_proposed"]}
+        del spec, plain
+
+        rejected = {}
+        for armed in (True, False):
+            rec = RouteRecorder()
+            try:
+                if armed:
+                    faults.configure("kernel_mismatch")
+                eng = GenerationEngine(target, max_batch_size=2, rng_seed=0,
+                                       device=dev)
+                eng.prefill(0, prompt, seed=0)
+                eng.decode_step()  # captures the graph, then replays it
+                torch.cuda.synchronize()
+            finally:
+                faults.reset()
+                rec.restore()
+            args, got = rec.calls[0]  # layer 0
+            try:
+                check_paged("decode in a graph captured with "
+                            f"kernel_mismatch {'armed' if armed else 'off'}",
+                            torch.float32, *paged_errors(got, args))
+            except AssertionError as e:
+                rejected[armed] = str(e)[:160]
+            else:
+                rejected[armed] = None
+            del eng, rec
+        if rejected[True] is None or rejected[False] is not None:
+            raise AssertionError(f"kernel_mismatch: the parity check "
+                                 f"{rejected}")
+        out["kernel_mismatch"] = {"rejected_when_armed": rejected[True],
+                                  "passed_when_off": True}
+    finally:
+        faults.reset()
+        tracing.disable()
+        if old_dir is None:
+            os.environ.pop("PADDLE_TPU_FLIGHT_DIR", None)
+        else:
+            os.environ["PADDLE_TPU_FLIGHT_DIR"] = old_dir
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    a.pool.audit()
+    b.pool.audit()
+    log("observability: " + json.dumps(out))
+    return out
+
+
+def handoff_requests(reqs, payloads):
+    """``GenerationRequest`` handles carrying the payloads."""
+    from paddle_tpu_torch.serving import GenerationRequest
+
+    out = []
+    for (p, o), payload in zip(reqs, payloads):
+        r = GenerationRequest(p, **o)
+        r.kv_payload = payload
+        out.append(r)
+    return out
+
+
 # ------------------------------------------------------------------ main --
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
                     r"_kernel(?:_sm90)?)I(\w*?)E+v")
@@ -2012,6 +2743,11 @@ def main():
     paged = phase_kernels(dev)
     served, plain = phase_serving(dev)
     swapped, retried = phase_swap(dev)
+    handoff, ctx = phase_handoff(dev)
+    graphs = phase_prefill_graphs(dev, ctx["model"])
+    observed = phase_observability(dev, ctx)
+    del ctx
+    free_memory()
     phase_parity(dev)
     spec = phase_spec_serving(dev, plain)
     phase_spec_swap(dev)
@@ -2044,6 +2780,24 @@ def main():
         f"{swapped['steady_step_p50_ms_before']:.2f} ms before / "
         f"{swapped['steady_step_p50_ms_after']:.2f} ms after; retry "
         f"{json.dumps(retried['counters_moved'])}")
+    log(f"handoff on {smi}: B's tokens equal M's for "
+        f"{handoff['requests']} requests; export "
+        f"{handoff['export_ms_p50']:.2f} ms, import "
+        f"{handoff['import_ms_p50']:.2f} ms per request (p50, payload "
+        f"{handoff['payload_mb_p50']:.1f} MB); B's p50 TTFT "
+        f"{handoff['ttft_p50_ms']:.1f} ms, p50 decode step "
+        f"{handoff['decode_step_p50_ms']:.2f} ms")
+    log(f"prefill graphs on {smi}: " + ", ".join(
+        f"{L}: {r['graph_device_ms']:.2f}/{r['direct_device_ms']:.2f} ms"
+        for L, r in graphs["per_bucket"].items())
+        + f" (graph/direct, device); shared pool "
+        f"{graphs['graph_pool_reserved_mb']:.0f} MB; phase 4 p50 TTFT "
+        f"{served['ttft_p50_ms']:.1f} ms with prefill graphs")
+    log(f"observability on {smi}: decode step p50 "
+        f"{observed['traces']['decode_step_p50_ms_tracing_on']:.2f} ms "
+        f"with tracing on, "
+        f"{observed['traces']['decode_step_p50_ms_tracing_off']:.2f} off; "
+        f"fault points {sorted(k for k in observed if k != 'traces')}")
     log(f"train->serve on {smi}: {followed['bytes'] / 1e9:.2f} GB saved in "
         f"{followed['save_s']:.1f} s, followed (load and swap) in "
         f"{followed['follow_load_and_swap_s']:.1f} s, swap stage "

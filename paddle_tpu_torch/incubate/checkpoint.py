@@ -51,8 +51,11 @@ emergency_saves/reshard_loads`` counters,
 ``checkpoint_save``/``checkpoint_restore``/``checkpoint_skip`` explainer
 records.
 
-Not ported yet: the elastic training context of ``CheckpointHook``
-(ROADMAP queue 1 item 8) and the fault-injection hooks.
+Fault injection: ``truncate_checkpoint`` (``testing.faults``) tears a
+payload right after its commit, so loads exercise the skip-and-fall-back
+path. Not ported yet: the elastic training context of ``CheckpointHook``
+(ROADMAP queue 1 item 8), with the fault points ``kill_at_step``,
+``rank_preempt`` and ``step_hang`` that fire there.
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ from ..framework import (_from_saveable, _merge_saveable, _to_saveable,
                          atomic_write_bytes)
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
+from ..testing import faults as _faults
 
 __all__ = ["CheckpointManager", "CheckpointHook", "load_latest",
            "load_resharded", "save_checkpoint", "latest_step", "list_steps",
@@ -260,7 +264,11 @@ class CheckpointManager:
         d = _ckpt_dir(self.dir, step)
         os.makedirs(d, exist_ok=True)
         blob = pickle.dumps(job["payload"], protocol=4)
-        atomic_write_bytes(blob, os.path.join(d, _payload_name(0)))
+        payload_path = os.path.join(d, _payload_name(0))
+        atomic_write_bytes(blob, payload_path)
+        if _faults.ACTIVE:
+            # a torn write, after the commit, so that loads meet it
+            _faults.fire("truncate_checkpoint", path=payload_path)
         manifest = {
             "schema": SCHEMA, "step": step, "epoch": job["epoch"],
             "time": time.time(), "rank": 0, "world_size": 1,

@@ -29,8 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..ops.attention import attention, scaled_dot_product_attention
 from ..ops.flash_attention import select_flash_kernel
-from ..ops.paged_attention import (paged_attention, paged_attention_ref,
-                                   paged_view, position_mask)
+from ..ops.paged_attention import (paged_attention_route, paged_view,
+                                   position_mask)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -156,12 +156,9 @@ class GPTAttention(nn.Module):
             0, write_rows, k.reshape(B * T, self.n_head, self.head_dim))
         v_pool.view(shape).index_copy_(
             0, write_rows, v.reshape(B * T, self.n_head, self.head_dim))
-        if kernel == "cuda":
-            out = paged_attention(q.contiguous(), k_pool, v_pool,
-                                  block_tables, seq_lens, offsets)
-        elif kernel == "torch":
-            out = paged_attention_ref(q, k_pool, v_pool, block_tables,
-                                      seq_lens, offsets)
+        if kernel is not None:
+            out = paged_attention_route(kernel, q, k_pool, v_pool,
+                                        block_tables, seq_lens, offsets)
         else:
             # prefill: the gather path with an explicit mask, as in the
             # reference (its prefill never reaches the paged kernel)

@@ -18,6 +18,10 @@ and produce finite garbage the host discards.
 * :func:`paged_attention_split_ref` is the plain version of the kernel's
   split-KV arithmetic (partials over chunks of keys, merged in chunk
   order), for the tests; :func:`split_keys` is the kernel's own chunk.
+* :func:`paged_attention_route` is the read the model calls: the kernel
+  or its plain version, as the engine chose, and the site of the
+  ``kernel_mismatch`` fault point. The two functions above, which parity
+  checks use as the oracle, never perturb.
 * :func:`select_paged_kernel` resolves the kernel once per engine.
 
 Launch counts live in the ``kernels`` registry scope:
@@ -41,6 +45,7 @@ import functools
 import torch
 
 from ..profiler import registry as _registry
+from ..testing import faults as _faults
 from . import _build
 from .attention import attention
 
@@ -268,6 +273,34 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cudaError {err}")
     _counters["paged_attention"] += 1
+    return out
+
+
+def paged_attention_route(kernel, q, k_pool, v_pool, block_tables, seq_lens,
+                          q_offsets, scale=None):
+    """The decode and verify attention read of the model: ``kernel`` "cuda"
+    launches the kernel (:func:`paged_attention`, on a contiguous copy of
+    ``q`` where it is a view), "torch" computes its plain version.
+
+    The ``kernel_mismatch`` fault point fires here where the route is
+    traced, as the reference fires it when it traces its kernel: at a CUDA
+    graph's capture on the card (warm-up and eager calls are not traces),
+    and at every call on the CPU, where nothing is captured. When it fires
+    one output element gets +1, and a graph captured then replays the
+    perturbation."""
+    if kernel == "cuda":
+        out = paged_attention(q.contiguous(), k_pool, v_pool, block_tables,
+                              seq_lens, q_offsets, scale=scale)
+    elif kernel == "torch":
+        out = paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens,
+                                  q_offsets, scale=scale)
+    else:
+        raise ValueError(f"paged_attention_route: unknown kernel {kernel!r} "
+                         "(expected cuda | torch)")
+    if _faults.ACTIVE and (q.device.type != "cuda"
+                           or torch.cuda.is_current_stream_capturing()) \
+            and _faults.fire("kernel_mismatch"):
+        out[(0,) * out.dim()] += 1
     return out
 
 

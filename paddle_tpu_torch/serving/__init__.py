@@ -1,8 +1,11 @@
-"""Serving for the port: paged-KV engine, continuous-batching scheduler and
-threaded server, draft-verify speculative decoding, weight hot-swap and the
+"""Serving for the port: paged-KV engine with per-bucket prefill graphs,
+continuous-batching scheduler and threaded server, the prefill→decode KV
+handoff, draft-verify speculative decoding, weight hot-swap and the
 checkpoint follower (counterparts of paddle_tpu/serving/)."""
+from . import sampling  # noqa: F401
 from .block_pool import BlockPool, PagePoolExhausted, RadixPrefixCache
-from .engine import FatalEngineError, GenerationEngine, WeightSwapError
+from .engine import (FatalEngineError, GenerationEngine, StaleHandoffError,
+                     WeightSwapError)
 from .scheduler import (ContinuousBatchScheduler, GenerationRequest,
                         QueueFullError, RequestStatus)
 from .server import CheckpointFollower, GenerationServer
@@ -10,6 +13,7 @@ from .spec_decode import DraftVerifyEngine
 
 __all__ = ["BlockPool", "PagePoolExhausted", "RadixPrefixCache",
            "GenerationEngine", "WeightSwapError", "FatalEngineError",
-           "ContinuousBatchScheduler", "GenerationRequest", "QueueFullError",
-           "RequestStatus", "GenerationServer", "CheckpointFollower",
-           "DraftVerifyEngine"]
+           "StaleHandoffError", "ContinuousBatchScheduler",
+           "GenerationRequest", "QueueFullError", "RequestStatus",
+           "GenerationServer", "CheckpointFollower", "DraftVerifyEngine",
+           "sampling"]

@@ -10,8 +10,13 @@ hands immutable prefix blocks to new requests by refcount
 
 * Prefill runs one request's prompt suffix (the part after its cached
   prefix), padded to a bucket length, through the masked gather path, and
-  samples the first token at the prompt's last position. It runs eagerly,
-  on the stream the decode graph replays on, and writes the same pools.
+  samples the first token at the prompt's last position. Each bucket has
+  static input buffers and one body on them, captured into a CUDA graph at
+  the bucket's first use (``serving.prefill_compiles`` counts captures;
+  every bucket's graph draws on one shared memory pool) and replayed on
+  the stream the decode graph replays on; on the CPU the body runs
+  directly. The same graph serves a whole suffix, a prefix-hit remainder
+  and one chunk of a chunked prefill: offset, length and table are data.
 * The decode step runs every slot at ``[max_batch, 1]``: each slot's last
   token at its own position, its K/V row written through its block table,
   attention through the paged kernel chosen once per engine
@@ -41,11 +46,30 @@ from pure jitted steps.
 
 Weight hot-swap (``swap_weights``): every incoming weight is checked and
 staged on the device before the first write, then copied into the live
-parameters in place, so the captured graph, which reads fixed addresses,
-serves the new weights with no recapture; the float32 LM-head copy of a
-bf16 model is refreshed the same way. ``reprime`` drops the captured graphs
-after a step error: the next step recaptures and rebuilds the slot state
-from the host mirrors, which advance only after a step succeeds.
+parameters in place, so the captured graphs, which read fixed addresses,
+serve the new weights with no recapture; the float32 LM-head copy of a
+bf16 model is refreshed the same way. Each applied swap advances the
+engine's weight generation (``weight_generation``). ``reprime`` drops the
+captured decode graph after a step error (the prefill graphs stay): the
+next step recaptures and rebuilds the slot state from the host mirrors,
+which advance only after a step succeeds.
+
+Prefill→decode handoff (disaggregated serving): ``export_request_kv``
+gathers an active slot's KV blocks to host tensors with its decode state
+and weight generation; ``import_request_kv`` on an engine with the same
+model and block geometry scatters them into fresh blocks and installs the
+slot, so its decode continues token for token as on the exporter. A
+payload of another weight generation is refused (``StaleHandoffError``).
+The generation counts swaps only: a re-prime changes no weight.
+
+Observability: request spans (``prefill``, ``prefill_chunk``,
+``kv_export``, ``kv_import``) and process spans (``swap_weights``) go to
+``profiler.tracing`` while tracing is on; handoffs and swaps land in its
+flight recorder. Fault points (``testing.faults``):
+``page_pool_exhausted`` in ``can_admit``/``can_import``,
+``kill_during_swap`` between a swap's staging and its first write, and
+``slow_decode``, ``pod_slow``, ``replica_kill``, ``decode_error`` before
+a decode step.
 
 Slot lifecycle: free -> (admission: blocks allocated/shared, suffix
 prefill, first token sampled) -> active (each decode step appends one row
@@ -66,6 +90,8 @@ from ..device import resolve_device
 from ..ops.paged_attention import select_paged_kernel
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
+from ..profiler import tracing as _tracing
+from ..testing import faults as _faults
 from . import sampling as _sampling
 from .block_pool import BlockPool, PagePoolExhausted, RadixPrefixCache
 
@@ -75,7 +101,9 @@ _counters = _registry.scoped_counters("serving", {
     "prefix_hits": 0, "prefix_misses": 0, "prefix_hit_tokens": 0,
     "prefix_inserted_blocks": 0, "prefix_evicted_blocks": 0,
     "kv_blocks_hwm": 0, "chunked_prefills": 0, "prefill_chunks": 0,
-    "decode_compiles": 0, "weight_swaps": 0, "reprimes": 0})
+    "prefill_compiles": 0, "decode_compiles": 0, "weight_swaps": 0,
+    "reprimes": 0, "handoff_exports": 0, "handoff_imports": 0,
+    "handoff_stale": 0})
 # the decode fast path: steady steps on the device-resident slot state,
 # rebuilds from the host mirrors at batch boundaries, audits of the two,
 # and demotions after a failed audit (reference engine.py:94-96)
@@ -98,6 +126,13 @@ class WeightSwapError(RuntimeError):
     names, a shape mismatch, a value that is no number, or two weight
     layouts mixed). Raised before any weight is written: the engine keeps
     serving the old weights, and the KV cache is never touched."""
+
+
+class StaleHandoffError(RuntimeError):
+    """A handed-off KV payload was exported under another weight
+    generation than the one this engine serves: adopting it would decode
+    new weights over old-weight prompt KV. The scheduler answers it with a
+    local prefill under the current weights."""
 
 
 class FatalEngineError(RuntimeError):
@@ -132,11 +167,17 @@ class StepGraph:
     Python, which under capture runs once and launches nothing. The
     counters that capture moved are put back and kept as the graph's
     launches per replay, and each replay adds them, so the counters still
-    count launches. ``serving.decode_compiles`` counts captures."""
+    count launches. ``serving.<counter>`` counts captures
+    (``decode_compiles`` for the decode graphs, ``prefill_compiles`` for
+    the prefill buckets'). ``pool`` is a ``torch.cuda.graph_pool_handle()``
+    shared with other graphs whose bodies keep nothing they allocate (None:
+    a private pool)."""
 
-    def __init__(self, body, device):
-        self._body = body
+    def __init__(self, body, device, counter="decode_compiles", pool=None):
+        self.body = body
         self._device = device
+        self._counter = counter
+        self._pool = pool
         self._graph = None
         self.launches = {}
         self.replays = 0
@@ -151,28 +192,86 @@ class StepGraph:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for _ in range(_CAPTURE_WARMUP):
-                self._body()
+                self.body()
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(_kernel_counters)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._body()
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
+            self.body()
         self.launches = {k: v - before.get(k, 0)
                          for k, v in _kernel_counters.items()
                          if v != before.get(k, 0)}
         for k, n in self.launches.items():
             _kernel_counters[k] -= n
         self._graph = graph
-        _counters["decode_compiles"] += 1
+        _counters[self._counter] += 1
 
     def __call__(self):
         if self._device.type != "cuda":
-            self._body()
+            self.body()
             return
         self._graph.replay()
         self.replays += 1
         for k, n in self.launches.items():
             _kernel_counters[k] += n
+
+
+class _PrefillBucket:
+    """One prompt bucket's prefill: static input buffers (ids, positions,
+    offset, length, table row, key, sampling knobs, and the index of the
+    row that feeds the sample), the sampled token, and the body on them
+    in a :class:`StepGraph`. The body is the reference's ``_prefill_pure``:
+    the paged forward over the bucket through the masked gather path, the
+    pick of row ``end - 1 - start``, the float32 LM head and the first
+    sample (token index 0)."""
+
+    def __init__(self, engine, L, pool):
+        dev = engine.device
+
+        def buf(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._engine = engine
+        self.ids = buf((1, L), torch.int64)
+        self.positions = buf((1, L), torch.int64)
+        self.offset = buf(1, torch.int32)
+        self.length = buf(1, torch.int32)
+        self.table = buf((1, engine.blocks_per_slot), torch.int32)
+        self.key = buf((1, 2), torch.int64)
+        self.temperature = buf(1, torch.float32)
+        self.top_k = buf(1, torch.int64)
+        self.top_p = buf(1, torch.float32)
+        self.row = buf(1, torch.int64)
+        self.token_idx = buf(1, torch.int64)
+        self.token = buf(1, torch.int32)
+        self.graph = StepGraph(self.body, dev, counter="prefill_compiles",
+                               pool=pool)
+
+    def load(self, ids, positions, start, end, bt_row, key, temperature,
+             top_k, top_p):
+        """Copy one prefill's inputs into the buffers."""
+        for b, a in ((self.ids, ids), (self.positions, positions),
+                     (self.table, bt_row[None]), (self.key, key[None])):
+            b.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        for b, v in ((self.offset, start), (self.length, end),
+                     (self.temperature, temperature), (self.top_k, top_k),
+                     (self.top_p, top_p), (self.row, end - 1 - start)):
+            b.fill_(float(v) if b.is_floating_point() else int(v))
+
+    def body(self):
+        eng = self._engine
+        with torch.no_grad():
+            hidden, _ = eng._gpt(
+                self.ids, position_ids=self.positions, caches=eng._kv,
+                cache_offsets=self.offset, seq_lens=self.length,
+                block_tables=self.table)
+            logits = hidden[0].index_select(0, self.row).float() \
+                @ eng._head_w.t()
+            gum = _sampling.gumbel_rows(self.key, self.token_idx,
+                                        logits.shape[-1])
+            self.token.copy_(_sampling.sample_tokens(
+                logits, self.temperature, self.top_k, self.top_p, gum))
 
 
 def _default_buckets(max_seq_len):
@@ -288,6 +387,16 @@ class GenerationEngine:
         # chunked prefill: slot -> in-progress admission state. Such a slot
         # is reserved: neither free nor active until its first token.
         self._mid_prefill: dict = {}
+        # slot -> the trace id of the request it serves (None: untraced)
+        self._slot_trace: dict = {}
+        # weight swaps applied so far: the weight identity a handoff
+        # payload carries and is checked against (a re-prime changes no
+        # weight and leaves it alone)
+        self._weight_gen = 0
+        # bucket length -> _PrefillBucket, made at the bucket's first use;
+        # every bucket's graph draws on one memory pool
+        self._prefill_buckets: dict = {}
+        self._prefill_pool = None
 
         # an explicit rng_seed pins every sampled token independently of
         # any global generator: two engines with the same rng_seed sample
@@ -352,6 +461,7 @@ class GenerationEngine:
         self._active[slot] = False
         self._cur_lens[slot] = 0
         self._gen_idx[slot] = 0
+        self._slot_trace.pop(slot, None)
         self._fast = False  # slot membership changed: rebuild
 
     def slot_len(self, slot):
@@ -392,6 +502,8 @@ class GenerationEngine:
         """Can the pool cover this request's worst case, counting cold
         prefix blocks as evictable? Ignores the prefix-hit discount, so True
         guarantees ``prefill`` cannot raise ``PagePoolExhausted``."""
+        if _faults.ACTIVE and _faults.fire("page_pool_exhausted"):
+            return False
         need = self.blocks_needed(len(prompt_ids), max_new_tokens)
         return need <= (self.pool.free_count()
                         + self.prefix_cache.evictable_count())
@@ -468,9 +580,10 @@ class GenerationEngine:
 
     def _paged_prefill(self, gpt, kv, window, end, start, bt_row):
         """``gpt``'s paged forward over prompt[start:end] (``window``),
-        padded to its bucket, through the masked gather path; writes the
-        window's K/V rows into ``kv`` through ``bt_row``. Rows at or past
-        ``end`` go to the garbage block. Returns the hidden states."""
+        padded to its bucket, through the masked gather path, called
+        eagerly (the spec drafter's prefill); writes the window's K/V rows
+        into ``kv`` through ``bt_row``. Rows at or past ``end`` go to the
+        garbage block. Returns the hidden states."""
         L = self.bucket_for(len(window))
         ids = np.zeros((1, L), np.int64)
         ids[0, :len(window)] = window
@@ -483,26 +596,43 @@ class GenerationEngine:
             block_tables=self._upload(bt_row[None]))
         return hidden
 
+    def _prefill_bucket(self, L):
+        """The bucket of length ``L``, made at its first use; every
+        bucket's graph draws on one memory pool."""
+        pb = self._prefill_buckets.get(L)
+        if pb is None:
+            if self.device.type == "cuda" and self._prefill_pool is None:
+                self._prefill_pool = torch.cuda.graph_pool_handle()
+            pb = self._prefill_buckets[L] = _PrefillBucket(
+                self, L, self._prefill_pool)
+        return pb
+
     def _prefill_call(self, window, end, start, bt_row, key, temperature,
                       top_k, top_p):
-        """One prefill pass over prompt[start:end], padded to its bucket;
-        the sample is taken at ``end - 1`` (intermediate chunks discard
-        it)."""
-        with torch.no_grad(), \
-                _registry.time_block("prefill", scope="serving"):
-            hidden = self._paged_prefill(self._gpt, self._kv, window, end,
-                                         start, bt_row)
-            last = hidden[0, end - 1 - start].float()
-            logits = (last @ self._head_w.t()).unsqueeze(0)
-            gum = _sampling.gumbel_rows(
-                self._upload(key[None]),
-                torch.zeros(1, dtype=torch.int64, device=self.device),
-                logits.shape[-1])
-            tok = _sampling.sample_tokens(
-                logits, self._upload(np.asarray([temperature], np.float32)),
-                self._upload(np.asarray([top_k], np.int64)),
-                self._upload(np.asarray([top_p], np.float32)), gum)
-            return int(tok.item())
+        """One prefill pass over prompt[start:end], padded to its bucket,
+        through the bucket's graph; the sample is taken at ``end - 1``
+        (intermediate chunks discard it). On a CUDA device the graph is
+        captured at the bucket's first use, from the inputs just loaded:
+        the capture's warm-up runs the body for real on them, writing the
+        rows the replay then writes again with the same values."""
+        L = self.bucket_for(len(window))
+        ids = np.zeros((1, L), np.int64)
+        ids[0, :len(window)] = window
+        positions = np.minimum(start + np.arange(L), self.max_seq_len - 1)
+        pb = self._prefill_bucket(L)
+        with _registry.time_block("prefill", scope="serving"):
+            pb.load(ids, positions[None], start, end, bt_row, key,
+                    temperature, top_k, top_p)
+            if self.device.type == "cuda" and not pb.graph.captured:
+                pb.graph.capture()
+                _explain.record(
+                    "serving_prefill_compile", op="serving.prefill",
+                    why=f"first prefill of bucket {L}: its graph was "
+                        "captured; later prefills of this bucket replay it",
+                    detail=f"bucket_len={L}, max_batch="
+                           f"{self.max_batch_size}")
+            pb.graph()
+            return int(pb.token.item())
 
     def _reserve_extra(self, slot, prompt, max_new_tokens):
         """Subclass hook (spec decode): reserve extra per-slot resources
@@ -563,13 +693,16 @@ class GenerationEngine:
         generated token. Raises ``PagePoolExhausted`` when the pool cannot
         cover the request even after evicting cold prefixes."""
         prompt = self._check_prompt(slot, prompt_ids)
+        trace = _tracing.trace_id_for_seed(seed) if seed is not None \
+            else None
         table_ids, bt_row, P = self._admit_blocks(prompt, max_new_tokens)
         key = self._request_key(seed)
-        with self._unwinding(table_ids):
+        with self._unwinding(table_ids), _tracing.span(trace, "prefill"):
             tok = self._prefill_call(prompt[P:], len(prompt), P, bt_row, key,
                                      temperature, top_k, top_p)
         self._install_slot(slot, prompt, table_ids, bt_row, tok, key,
                            temperature, top_k, top_p, P, max_new_tokens)
+        self._slot_trace[slot] = trace
         return tok
 
     # -------------------------------------------------- chunked prefill --
@@ -592,7 +725,9 @@ class GenerationEngine:
             "table_ids": table_ids, "bt_row": bt_row,
             "key": self._request_key(seed), "temperature": temperature,
             "top_k": top_k, "top_p": top_p, "matched": P,
-            "max_new_tokens": max_new_tokens}
+            "max_new_tokens": max_new_tokens,
+            "trace": _tracing.trace_id_for_seed(seed)
+            if seed is not None else None}
         self._note_pool()
         _counters["chunked_prefills"] += 1
         return -(-(len(prompt) - P) // chunk)
@@ -610,7 +745,8 @@ class GenerationEngine:
         end = min(start + st["chunk"], len(prompt))
         # on a failure the admission ends here; reserved extras (drafter
         # blocks) come back when the scheduler releases the slot
-        with self._unwinding(st["table_ids"]):
+        with self._unwinding(st["table_ids"]), \
+                _tracing.span(st["trace"], "prefill_chunk"):
             tok = self._prefill_call(
                 prompt[start:end], end, start, st["bt_row"], st["key"],
                 st["temperature"], st["top_k"], st["top_p"])
@@ -624,7 +760,149 @@ class GenerationEngine:
             slot, prompt, st["table_ids"], st["bt_row"], tok, st["key"],
             st["temperature"], st["top_k"], st["top_p"], st["matched"],
             st["max_new_tokens"])
+        self._slot_trace[slot] = st["trace"]
         return tok
+
+    # --------------------------------------------- prefill→decode handoff --
+    def export_request_kv(self, slot):
+        """An active slot's paged-KV state for a handoff (disaggregated
+        serving), as the reference's payload dict: the slot's blocks of
+        every layer in block-table order as host tensors ``kv_k``/``kv_v``
+        (``[n_blocks, block_size, heads, head_dim]`` in the pool's dtype,
+        so bf16 bytes cross verbatim), with its decode state (cursor, last
+        token, token index, request key, sampling knobs), the weight
+        generation and the trace id. ``import_request_kv`` on an engine
+        with the same model and block geometry continues the stream token
+        for token: sampling depends only on (request key, token index)."""
+        if not self._active[slot]:
+            raise RuntimeError(f"slot {slot} is not active; nothing to "
+                               "export")
+        trace = self._slot_trace.get(slot)
+        t0 = _tracing.clock() if _tracing.enabled() else 0.0
+        ids = list(self._slot_blocks[slot])
+        idx = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        # one gather on the device and one copy to the host
+        kv = torch.stack([torch.stack((k.index_select(0, idx),
+                                       v.index_select(0, idx)))
+                          for k, v in self._kv]).cpu()
+        _counters["handoff_exports"] += 1
+        if t0:
+            _tracing.add_span(trace, "kv_export", t0, _tracing.clock(),
+                              meta={"bytes": kv.numel() * kv.element_size()})
+        _tracing.flight("kv_export", trace_id=trace, slot=slot,
+                        blocks=len(ids))
+        return {
+            "n_blocks": len(ids), "block_size": self.block_size,
+            "kv_k": list(kv[:, 0].unbind(0)),
+            "kv_v": list(kv[:, 1].unbind(0)),
+            "cur_len": int(self._cur_lens[slot]),
+            "last_token": int(self._last_tokens[slot]),
+            "gen_idx": int(self._gen_idx[slot]),
+            "key": self._keys[slot].copy(),
+            "temperature": float(self._temps[slot]),
+            "top_k": int(self._top_ks[slot]),
+            "top_p": float(self._top_ps[slot]),
+            "weight_generation": self._weight_gen,
+            "trace": trace}
+
+    def can_import(self, payload):
+        """Admission budget of a handoff: can the pool cover the payload's
+        blocks (the exporter allocated the request's worst case), counting
+        cold prefix blocks as evictable? True guarantees
+        ``import_request_kv`` cannot raise ``PagePoolExhausted``."""
+        if _faults.ACTIVE and _faults.fire("page_pool_exhausted"):
+            return False
+        return int(payload["n_blocks"]) <= (
+            self.pool.free_count() + self.prefix_cache.evictable_count())
+
+    def _kv_blocks(self, a):
+        """One layer's handed-off blocks on this engine's device in the
+        pool's dtype: a host tensor as it is, an array (a reference
+        payload) through numpy."""
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.require(_leaf(a), requirements="CW"))
+        return a.to(device=self.device, dtype=self._dtype)
+
+    def import_request_kv(self, slot, payload, prompt_ids=None):
+        """Adopt a slot exported by :meth:`export_request_kv`: check the
+        payload (weight generation, then block size, block count, layer
+        count and block shape; ``StaleHandoffError`` or ``ValueError``
+        with nothing allocated), allocate fresh blocks, scatter the
+        handed-off rows into this engine's pools and install the slot.
+        Returns the request's first token, sampled by the exporter. With
+        ``prompt_ids`` the prompt's full blocks join this engine's prefix
+        cache. A failed scatter gives its blocks back."""
+        if self._active[slot] or slot in self._mid_prefill:
+            raise RuntimeError(f"slot {slot} is not free")
+        t0 = _tracing.clock() if _tracing.enabled() else 0.0
+        gen = payload.get("weight_generation")
+        if gen is not None and int(gen) != self._weight_gen:
+            _counters["handoff_stale"] += 1
+            raise StaleHandoffError(
+                f"handoff exported under weight generation {gen}, this "
+                f"engine serves generation {self._weight_gen}; re-prefill "
+                "under the current weights instead of adopting stale KV")
+        n = int(payload["n_blocks"])
+        if int(payload["block_size"]) != self.block_size:
+            raise ValueError(
+                f"handoff block_size {payload['block_size']} != engine "
+                f"block_size {self.block_size}: the engines must share one "
+                "KV geometry")
+        if n > self.blocks_per_slot:
+            raise ValueError(f"handoff carries {n} blocks but a slot holds "
+                             f"at most {self.blocks_per_slot}")
+        if len(payload["kv_k"]) != len(self._kv) or \
+                len(payload["kv_v"]) != len(self._kv):
+            raise ValueError(
+                f"handoff has {len(payload['kv_k'])} layers, engine has "
+                f"{len(self._kv)}: a different model")
+        for li, (kb, vb) in enumerate(zip(payload["kv_k"],
+                                          payload["kv_v"])):
+            want = (n,) + tuple(self._kv[li][0].shape[1:])
+            for got in (tuple(np.shape(kb)), tuple(np.shape(vb))):
+                if got != want:
+                    raise ValueError(f"handoff layer {li} blocks {got} != "
+                                     f"engine {want}")
+        fresh = self.pool.alloc(n, evict=self._evict)
+        with self._unwinding(fresh):
+            idx = torch.tensor(fresh, dtype=torch.int64, device=self.device)
+            for (k, v), kb, vb in zip(self._kv, payload["kv_k"],
+                                      payload["kv_v"]):
+                k.index_copy_(0, idx, self._kv_blocks(kb))
+                v.index_copy_(0, idx, self._kv_blocks(vb))
+        bt_row = np.zeros(self.blocks_per_slot, np.int32)
+        bt_row[:n] = fresh
+        if prompt_ids is not None:
+            prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
+            full = min(len(prompt) // self.block_size, n)
+            if full:
+                created = self.prefix_cache.insert(
+                    prompt[:full * self.block_size], fresh[:full])
+                _counters["prefix_inserted_blocks"] += created
+        trace = payload.get("trace")
+        self._slot_trace[slot] = trace
+        self._slot_blocks[slot] = fresh
+        self._block_tables[slot] = bt_row
+        self._active[slot] = True
+        self._cur_lens[slot] = int(payload["cur_len"])
+        self._last_tokens[slot] = int(payload["last_token"])
+        self._gen_idx[slot] = int(payload["gen_idx"])
+        self._temps[slot] = float(payload["temperature"])
+        self._top_ks[slot] = int(payload["top_k"])
+        self._top_ps[slot] = float(payload["top_p"])
+        self._keys[slot] = np.asarray(payload["key"], np.int64)
+        self._fast = False  # admission is a batch boundary: rebuild
+        self._note_pool()
+        _counters["handoff_imports"] += 1
+        _counters["tokens_generated"] += 1  # the adopted first token
+        if t0:
+            nbytes = sum(int(np.prod(np.shape(a))) for a in
+                         payload["kv_k"] + payload["kv_v"]) \
+                * self._kv[0][0].element_size()
+            _tracing.add_span(trace, "kv_import", t0, _tracing.clock(),
+                              meta={"bytes": nbytes})
+        _tracing.flight("kv_import", trace_id=trace, slot=slot, blocks=n)
+        return int(payload["last_token"])
 
     # ------------------------------------------------------------- decode --
     def _decode_body(self):
@@ -713,6 +991,13 @@ class GenerationEngine:
             why="decode audit: the device slot state diverged from the host "
                 "mirrors; rebuilding from the host state")
 
+    @staticmethod
+    def _fire_decode_faults():
+        """The decode-step fault points, before a step changes anything."""
+        for point in ("slow_decode", "pod_slow", "replica_kill",
+                      "decode_error"):
+            _faults.fire(point)
+
     def decode_step(self):
         """One continuous-batching iteration over all slots; returns the
         int32 ``[max_batch]`` token block (junk on inactive lanes) and
@@ -724,6 +1009,8 @@ class GenerationEngine:
         n_active = int(active.sum())
         if n_active == 0:
             raise RuntimeError("decode_step with no active slots")
+        if _faults.ACTIVE:
+            self._fire_decode_faults()
         with _registry.time_block("decode_step", scope="serving"):
             self._prepare_fast((self._decode_graph,))
             self._decode_graph()
@@ -845,11 +1132,15 @@ class GenerationEngine:
         LM-head copy of a bf16 model is refreshed in place too. In-flight
         requests keep their KV cache and decode their next token on the
         new weights; the prefix cache moves to a new generation, since
-        its blocks hold KV of the old weights."""
+        its blocks hold KV of the old weights, and the engine's weight
+        generation advances."""
         t0 = time.perf_counter()
+        tt0 = _tracing.clock() if _tracing.enabled() else 0.0
         resolved = self._resolve_swap_state(state)
         staged = self._stage_swap(resolved, self._names, self._state,
                                   self._linear)
+        if _faults.ACTIVE:
+            _faults.fire("kill_during_swap")
         t1 = time.perf_counter()
         self._commit_swap(self._names, self._state, staged)
         _refresh_head(self._gpt, self._head_w)
@@ -859,9 +1150,14 @@ class GenerationEngine:
         _registry.timing("swap_stage", t1 - t0, scope="serving")
         _registry.timing("swap_commit", t2 - t1, scope="serving")
         self._fast = False
+        self._weight_gen += 1
         self.prefix_cache.new_generation()
         self._note_pool()
         _counters["weight_swaps"] += 1
+        if tt0:
+            _tracing.add_span(None, "swap_weights", tt0, _tracing.clock())
+        _tracing.flight("swap_weights", weights=len(staged), source=source,
+                        generation=self._weight_gen)
         _explain.record(
             "serving_weight_swap", op="swap_weights",
             why=f"swapped {len(staged)} weights"
@@ -870,7 +1166,7 @@ class GenerationEngine:
                   "decode the next token on the new weights; the prefix "
                   "cache is flushed (old-weight KV is unreusable)",
             weights=len(staged), source=source,
-            generation=self.prefix_cache.generation)
+            generation=self._weight_gen)
 
     def reprime(self):
         """Transient-fault recovery: drop the captured decode graph, so the
@@ -879,7 +1175,9 @@ class GenerationEngine:
         rebuilds it from the host mirrors. A failed replay may have
         advanced the device cursors in place; the mirrors advance only
         after a step succeeds. The prefix cache is flushed too: a fault
-        mid-step may have left cached blocks in an unknown state."""
+        mid-step may have left cached blocks in an unknown state. The
+        prefill graphs and the weight generation stay: no weight
+        changed."""
         self._decode_graph = StepGraph(self._decode_body, self.device)
         self._fast = False
         self.prefix_cache.new_generation()
@@ -914,4 +1212,5 @@ class GenerationEngine:
                 "kv_blocks_in_use": self.pool.in_use(),
                 "kv_blocks_free": self.pool.free_count(),
                 "prefix_cache_nodes": len(self.prefix_cache),
-                "weight_generation": self.prefix_cache.generation}
+                "weight_generation": self._weight_gen,
+                "prefix_generation": self.prefix_cache.generation}

@@ -19,6 +19,19 @@ A weight swap staged with ``request_swap`` (from any thread) lands at the
 top of the next ``step()``, between two decode iterations. A decode error
 re-primes the engine and retries the iteration once; a second error in a
 row, or a ``FatalEngineError``, propagates to the caller.
+
+A request that carries a ``kv_payload`` (a prefill engine's
+``export_request_kv``) is budgeted with ``engine.can_import`` and adopted
+with ``engine.import_request_kv`` instead of a prefill, and never chunked.
+A payload of another weight generation (``StaleHandoffError``) is answered
+with a local prefill under the current weights.
+
+Telemetry: ``serving.requests_*`` counters, ``serving.queue_wait`` /
+``serving.ttft`` timings, the log2 histograms ``ttft``, ``queue_wait`` and
+``inter_token`` (``registry.histograms``), per-request spans
+(``queue_wait``, ``admit`` or ``kv_adopt``, ``decode``) and one
+``decode_iter`` span per iteration while tracing is on, and flight events
+(``submit``, ``admit``, ``admit_chunked``, ``finish``).
 """
 from __future__ import annotations
 
@@ -29,8 +42,9 @@ import time
 
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
+from ..profiler import tracing as _tracing
 from .block_pool import PagePoolExhausted
-from .engine import FatalEngineError
+from .engine import FatalEngineError, StaleHandoffError
 
 _counters = _registry.scoped_counters("serving", {
     "requests_submitted": 0, "requests_completed": 0,
@@ -58,7 +72,12 @@ class GenerationRequest:
     wait and generation; an expired request fails in the queue or finishes
     early with the tokens it has (``status == "timeout"``). ``seed`` pins
     the request's sampling stream regardless of slot or batch; None takes
-    the engine's next sequence number."""
+    the engine's next sequence number.
+
+    ``kv_payload``: a handoff from a prefill engine
+    (``export_request_kv``), adopted at admission instead of a prefill.
+    ``trace_id``: the request's trace; None derives it from a pinned
+    ``seed`` at submission (``tracing.trace_id_for_seed``)."""
 
     def __init__(self, prompt_ids, max_new_tokens=32, eos_id=None,
                  temperature=0.0, top_k=0, top_p=1.0, seed=None,
@@ -78,6 +97,7 @@ class GenerationRequest:
 
         self.rid = None
         self.slot = None
+        self.kv_payload = None
         self.tokens: list = []
         self.status = RequestStatus.QUEUED
         self.stop_reason = None
@@ -86,6 +106,9 @@ class GenerationRequest:
         self.submit_ts = None
         self.deadline = None
         self.ttft_s = None
+        self.trace_id = None
+        self.first_tok_ts = None
+        self.last_tok_ts = None
 
     @property
     def done(self):
@@ -149,8 +172,12 @@ class ContinuousBatchScheduler:
             if request.timeout_s is not None:
                 request.deadline = request.submit_ts + request.timeout_s
             request.status = RequestStatus.QUEUED
+            if request.trace_id is None and request.seed is not None:
+                request.trace_id = _tracing.trace_id_for_seed(request.seed)
             self._queue.append(request)
             _counters["requests_submitted"] += 1
+        _tracing.flight("submit", rid=request.rid, trace_id=request.trace_id,
+                        prompt_len=len(request.prompt_ids))
         return request
 
     def has_work(self):
@@ -215,6 +242,7 @@ class ContinuousBatchScheduler:
                 continue
             req.slot = None
             req.tokens = []
+            req.first_tok_ts = req.last_tok_ts = None
             req.status = RequestStatus.QUEUED
             req.stop_reason = None
             req.error = None
@@ -283,9 +311,10 @@ class ContinuousBatchScheduler:
                     self._finish(req, RequestStatus.TIMEOUT)
 
             # (2) admission by KV block budget: a request leaves the queue
-            # only when the pool can cover its worst case, so generation
-            # never runs out of cache mid-flight; a head request that does
-            # not fit stays queued (FIFO kept, backpressure at submit())
+            # only when the pool can cover its worst case (a handoff: the
+            # payload's blocks), so generation never runs out of cache
+            # mid-flight; a head request that does not fit stays queued
+            # (FIFO kept, backpressure at submit())
             while True:
                 free = self.engine.free_slots()
                 if not free:
@@ -294,8 +323,12 @@ class ContinuousBatchScheduler:
                     head = self._queue[0] if self._queue else None
                 if head is None:
                     break
-                if not self.engine.can_admit(head.prompt_ids,
-                                             head.max_new_tokens):
+                if head.kv_payload is not None:
+                    fits = self.engine.can_import(head.kv_payload)
+                else:
+                    fits = self.engine.can_admit(head.prompt_ids,
+                                                 head.max_new_tokens)
+                if not fits:
                     _counters["pool_exhausted"] += 1
                     _explain.record(
                         "serving_pool_exhausted", op="admission",
@@ -336,13 +369,16 @@ class ContinuousBatchScheduler:
                 now = time.monotonic()
                 req.ttft_s = now - req.submit_ts
                 _registry.timing("ttft", req.ttft_s, scope="serving")
-                self._append_token(req, first)
+                _registry.hist_record("ttft", req.ttft_s)
+                self._append_token(req, first, now)
 
         # (3) one decode iteration over every active slot. A speculative
         # engine (decode_step_spec) emits 1..K+1 tokens per slot, each equal
         # to plain decode's; stop conditions apply per token in emission
         # order, and tokens after a stop are dropped
         if self._active:
+            # one span per iteration while tracing is on, never per slot
+            it0 = _tracing.clock() if _tracing.enabled() else 0.0
             spec = getattr(self.engine, "decode_step_spec", None)
             if spec is not None:
                 per_slot = self._decode_with_retry(spec)
@@ -360,6 +396,8 @@ class ContinuousBatchScheduler:
                 now = time.monotonic()
                 for slot, req in list(self._active.items()):
                     self._append_token(req, int(toks[slot]), now)
+            if it0:
+                _tracing.add_span(None, "decode_iter", it0, _tracing.clock())
 
         self._update_throughput()
         return self.has_work()
@@ -397,21 +435,39 @@ class ContinuousBatchScheduler:
 
     # ----------------------------------------------------------- helpers --
     def _admit(self, req, slot):
-        """Prefill ``req`` into ``slot``. Returns False when admission hit
-        pool pressure and the request went back to the queue head (the
-        caller stops admitting this step); True for every other outcome."""
+        """Admit ``req`` into ``slot``: adopt its handoff, else prefill it
+        (chunked when long). Returns False when admission hit pool
+        pressure and the request went back to the queue head (the caller
+        stops admitting this step); True for every other outcome."""
         t_start = time.monotonic()
-        chunked = (self.prefill_chunk_tokens is not None
+        handoff = req.kv_payload is not None
+        chunked = (not handoff and self.prefill_chunk_tokens is not None
                    and len(req.prompt_ids) > self.prefill_chunk_tokens)
         opts = dict(temperature=req.temperature, top_k=req.top_k,
                     top_p=req.top_p, seed=req.seed,
                     max_new_tokens=req.max_new_tokens)
         try:
+            first = None
+            if handoff:
+                try:
+                    first = self.engine.import_request_kv(
+                        slot, req.kv_payload, prompt_ids=req.prompt_ids)
+                except StaleHandoffError as e:
+                    # a swap landed between the export and this admission:
+                    # prefill here under the current weights, as a
+                    # monolithic server that swapped first would have; the
+                    # block budget is the same formula, so can_import's
+                    # approval covers it
+                    _explain.record(
+                        "serving_handoff_stale", op="admission",
+                        why=f"{e}; falling back to a fresh local prefill "
+                            "on the current weights", rid=req.rid)
+                req.kv_payload = None  # adopted or discarded
             if chunked:
                 self.engine.begin_prefill(
                     slot, req.prompt_ids,
                     chunk_tokens=self.prefill_chunk_tokens, **opts)
-            else:
+            elif first is None:
                 first = self.engine.prefill(slot, req.prompt_ids, **opts)
         except PagePoolExhausted:
             # can_admit's conservative budget makes this unreachable in
@@ -430,24 +486,38 @@ class ContinuousBatchScheduler:
             return True
         req.slot = slot
         req.status = RequestStatus.RUNNING
-        _registry.timing("queue_wait", t_start - req.submit_ts,
-                         scope="serving")
+        wait = t_start - req.submit_ts
+        _registry.timing("queue_wait", wait, scope="serving")
+        _registry.hist_record("queue_wait", wait)
+        _tracing.add_span(req.trace_id, "queue_wait", req.submit_ts, t_start)
         if chunked:
             self._prefilling[slot] = req
+            _tracing.flight("admit_chunked", rid=req.rid,
+                            trace_id=req.trace_id, slot=slot)
             return True
         self._active[slot] = req
         now = time.monotonic()
         req.ttft_s = now - req.submit_ts
         _registry.timing("ttft", req.ttft_s, scope="serving")
+        _registry.hist_record("ttft", req.ttft_s)
+        _tracing.add_span(req.trace_id, "kv_adopt" if handoff else "admit",
+                          t_start, now)
+        _tracing.flight("admit", rid=req.rid, trace_id=req.trace_id,
+                        slot=slot, handoff=handoff)
         self._append_token(req, first, now)
         return True
 
-    def _append_token(self, req, token, now=None, slot_len=None):
+    def _append_token(self, req, token, now, slot_len=None):
         # slot_len: the sequence length as of this token. A speculative
         # round appends several tokens at once, with the engine's cursor
         # already past them; the length stop must see each token's own
         # position, as plain decode would have
         req.tokens.append(token)
+        if req.last_tok_ts is not None:
+            _registry.hist_record("inter_token", now - req.last_tok_ts)
+        else:
+            req.first_tok_ts = now
+        req.last_tok_ts = now
         if slot_len is None and req.slot is not None:
             slot_len = self.engine.slot_len(req.slot)
         if req.eos_id is not None and token == req.eos_id:
@@ -456,8 +526,7 @@ class ContinuousBatchScheduler:
             self._finish(req, RequestStatus.DONE, stop_reason="max_tokens")
         elif req.slot is not None and slot_len >= self.engine.max_seq_len:
             self._finish(req, RequestStatus.DONE, stop_reason="length")
-        elif req.deadline is not None and \
-                (now or time.monotonic()) > req.deadline:
+        elif req.deadline is not None and now > req.deadline:
             self._finish(req, RequestStatus.TIMEOUT)
 
     def _finish(self, req, status, stop_reason=None, error=None):
@@ -476,6 +545,13 @@ class ContinuousBatchScheduler:
             _counters["requests_timeout"] += 1
         else:
             _counters["requests_failed"] += 1
+        if req.first_tok_ts is not None and \
+                req.last_tok_ts > req.first_tok_ts:
+            _tracing.add_span(req.trace_id, "decode", req.first_tok_ts,
+                              req.last_tok_ts)
+        _tracing.flight("finish", rid=req.rid, trace_id=req.trace_id,
+                        status=status, stop=req.stop_reason,
+                        tokens=len(req.tokens))
         req.finished.set()
 
     def _update_throughput(self):

@@ -10,6 +10,11 @@ Frontends use only thread-safe surfaces:
 * ``result(req)`` / ``req.result()`` — block until the request is terminal;
 * ``generate()`` — submit and wait, returning the token ids.
 
+``submit_request(req)`` enqueues a prepared request, such as one carrying
+a ``kv_payload`` handed off by a prefill engine. On a fatal engine error
+the worker records a ``fatal`` flight event and dumps the flight recorder
+(``profiler.tracing``) before it stops.
+
 ``shutdown()`` drains by default: it stops admitting, finishes every queued
 and in-flight request, then stops the thread; ``shutdown(drain=False)``
 fails pending work instead.
@@ -27,6 +32,7 @@ import threading
 import time
 
 from ..profiler import explainer as _explain
+from ..profiler import tracing as _tracing
 from .engine import FatalEngineError, GenerationEngine
 from .scheduler import (ContinuousBatchScheduler, GenerationRequest,
                         RequestStatus)
@@ -171,10 +177,15 @@ class GenerationServer:
                     # under a supervisor, leave them for its takeover
                     self._fatal = e
                     self.scheduler.close()
+                    # the flight recorder's tail is the post-mortem of
+                    # what this replica was serving when it died
+                    _tracing.flight("fatal", error=str(e))
+                    dump = _tracing.dump_flight_recorder(
+                        reason=f"fatal_engine_error: {e}")
                     _explain.record(
                         "serving_replica_fatal", op="serve_loop",
                         why=f"engine died fatally ({e}); worker loop "
-                            "exiting", error=str(e))
+                            "exiting", error=str(e), flight_dump=dump)
                     if self._fail_fast_on_fatal:
                         self.scheduler.cancel_pending(
                             reason=f"fatal engine error: {e}")
@@ -284,7 +295,9 @@ class GenerationServer:
         return self.submit_request(GenerationRequest(prompt_ids, **options))
 
     def submit_request(self, request):
-        """Enqueue an existing ``GenerationRequest`` handle."""
+        """Enqueue an existing ``GenerationRequest`` handle, e.g. one that
+        carries a prefill engine's ``kv_payload`` (disaggregated serving:
+        this server adopts the handed-off KV instead of prefilling)."""
         if self._draining.is_set() or self._stop.is_set():
             raise RuntimeError("server is shutting down; not accepting "
                                "requests")

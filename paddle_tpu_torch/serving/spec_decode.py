@@ -51,10 +51,21 @@ states before either model changes, copies them in place (neither graph is
 recaptured), and rebuilds every in-flight slot's drafter KV from its token
 history under the new drafter weights. Acceptance is kept per weight
 generation (``acceptance_by_generation``), so a swap's effect on it is
-visible. ``reprime`` drops all three graphs.
+visible. ``reprime`` drops all three decode graphs; the target's prefill
+graphs stay. The drafter's prompt ingestion runs eagerly (no graph).
 
-Not ported yet: ``import_request_kv``, the mesh refusals,
-``describe_sharding`` and fault hooks.
+Handoff: ``import_request_kv`` adopts a plain engine's export: the
+target's KV verbatim, while the drafter ingests the prompt again (its KV
+never crosses). Only fresh handoffs are adopted (``cur_len`` equal to the
+prompt's length).
+
+Fault points: the engine's decode points before a round, and
+``draft_garbage``, which replaces the drafter's proposals with token 0
+between the draft round and the verify: acceptance collapses, the tokens
+do not change.
+
+Not ported yet: the mesh refusals and ``describe_sharding`` (with the
+sharded serving of ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -64,6 +75,8 @@ import torch
 from ..ops.paged_attention import MAX_SPAN, select_paged_kernel
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
+from ..profiler import tracing as _tracing
+from ..testing import faults as _faults
 from . import sampling as _sampling
 from .block_pool import BlockPool
 from ..convert import _linear_weight_names
@@ -158,9 +171,9 @@ class DraftVerifyEngine(GenerationEngine):
         # slot, and the drafter's KV rows 0..cur_len-1 hold
         # history[:cur_len], which is what a swap re-ingests
         self._slot_tokens = [[] for _ in range(B)]
-        # weight generation (swaps applied so far) -> [accepted, proposed];
-        # a re-prime changes no weights and opens no generation
-        self._weight_gen = 0
+        # weight generation (the engine's swaps applied so far) ->
+        # [accepted, proposed]; a re-prime changes no weights and opens no
+        # generation
         self._gen_accept = {}
         self._accept_historic = [0, 0]
 
@@ -261,6 +274,44 @@ class DraftVerifyEngine(GenerationEngine):
         return self.blocks_needed(len(prompt_ids), max_new_tokens) \
             <= self.draft_pool.free_count()
 
+    def can_import(self, payload):
+        """The target's pool must cover the payload's blocks, and the
+        drafter's its whole ceiling: the token budget is not known on this
+        side, so the drafter's reservation at import takes
+        ``blocks_per_slot``."""
+        if not super().can_import(payload):
+            return False
+        return self.blocks_per_slot <= self.draft_pool.free_count()
+
+    def import_request_kv(self, slot, payload, prompt_ids=None):
+        """Adopt a handoff: the target's KV verbatim
+        (``GenerationEngine.import_request_kv``), then the drafter's
+        blocks are reserved and the drafter ingests the prompt here.
+        ``prompt_ids`` is required, and only a fresh handoff (``cur_len``
+        equal to the prompt's length) is adopted: past that the drafter
+        would miss generated context. A failed drafter ingestion undoes
+        the adoption."""
+        if prompt_ids is None:
+            raise ValueError(
+                "DraftVerifyEngine.import_request_kv needs prompt_ids (the "
+                "drafter ingests the prompt again)")
+        prompt = np.asarray(prompt_ids, np.int64).reshape(-1)
+        if int(payload["cur_len"]) != len(prompt):
+            raise ValueError(
+                "DraftVerifyEngine adopts fresh prefill handoffs only "
+                f"(payload cur_len {payload['cur_len']} != prompt length "
+                f"{len(prompt)}): the drafter cannot rebuild generated "
+                "context")
+        first = super().import_request_kv(slot, payload,
+                                          prompt_ids=prompt_ids)
+        try:
+            self._install_extra(slot, prompt, None)
+        except Exception:
+            super().release(slot)
+            raise
+        self._slot_tokens[slot] = [int(t) for t in prompt] + [int(first)]
+        return first
+
     def _reserve_extra(self, slot, prompt, max_new_tokens):
         """Reserve the drafter's worst-case blocks at admission (chunked
         admissions call this from ``begin_prefill``)."""
@@ -345,7 +396,6 @@ class DraftVerifyEngine(GenerationEngine):
             dstaged = self._stage_swap(dresolved, self._dnames,
                                        self._dstate, self._dlinear)
         super().swap_weights(state, source=source)
-        self._weight_gen += 1
         if dstaged is None:
             return
         self._commit_swap(self._dnames, self._dstate, dstaged)
@@ -405,10 +455,19 @@ class DraftVerifyEngine(GenerationEngine):
         n_active = int(active.sum())
         if n_active == 0:
             raise RuntimeError("decode_step_spec with no active slots")
+        if _faults.ACTIVE:
+            self._fire_decode_faults()
         K = self.draft_k
+        rt0 = _tracing.clock() if _tracing.enabled() else 0.0
         with _registry.time_block("decode_step", scope="serving"):
             self._prepare_fast((self._draft_graph, self._verify_graph))
             self._draft_graph()
+            if _faults.ACTIVE and _faults.fire("draft_garbage"):
+                # a worst-case-wrong drafter: every proposal replaced by a
+                # constant; the verify must reject them without changing a
+                # token (the drafter's own KV rows are overwritten by the
+                # next round either way)
+                self._d_drafts.zero_()
             self._verify_graph()
             res = self._d_round.cpu().numpy()
         sampled, accepts, emitted = res[:, :K + 1], res[:, K + 1], \
@@ -446,6 +505,8 @@ class DraftVerifyEngine(GenerationEngine):
         sc["tokens_generated"] += total
         _registry.gauge_set("serving.batch_occupancy",
                             n_active / self.max_batch_size)
+        if rt0:
+            _tracing.add_span(None, "spec_round", rt0, _tracing.clock())
         return out
 
     # -------------------------------------------------------------- stats --

@@ -208,8 +208,8 @@ def test_spec_graphs_equal_plain_decode(cuda, drafter_seed, n_layer):
     spec.draft_pool.audit()
 
 
-def _greedy(eng, n=16):
-    toks = [eng.prefill(0, list(range(3, 40)), seed=0)]
+def _greedy(eng, prompt=tuple(range(3, 40)), n=16):
+    toks = [eng.prefill(0, list(prompt), seed=0)]
     while len(toks) < n:
         toks.append(int(eng.decode_step()[0]))
     eng.release(0)
@@ -264,6 +264,105 @@ def test_reprime_recaptures_once(cuda):
     c1 = registry.counters("serving")
     assert c1["decode_compiles"] == c0["decode_compiles"] + 1
     assert c1["reprimes"] == c0["reprimes"] + 1
+
+
+def test_one_prefill_graph_per_bucket_equal_to_its_body(cuda):
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    eng = GenerationEngine(_tiny_gpt(cuda, 2, 0), max_batch_size=2,
+                           rng_seed=3, block_size=16, device=cuda)
+    c0 = registry.counters("serving")["prefill_compiles"]
+    # two prompts in bucket 16, one in 32, one in 64, one sampled
+    for n, opts in ((9, {}), (15, {}), (20, {}),
+                    (50, dict(temperature=0.8, top_p=0.9))):
+        tok = eng.prefill(0, list(range(3, 3 + n)), seed=n, **opts)
+        pb = eng._prefill_buckets[eng.bucket_for(n)]
+        idx = torch.tensor(eng._slot_blocks[0], device=cuda)
+        rows = [(k[idx].clone(), v[idx].clone()) for k, v in eng._kv]
+        with torch.no_grad():
+            pb.body()  # the same body on the same buffers, from Python
+        assert int(pb.token.item()) == tok
+        for (k, v), (k0, v0) in zip(eng._kv, rows):
+            assert torch.equal(k[idx], k0) and torch.equal(v[idx], v0)
+        eng.release(0)
+    assert registry.counters("serving")["prefill_compiles"] == c0 + 3
+    assert sorted(eng._prefill_buckets) == [16, 32, 64]
+    assert all(pb.graph.captured for pb in eng._prefill_buckets.values())
+
+
+def test_chunked_prefill_replays_the_bucket_graph(cuda):
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _tiny_gpt(cuda, 2, 0)
+    prompt = list(range(5, 58))  # 53 tokens: chunks of 16, 16, 16, 5
+    want = _greedy(GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                                    block_size=16, device=cuda), prompt)
+    eng = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                           block_size=16, device=cuda)
+    c0 = registry.counters("serving")["prefill_compiles"]
+    assert eng.begin_prefill(0, prompt, seed=0, chunk_tokens=16) == 4
+    toks = [eng.prefill_chunk(0) for _ in range(4)]
+    assert toks[:3] == [None] * 3
+    assert registry.counters("serving")["prefill_compiles"] == c0 + 1
+    assert list(eng._prefill_buckets) == [16]
+    assert eng._prefill_buckets[16].graph.replays == 4
+    got = [toks[-1]]
+    while len(got) < 16:
+        got.append(int(eng.decode_step()[0]))
+    assert got == want
+
+
+def test_prefill_after_a_swap_uses_the_new_weights(cuda):
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    kw = dict(max_batch_size=2, rng_seed=3, block_size=16, device=cuda)
+    eng = GenerationEngine(_tiny_gpt(cuda, 2, 0), **kw)
+    _greedy(eng)  # captures the bucket's prefill graph and the decode graph
+    b = _tiny_gpt(cuda, 2, 1)
+    eng.swap_weights({k: v.detach() for k, v in b.gpt.state_dict().items()})
+    assert eng._prefill_buckets[64].graph.captured
+    assert _greedy(eng) == _greedy(GenerationEngine(b, **kw))
+
+
+def test_kernel_mismatch_baked_into_a_captured_graph(cuda):
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.testing import faults
+
+    model = _tiny_gpt(cuda, 2, 0)
+    route = gpt.paged_attention_route
+    for armed in (True, False):
+        calls = []
+
+        def record(kernel, *args, **kw):
+            out = route(kernel, *args, **kw)
+            if torch.cuda.is_current_stream_capturing():
+                calls.append((args, out))
+            return out
+
+        gpt.paged_attention_route = record
+        try:
+            if armed:
+                faults.configure("kernel_mismatch")
+            eng = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                                   block_size=16, device=cuda)
+            eng.prefill(0, list(range(3, 40)), seed=0)
+            eng.decode_step()  # captures, then replays the perturbed graph
+            eng.decode_step()
+            torch.cuda.synchronize()
+        finally:
+            faults.reset()
+            gpt.paged_attention_route = route
+        args, out = calls[0]  # layer 0, rewritten by the last replay
+        want = pa.paged_attention_ref(*args)
+        atol, rtol = pa.PAGED_PARITY_TOL[torch.float32]
+        close = torch.allclose(out, want, atol=atol, rtol=rtol)
+        assert close != armed
+        if armed:
+            assert float((out - want)[0, 0, 0, 0]) == pytest.approx(
+                1.0, abs=1e-4)
 
 
 def _flash_case(dev, dtype, B, T, N, H, seed, strided=False):
