@@ -98,7 +98,10 @@ Phases, in order; any failure exits non-zero:
              rows (verify) and (K+1) x 12 times at 1 row (draft round), by
              the card's count per instance and by torch.profiler; the
              share of greedy requests and tokens equal to phase 4's plain
-             decode is reported (bf16: not asserted);
+             decode is reported (bf16: not asserted); the drafter's
+             prompt ingestion replays one graph per bucket, each captured
+             once at warm-up, and each replay's drafter K/V rows equal
+             its body's called directly, bitwise;
  5c. spec swap  a speculative engine's target and drafter swapped together
              mid-stream: in float32 at 2 layers the tokens equal plain
              decode's under the same swap, with two weight generations of
@@ -139,6 +142,32 @@ Phases, in order; any failure exits non-zero:
              kernels' tensor-core branch) at seq_len 2048, loss and every
              gradient of one step within a bound relative to the plain
              route's.
+ 9. moe serving  gpt3-1.3B bf16 at full width and depth as a Mixture of
+             Experts (MOE: 8 experts, top-2, capacity factor 1.25, in
+             every other block; 4.14 B parameters, seed 0) through phase
+             4's server, mix and checks: one decode capture, K4 launched
+             decode steps x 24 times on the card's count, no kernel
+             launched from the host in a steady step, one prefill capture
+             per bucket used, all at warm-up; phase 4f's check of every
+             bucket (replay equal to its direct body, bitwise); the decode
+             graph's tokens equal to the eager body's (8 slots); the drop
+             fraction by moe.metrics.publish after one eager forward of 8
+             prompts of 512 tokens; peak memory;
+ 9b. moe spec  phase 5b on the MoE target (gpt2-small drafting, K=4),
+             drafter buckets included; then phase 5 on the MoE layout in
+             float32 at 2 layers and full width, with random and with
+             zeroed gate weights: K4 against its plain route (decode
+             logits, greedy tokens), and spec tokens equal plain decode's
+             with a twin and an independent drafter, greedy and sampled
+             (a zeroed gate crowds every row onto two experts; the verify
+             routes each row alone, as decode does);
+ 9c. moe training  the MoE layout at full width and 4 layers (2 MoE),
+             bf16, TrainStep + AdamW with master weights, batch 4 x 2048,
+             loss + moe_aux_loss(), 3 steps on one batch: both finite,
+             the loss falling, K1-K3 launched once per layer per step;
+ 9d. older cache forms  gpt3-1.3B width, 2 layers, float32: greedy tokens
+             through the slot cache and through one-row concat decoding
+             equal the paged engine's.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -149,7 +178,8 @@ from device memory and not from L2; "warm_ms" is K4 on one copy.
 Every K4 row's "launches" is what the card counted for the row's instance
 over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
 one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
-the verify row.
+the verify row; "launches_by_path" adds the MoE paths' windows (9, 9b),
+and for K1-K3 the training steps of phases 7 and 9c.
 
 Prints a {"kernels": [...]} line and the nvidia-smi line before the last
 line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -168,6 +198,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -178,6 +209,11 @@ REPO = Path(__file__).resolve().parent
 # operand type (a card set to a lower power limit runs slower under load)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the MoE layout of phases 9-9c: GShard's top-2 in every other FFN
+# (Lepikhin et al. 2020, arXiv:2006.16668 section 2), with the reference's
+# defaults for k and the capacity factor
+MOE = dict(moe_num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+           moe_every=2)
 PAGED_REPLACES = "paddle_tpu/ops/pallas_ops.py:475"  # _paged_attn_kernel
 PAGED_SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
@@ -748,11 +784,12 @@ def phase_flash_kernels(dev):
 def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
                    learning_rate=1e-4, **cfg_over):
     """The pretraining step of ``bench.py``: ``preset`` in bf16 (dropout 0,
-    random weights from ``seed``), ``GPTPretrainingCriterion``,
+    random weights from ``seed``), ``GPTPretrainingCriterion`` (plus the
+    model's ``moe_aux_loss()`` for an MoE config),
     ``AdamW(learning_rate, multi_precision=True)`` under ``TrainStep``, and
     one fixed batch of tokens from seed 0 with its next-token labels.
     Returns ``(cfg, model, opt, train, tokens, labels)``; ``train(tokens,
-    labels)`` is one step."""
+    labels)`` is one step and returns the loss (aux loss included)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel,
@@ -770,6 +807,9 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
 
     def step_fn(tokens, labels):
         loss = crit(model(tokens), labels)
+        aux = model.moe_aux_loss()
+        if aux is not None:
+            loss = loss + aux
         loss.backward()
         opt.step()
         opt.clear_grad()
@@ -1235,7 +1275,8 @@ def serve(srv, reqs, vocab):
     handles, the wall time and the counters, graph replays and K4's
     launches as the card counted them (``counts["device"]``, per instance)
     of the timed window, with the prefill buckets used
-    (``counts["prefill_buckets"]``, warm-up and window)."""
+    (``counts["prefill_buckets"]``, warm-up and window) and the captures at
+    warm-up of the target's and a spec drafter's prefill buckets."""
     from paddle_tpu_torch.ops import paged_attention as pa
     from paddle_tpu_torch.profiler import registry
     from paddle_tpu_torch.serving.engine import StepGraph
@@ -1256,6 +1297,8 @@ def serve(srv, reqs, vocab):
     c1 = registry.counters("serving")
     compiles = c1["decode_compiles"] - c0["decode_compiles"]
     prefill_captures = c1["prefill_compiles"] - c0["prefill_compiles"]
+    draft_captures = c1["draft_prefill_compiles"] \
+        - c0["draft_prefill_compiles"]
     for scope in ("kernels", "serving", "fastpath"):
         registry.reset(scope)
     pa.reset_device_launches()
@@ -1277,6 +1320,7 @@ def serve(srv, reqs, vocab):
     counts["device"] = pa.device_launches()
     counts["captures_at_warmup"] = compiles
     counts["prefill_captures_at_warmup"] = prefill_captures
+    counts["draft_prefill_captures_at_warmup"] = draft_captures
     counts["prefill_buckets"] = sorted(buckets.used)
     del eng._prefill_bucket  # the instrumentation goes
     counts["replays"] = {a: g.replays - replays[a] for a, g in graphs.items()}
@@ -1342,20 +1386,24 @@ def check_fast_path(what, counts, captures):
 
 def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
                   max_batch_size=8, block_size=16, n_requests=16,
-                  profiled_steps=4, **cfg_over):
+                  profiled_steps=4, model=None, **cfg_over):
+    """Phase 4 (and 9's serving): ``model`` (built here from seed 0 when
+    None, and dropped after) behind a ``GenerationServer``."""
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel)
     from paddle_tpu_torch.serving import GenerationServer
 
     cfg = GPTConfig.preset(preset, dtype=dtype, **cfg_over)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = GPTForPretraining(GPTModel(cfg, device=dev, generator=gen))
+    if model is None:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = GPTForPretraining(GPTModel(cfg, device=dev, generator=gen))
     srv = GenerationServer(model, max_batch_size=max_batch_size,
                            block_size=block_size, max_queue_size=64,
                            device=dev)
     eng = srv.engine
-    log(f"serving: {preset} {dtype} n_layer={cfg.n_layer} built in "
+    what = "moe serving" if cfg.moe_num_experts else "serving"
+    log(f"{what}: {preset} {dtype} n_layer={cfg.n_layer} built in "
         f"{time.perf_counter() - t0:.1f} s; paged kernel "
         f"{eng.paged_kernel!r}")
     try:
@@ -1414,7 +1462,7 @@ def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
                      "kernels_per_step": prof["kernels"] / profiled_steps,
                      "graph_launches": prof["graph_launches"],
                      "host_kernel_launches": prof["kernel_launches"]}})
-    log("serving: " + json.dumps(result))
+    log(f"{what}: " + json.dumps(result))
     plain = {"tokens": [h.tokens for h in handles],
              "greedy": [not o.get("temperature") for _, o in
                         serving_requests(cfg.vocab_size, n=n_requests)],
@@ -1434,16 +1482,18 @@ def _spec_run(engine, prompt, n, **opts):
 
 
 def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
-                 tol=(1e-3, 1e-3), draft_k=4, spec_tokens=24, **cfg_over):
+                 tol=(1e-3, 1e-3), draft_k=4, spec_tokens=24,
+                 zero_gate=False, **cfg_over):
     """One request through a kernel engine and a plain engine sharing one
     float32 model, both replaying their captured steps. Tolerance: float32
     reduction order (kernel vs gather) carried through two layers and the
     50304-wide LM head. Then speculative engines against plain decode on
     the same model: a twin drafter (the same weights) must have every
     draft accepted, and an independent 1-layer drafter must leave the
-    tokens as they are; greedy and sampled."""
-    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
-                                             GPTModel)
+    tokens as they are; greedy and sampled. ``cfg_over`` may make the
+    models MoE (``MOE``), with every gate weight zeroed under
+    ``zero_gate``."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.profiler import registry
     from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
 
@@ -1451,10 +1501,9 @@ def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
                            **cfg_over)
 
     def build(seed, layers=n_layer):
-        return GPTForPretraining(GPTModel(
-            GPTConfig.preset(preset, n_layer=layers, dtype="float32",
-                             **cfg_over), device=dev,
-            generator=torch.Generator(device=dev).manual_seed(seed)))
+        model = build_gpt(dev, seed, preset, n_layer=layers,
+                          dtype="float32", **cfg_over)
+        return zero_gates(model) if zero_gate else model
 
     model = build(1)
     prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
@@ -1475,7 +1524,9 @@ def phase_parity(dev, preset="gpt3-1.3B", n_layer=2, steps=8,
         raise AssertionError("parity: an engine did not capture its step")
     for e in engines:
         e.release(0)
-    log(f"parity: {kinds[0]} vs {kinds[1]} engine (CUDA graphs), "
+    what = (f"{'zeroed-gate ' if zero_gate else ''}MoE "
+            if cfg.moe_num_experts else "")
+    log(f"parity: {what}{kinds[0]} vs {kinds[1]} engine (CUDA graphs), "
         f"{cfg.n_layer} layers d_model {cfg.d_model} float32, {steps} "
         f"decode steps: max |logit err| {max_err:.3e} (tol {tol}), greedy "
         "tokens equal")
@@ -1535,7 +1586,10 @@ def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
                        n_requests=16, profiled_rounds=3, **cfg_over):
     """Speculative serving at full width: the target verifies through K4 at
     a span of K + 1 rows, the drafter proposes through K4 at one row.
-    ``plain``: phase 4's tokens on the same requests and target."""
+    ``plain``: phase 4's tokens on the same requests and target. The
+    drafter's prompt ingestion replays one graph per bucket: each bucket
+    the mix used is captured once, at warm-up, and its replay equals its
+    body called directly (``check_draft_buckets``)."""
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel)
     from paddle_tpu_torch.serving import GenerationServer
@@ -1553,7 +1607,8 @@ def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
                            block_size=block_size, max_queue_size=64,
                            device=dev)
     eng = srv.engine
-    log(f"spec: {preset} {dtype} verifying, {draft_preset} drafting "
+    what = "moe spec" if cfg.moe_num_experts else "spec"
+    log(f"{what}: {preset} {dtype} verifying, {draft_preset} drafting "
         f"(n_layer={dcfg.n_layer}, seed 2), K={draft_k}, built in "
         f"{time.perf_counter() - t0:.1f} s; paged kernels "
         f"{eng.paged_kernel!r} / {eng._draft_kernel!r}")
@@ -1563,7 +1618,20 @@ def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
             cfg.vocab_size)
     finally:
         srv.shutdown()
-    check_fast_path("spec", counts, captures=2)
+    check_fast_path(what, counts, captures=2)
+    # (the CPU, where the script is rehearsed, runs the bodies directly)
+    on_card = dev.type == "cuda"
+    if counts["draft_prefill_captures_at_warmup"] != \
+            len(eng._draft_buckets) * on_card or \
+            counts["serving"]["draft_prefill_compiles"] or \
+            not all(pb.graph.captured == on_card
+                    for pb in eng._draft_buckets.values()):
+        raise AssertionError(
+            f"{what}: {counts['draft_prefill_captures_at_warmup']} drafter "
+            f"prefill graphs captured at warm-up and "
+            f"{counts['serving']['draft_prefill_compiles']} after it, for "
+            f"the drafter's buckets {sorted(eng._draft_buckets)}")
+    draft_buckets = check_draft_buckets(eng, cfg.vocab_size)
     sc = counts["serving"]
     rounds = sc["spec_rounds"]
     verifies = counts["replays"]["_verify_graph"]
@@ -1615,7 +1683,7 @@ def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
         "round_p50_ms": result.pop("decode_step_p50_ms"),
         "launches": launches, "device_launches": device,
         "verify_launches": counts["device"][verify_key],
-        "plain_match": match,
+        "plain_match": match, "draft_prefill_buckets": draft_buckets,
         "fastpath": counts["fastpath"], "graph_captures": 2,
         "profiled_rounds": profiled_rounds,
         "profiled": {"split_passes": {f"Dh={k[0]} rows={k[1]}": v
@@ -1623,10 +1691,41 @@ def phase_spec_serving(dev, plain, preset="gpt3-1.3B",
                      "kernels_per_round": prof["kernels"] / profiled_rounds,
                      "graph_launches": prof["graph_launches"],
                      "host_kernel_launches": prof["kernel_launches"]}})
-    log("spec: " + json.dumps(result))
+    log(f"{what}: " + json.dumps(result))
     del srv, eng, model, drafter
     free_memory()
     return result
+
+
+def check_draft_buckets(eng, vocab):
+    """Each captured drafter prefill bucket of a spec engine, replayed on a
+    prompt of its own length: the drafter's K/V rows after the replay
+    must equal those of the same body called directly on the same
+    buffers, bitwise, with no capture. Returns the buckets and their
+    replays."""
+    from paddle_tpu_torch.profiler import registry
+
+    c0 = registry.counters("serving")["draft_prefill_compiles"]
+    rng = np.random.default_rng(6)
+    for L in sorted(eng._draft_buckets):
+        pb = eng._draft_buckets[L]
+        eng.prefill(0, rng.integers(0, vocab, L - 1).tolist(), seed=L,
+                    max_new_tokens=1)
+        idx = torch.tensor(eng._draft_blocks[0], device=eng.device)
+        graph_kv = [(k[idx].clone(), v[idx].clone()) for k, v in eng._dkv]
+        with torch.no_grad():
+            pb.body()
+        if not all(torch.equal(k[idx], gk) and torch.equal(v[idx], gv)
+                   for (k, v), (gk, gv) in zip(eng._dkv, graph_kv)):
+            raise AssertionError(
+                f"drafter prefill bucket {L}: the graph's K/V rows differ "
+                "from the direct body's")
+        eng.release(0)
+        del graph_kv
+    if registry.counters("serving")["draft_prefill_compiles"] != c0:
+        raise AssertionError("drafter prefill buckets: a replay captured")
+    return {L: pb.graph.replays for L, pb in
+            sorted(eng._draft_buckets.items())}
 
 
 # ------------------------------------------------ weight swap and retry --
@@ -2654,6 +2753,257 @@ def handoff_requests(reqs, payloads):
     return out
 
 
+# ------------------------------------------------------------------- MoE --
+def zero_gates(model):
+    """``model`` with every MoE gate weight zeroed: every row then picks
+    experts 0 and 1 (uniform probabilities, first index on ties), which
+    crowds them and forces drops."""
+    from paddle_tpu_torch.nn.moe import MoEMLP
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MoEMLP):
+                m.gate.weight.zero_()
+    return model
+
+
+def graph_against_eager(dev, model, steps=8, max_batch_size=8):
+    """Two engines (rng_seed 3) on ``model``, 8 slots of 512-token prompts
+    each: one replays its decode graph, the other calls the same step
+    body from Python on its buffers. Their tokens must be equal."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    vocab = model.gpt.cfg.vocab_size
+    outs = []
+    for replay in (True, False):
+        eng = GenerationEngine(model, max_batch_size=max_batch_size,
+                               block_size=16, rng_seed=3, device=dev)
+        fill_slots(eng, vocab, max_batch_size)
+        if not replay:
+            for buf, host in eng._mirrors():
+                buf.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+        toks = []
+        for _ in range(steps):
+            if replay:
+                toks.append(eng.decode_step().tolist())
+            else:
+                eng._decode_body()
+                t = eng._d_toks.cpu().numpy()
+                eng._finish_decode(eng._active, max_batch_size, t)
+                toks.append(t.tolist())
+        outs.append(toks)
+        if replay and dev.type == "cuda" and not eng._decode_graph.captured:
+            raise AssertionError("moe serving: the decode graph was not "
+                                 "captured")
+        del eng
+    if outs[0] != outs[1]:
+        raise AssertionError(f"moe serving: the decode graph's tokens "
+                             f"{outs[0]} differ from the eager body's "
+                             f"{outs[1]}")
+    return steps * max_batch_size
+
+
+def phase_moe_serving(dev, preset="gpt3-1.3B", dtype="bfloat16"):
+    """9: the MoE model (``MOE``, full width and depth, bf16, seed 0)
+    through phase 4's server and checks (one decode capture, K4 launched
+    decode steps x n_layer times on the card's count, 0 kernels launched
+    from the host in a steady step, one prefill capture per bucket, all
+    at warm-up), then phase 4f's check of every prefill bucket (replay
+    equal to its direct body, bitwise), the decode graph's tokens against
+    the eager body's, and ``moe.metrics.publish`` on one eager forward of
+    8 prompts of 512 tokens. Returns the result and phase 4's view of the
+    tokens (for 9b)."""
+    from paddle_tpu_torch.nn.moe import metrics
+
+    t0 = time.perf_counter()
+    model = build_gpt(dev, 0, preset, dtype=dtype, **MOE)
+    cfg = model.gpt.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe serving: {preset} {dtype} {json.dumps(MOE)}: "
+        f"{n_params / 1e9:.3f} B parameters, "
+        f"{n_params * 2 / 1e9:.2f} GB, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    result, plain = phase_serving(dev, preset, dtype, model=model, **MOE)
+    result["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    result["parameters"] = n_params
+    graphs = phase_prefill_graphs(dev, model)
+    result["prefill_graphs"] = {
+        "captures": graphs["captures"],
+        "device_ms": {L: r["graph_device_ms"]
+                      for L, r in graphs["per_bucket"].items()}}
+    result["graph_equals_eager_tokens"] = graph_against_eager(dev, model)
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 512)))
+    with torch.no_grad():
+        model.gpt(tokens.to(dev))
+    pub = metrics.publish(model)
+    if pub is None or not 0.0 <= pub["drop_fraction"] < 1.0:
+        raise AssertionError(f"moe serving: metrics.publish gave {pub}")
+    result["eager_forward_8x512"] = {
+        "drop_fraction": pub["drop_fraction"],
+        "expert_tokens": pub["expert_tokens"].tolist(),
+        "capacity_per_expert": moe_capacity_of(cfg, 512)}
+    log("moe serving: " + json.dumps({k: v for k, v in result.items()
+                                      if k not in ("launches", "fastpath")}))
+    del model
+    free_memory()
+    return result, plain
+
+
+def moe_capacity_of(cfg, rows):
+    from paddle_tpu_torch.nn.moe import moe_capacity
+
+    return moe_capacity(rows, cfg.moe_num_experts, cfg.moe_top_k,
+                        cfg.moe_capacity_factor)
+
+
+def phase_moe_spec(dev, plain, preset="gpt3-1.3B"):
+    """9b: phase 5b's speculative serving on the MoE target (bf16, full
+    width and depth, gpt2-small drafting), then phase 5 on the MoE layout
+    in float32 at 2 layers, with random and with zeroed gate weights: K4
+    against its plain route, and spec tokens against plain decode's with
+    a twin drafter (every draft accepted, so every verify runs a full
+    span) and an independent 1-layer one, greedy and sampled. The verify
+    routes each row as its own group, as decode does, so no row loses
+    its expert slot to its neighbours."""
+    result = phase_spec_serving(dev, plain, preset, **MOE)
+    result["float32_parity_max_logit_err"] = {
+        gate: phase_parity(dev, preset, zero_gate=gate == "zero", **MOE)
+        for gate in ("random", "zero")}
+    return result
+
+
+def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
+                       seq_len=2048, steps=3):
+    """9c: the MoE model (``MOE``, full width, 4 layers, 2 of them MoE)
+    trained through ``TrainStep`` + AdamW with master weights on one
+    batch of 4 x 2048, loss + ``moe_aux_loss()``: the loss and the aux
+    loss finite, the loss falling, K1-K3 launched once per layer per
+    step and the plain attention never."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    t0 = time.perf_counter()
+    cfg, model, opt, train, tokens, labels = training_setup(
+        dev, preset, batch, seq_len, n_layer=n_layer, **MOE)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe training: {preset} bf16 n_layer={n_layer} {json.dumps(MOE)}"
+        f": {n_params / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    registry.reset("kernels")
+    losses, auxes, times = [], [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        loss = train(tokens, labels)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        losses.append(float(loss.detach()))
+        auxes.append(float(model.moe_aux_loss().detach()))
+    counts = fa.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not (all(np.isfinite(losses)) and all(np.isfinite(auxes))) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"moe training: losses {losses}, aux "
+                             f"{auxes}: not finite and falling")
+    for name in FLASH_KERNELS:
+        if counts[name] != steps * n_layer:
+            raise AssertionError(f"moe training: {counts[name]} {name} "
+                                 f"launches, want {steps} x {n_layer}")
+    if counts["flash_attention_ref"]:
+        raise AssertionError("moe training: the plain attention ran")
+    result = {"preset": preset, "n_layer": n_layer, "moe": MOE,
+              "parameters": n_params, "batch": batch, "seq_len": seq_len,
+              "losses": losses, "aux_losses": auxes,
+              "step_ms": [t * 1e3 for t in times],
+              "step_ms_after_first": sorted(times[1:])[len(times[1:]) // 2]
+              * 1e3,
+              "tokens_per_s": batch * seq_len / min(times[1:]),
+              "peak_memory_gb": peak_gb, "launches": counts}
+    log("moe training: " + json.dumps(result))
+    del model, opt, train
+    free_memory()
+    return result
+
+
+# -------------------------------------------------- older cache forms --
+def greedy_slot_cache(model, prompt, n, S):
+    """Greedy tokens through the reference's slot-cache form: one prefill
+    span into ``[1, S, H, Dh]`` buffers, then one row a step; the float32
+    LM head, as the engine's."""
+    gpt = model.gpt
+    dev = gpt.device
+    caches = [tuple(torch.zeros(1, S, b.attn.n_head, b.attn.head_dim,
+                                device=dev, dtype=gpt.ln_f.weight.dtype)
+                    for _ in range(2)) for b in gpt.blocks]
+    head = gpt.embeddings.word_embeddings.weight.float()
+    ids, off, out = list(prompt), 0, []
+    with torch.no_grad():
+        while len(out) < n:
+            T = len(ids)
+            x = torch.tensor([ids], device=dev)
+            pos = torch.arange(off, off + T, device=dev)[None]
+            h, caches = gpt(x, pos, caches=caches,
+                            cache_offsets=torch.tensor([off], device=dev,
+                                                       dtype=torch.int32),
+                            seq_lens=torch.tensor([off + T], device=dev,
+                                                  dtype=torch.int32))
+            tok = int((h[0, -1].float() @ head.t()).argmax())
+            out.append(tok)
+            off += T
+            ids = [tok]
+    return out
+
+
+def greedy_concat(model, prompt, n):
+    """Greedy tokens through the growing-concat form, one row a step, the
+    prompt included."""
+    gpt = model.gpt
+    dev = gpt.device
+    caches = [tuple(torch.zeros(1, 0, b.attn.n_head, b.attn.head_dim,
+                                device=dev, dtype=gpt.ln_f.weight.dtype)
+                    for _ in range(2)) for b in gpt.blocks]
+    head = gpt.embeddings.word_embeddings.weight.float()
+    seq, out = list(prompt), []
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the one-time legacy warning
+        for t in range(len(prompt) + n - 1):
+            h, caches = gpt(torch.tensor([[seq[t]]], device=dev),
+                            torch.tensor([[t]], device=dev), caches=caches)
+            if t >= len(prompt) - 1:
+                tok = int((h[0, -1].float() @ head.t()).argmax())
+                out.append(tok)
+                seq.append(tok)
+    return out
+
+
+def phase_legacy_cache(dev, preset="gpt3-1.3B", n_layer=2, n_tokens=16):
+    """9d: the reference's older cache forms at gpt3-1.3B width (2 layers,
+    float32): greedy tokens through the slot cache and through one-row
+    concat decoding equal the paged engine's (graphs, K4)."""
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = build_gpt(dev, 3, preset, n_layer=n_layer, dtype="float32")
+    prompt = np.random.default_rng(3).integers(
+        0, model.gpt.cfg.vocab_size, 40).tolist()
+    eng = GenerationEngine(model, max_batch_size=2, rng_seed=0, device=dev)
+    paged = _spec_run(eng, prompt, n_tokens, seed=0)
+    slot = greedy_slot_cache(model, prompt, n_tokens, S=64)
+    concat = greedy_concat(model, prompt, n_tokens)
+    if not paged == slot == concat:
+        raise AssertionError(f"legacy caches: paged {paged}, slot cache "
+                             f"{slot}, concat {concat}")
+    log(f"legacy caches: {preset} width, {n_layer} layers float32, "
+        f"{n_tokens} greedy tokens: slot cache and one-row concat equal the "
+        "paged engine's")
+    del eng, model
+    free_memory()
+    return {"tokens": n_tokens, "equal": True}
+
+
 # ------------------------------------------------------------------ main --
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
                     r"_kernel(?:_sm90)?)I(\w*?)E+v")
@@ -2751,10 +3101,18 @@ def main():
     phase_parity(dev)
     spec = phase_spec_serving(dev, plain)
     phase_spec_swap(dev)
-    for row in paged:  # launches the card counted on the main path
-        row["launches"] = (spec["verify_launches"]
-                           if row["name"] == "paged_attention_verify"
+    moe_served, moe_plain = phase_moe_serving(dev)
+    moe_spec = phase_moe_spec(dev, moe_plain)
+    phase_legacy_cache(dev)
+    for row in paged:  # launches the card counted on the main paths
+        verify = row["name"] == "paged_attention_verify"
+        row["launches"] = (spec["verify_launches"] if verify
                            else served["decode_launches"])
+        row["launches_by_path"] = (
+            {"spec": spec["verify_launches"],
+             "moe spec": moe_spec["verify_launches"]} if verify else
+            {"serving": served["decode_launches"],
+             "moe serving": moe_served["decode_launches"]})
     flash = phase_flash_kernels(dev)
     trained, model = phase_training(dev)
     for name, row in flash.items():
@@ -2766,6 +3124,11 @@ def main():
     phase_train_state_round_trip(dev)
     phase_training_parity(dev)
     phase_training_parity_bf16(dev)
+    moe_trained = phase_moe_training(dev)
+    for name, row in flash.items():
+        row["launches_by_path"] = {
+            "training": trained["launches"][name],
+            "moe training": moe_trained["launches"][name]}
     log(f"serving on {smi}: {served['tokens_per_s']:.1f} tokens/s, p50 TTFT "
         f"{served['ttft_p50_ms']:.1f} ms, p50 decode step "
         f"{served['decode_step_p50_ms']:.2f} ms (CUDA graph)")
@@ -2807,6 +3170,24 @@ def main():
         f"{trained['step_ms']:.1f} ms, {trained['tokens_per_s']:.0f} "
         f"tokens/s, MFU {trained['mfu']:.4f}, peak memory "
         f"{trained['peak_memory_gb']:.1f} GB")
+    log(f"moe serving on {smi}: {moe_served['tokens_per_s']:.1f} tokens/s, "
+        f"p50 TTFT {moe_served['ttft_p50_ms']:.1f} ms, p50 decode step "
+        f"{moe_served['decode_step_p50_ms']:.2f} ms (CUDA graph), peak "
+        f"memory {moe_served['peak_memory_gb']:.1f} GB; K4 "
+        f"{moe_served['decode_launches']} launches = "
+        f"{moe_served['decode_steps']} steps x 24; drop fraction of one "
+        f"eager forward "
+        f"{moe_served['eager_forward_8x512']['drop_fraction']:.4f}")
+    log(f"moe spec on {smi}: {moe_spec['tokens_per_s']:.1f} tokens/s, p50 "
+        f"TTFT {moe_spec['ttft_p50_ms']:.1f} ms, p50 round "
+        f"{moe_spec['round_p50_ms']:.2f} ms; dense spec p50 TTFT "
+        f"{spec['ttft_p50_ms']:.1f} ms with drafter prefill graphs "
+        f"{json.dumps(spec['draft_prefill_buckets'])}")
+    log(f"moe training on {smi}: {moe_trained['n_layer']} layers, batch "
+        f"{moe_trained['batch']} x {moe_trained['seq_len']}: step "
+        f"{moe_trained['step_ms_after_first']:.1f} ms after the first, "
+        f"losses {moe_trained['losses']}, peak memory "
+        f"{moe_trained['peak_memory_gb']:.1f} GB")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [*paged, *flash.values()]}))
     print(smi)

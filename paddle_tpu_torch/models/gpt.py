@@ -1,7 +1,10 @@
-"""GPT model family (counterpart of paddle_tpu/models/gpt.py): the dense
-trunk, its cache-less causal forward (the pretraining path, through the
-flash-attention kernels), its paged-KV-cache forward, and the pretraining
-criterion.
+"""GPT model family (counterpart of paddle_tpu/models/gpt.py): the trunk,
+dense or with Mixture-of-Experts blocks (``moe_num_experts > 0``: every
+``moe_every``-th block's MLP is an ``nn.moe.MoEMLP``), its cache-less
+causal forward (the pretraining path, through the flash-attention
+kernels), its paged-KV-cache forward, the reference's two older cache
+forms (a per-slot cache buffer, a growing concatenated cache), and the
+pretraining criterion.
 
 Submodule names match the reference one to one (``embeddings.
 word_embeddings``, ``blocks.<i>.attn.qkv_proj``, ``blocks.<i>.mlp.fc1``,
@@ -20,6 +23,7 @@ would cost more than the step.
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 import torch.nn.functional as F
@@ -27,13 +31,34 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..ops.attention import attention, scaled_dot_product_attention
+from ..nn.moe import MoEMLP, validate_moe_config
+from ..ops.attention import (attention, output_dropout,
+                             scaled_dot_product_attention)
 from ..ops.flash_attention import select_flash_kernel
 from ..ops.paged_attention import (paged_attention_route, paged_view,
                                    position_mask)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
+
+# one-time nudge off the growing-concat cache form (below): its shapes grow
+# every generated token, so the step can never be one captured CUDA graph
+_legacy_cache_warned = False
+
+
+def _warn_legacy_cache():
+    global _legacy_cache_warned
+    if _legacy_cache_warned:
+        return
+    _legacy_cache_warned = True
+    warnings.warn(
+        "GPTModel's growing-concat KV-cache path (caches= without "
+        "cache_offsets=) concatenates onto the cache, so every generated "
+        "token changes tensor shapes and copies the whole cache: the step "
+        "cannot be captured as a CUDA graph. For real generation use "
+        "paddle_tpu_torch.serving.GenerationEngine, which preallocates a "
+        "paged KV cache and captures the decode step once.",
+        UserWarning, stacklevel=4)
 
 
 class GPTConfig:
@@ -52,7 +77,9 @@ class GPTConfig:
     def __init__(self, vocab_size=50304, n_layer=12, n_head=12, d_model=768,
                  seq_len=1024, d_ff=None, dropout=0.0, attn_dropout=0.0,
                  dtype="float32", use_recompute=False, recompute_policy=None,
-                 initializer_range=0.02, moe_num_experts=0):
+                 initializer_range=0.02, moe_num_experts=0, moe_top_k=2,
+                 moe_capacity_factor=1.25, moe_every=1,
+                 moe_aux_weight=0.01):
         self.vocab_size = vocab_size
         self.n_layer = n_layer
         self.n_head = n_head
@@ -69,9 +96,17 @@ class GPTConfig:
         self.use_recompute = use_recompute
         self.recompute_policy = recompute_policy
         self.initializer_range = initializer_range
-        # the port has the dense trunk only so far; an MoE preset is
-        # refused when a model is built from it
+        # MoE trunk: moe_num_experts=0 keeps the dense MLP; > 0 makes
+        # every moe_every-th block's MLP an MoEMLP, validated here as in
+        # the reference (MoEConfigError and a moe_config_refused event)
         self.moe_num_experts = int(moe_num_experts)
+        self.moe_top_k = int(moe_top_k)
+        self.moe_capacity_factor = float(moe_capacity_factor)
+        self.moe_every = int(moe_every)
+        self.moe_aux_weight = float(moe_aux_weight)
+        if self.moe_num_experts > 0:
+            validate_moe_config(self.moe_num_experts, self.moe_top_k,
+                                self.moe_capacity_factor, op="GPTConfig")
 
     @classmethod
     def preset(cls, name, **overrides):
@@ -84,6 +119,8 @@ class GPTConfig:
         return _DTYPES[self.dtype]
 
     def num_params(self):
+        """The dense trunk's parameter count (the reference's formula; it
+        does not count expert banks)."""
         d, L, V = self.d_model, self.n_layer, self.vocab_size
         return V * d + self.seq_len * d + L * (12 * d * d + 13 * d) + 2 * d
 
@@ -136,9 +173,13 @@ class GPTAttention(nn.Module):
         self.kernel = "torch"
         self.generator = None
 
-    def forward(self, x, cache=None, paged=None):
-        """Cache-less causal attention, or (with ``cache=(k_pool, v_pool)``
-        and ``paged`` from :meth:`GPTModel.forward`) the paged branch."""
+    def forward(self, x, cache=None, paged=None, slot=None):
+        """Cache-less causal attention; or, with ``cache=(k_pool, v_pool)``
+        and ``paged`` from :meth:`GPTModel.forward`, the paged branch (the
+        pools updated in place); or one of the reference's older forms,
+        returning ``(out, new cache)``: ``slot=(cache_offsets, seq_lens)``
+        with ``cache=(k_buf, v_buf)`` (:meth:`_slot_cache`), or ``cache``
+        alone (:meth:`_concat_cache`)."""
         B, T, D = x.shape
         qkv = self.qkv_proj(x).view(B, T, 3, self.n_head, self.head_dim)
         q, k, v = qkv.unbind(2)
@@ -148,6 +189,11 @@ class GPTAttention(nn.Module):
                 training=self.training, generator=self.generator,
                 kernel=self.kernel)
             return self.out_proj(out.reshape(B, T, D))
+        if paged is None:
+            legacy = self._slot_cache if slot is not None \
+                else self._concat_cache
+            out, cache = legacy(q, k, v, cache, slot)
+            return self.out_proj(out.reshape(B, T, D)), cache
         block_tables, seq_lens, offsets, write_rows, kernel = paged
         k_pool, v_pool = cache
         Nb, bs = k_pool.shape[0], k_pool.shape[1]
@@ -169,6 +215,48 @@ class GPTAttention(nn.Module):
                                                k_view.shape[1]))
         return self.out_proj(out.reshape(B, T, D))
 
+    def _masked(self, q, k, v, mask):
+        """The older cache forms' attention: the plain masked attention
+        (the reference's XLA path there), then output dropout."""
+        return output_dropout(attention(q, k, v, mask=mask), self.dropout_p,
+                              self.training, self.generator)
+
+    def _slot_cache(self, q, k, v, cache, slot):
+        """The reference's slot-cache branch: preallocated ``[B, S, H,
+        Dh]`` buffers, the span's rows written at ``cache_offsets[b] + t``,
+        attention over the whole buffer under a mask by absolute position
+        and valid length. Returns new buffers, as the reference does. A
+        row at or past ``S`` is dropped, as the reference's scatter drops
+        it (a torch scatter would raise): it goes to a spare row past the
+        end, which is cut off."""
+        offsets, seq_lens = slot
+        k_buf, v_buf = cache
+        B, T = q.shape[0], q.shape[1]
+        S = k_buf.shape[1]
+        rows = offsets.long().unsqueeze(1) + torch.arange(T, device=q.device)
+        idx = rows.clamp(max=S).view(B, T, 1, 1).expand(-1, -1, *k.shape[2:])
+        new = []
+        for buf, val in ((k_buf, k), (v_buf, v)):
+            ext = torch.cat([buf, buf.new_zeros(B, 1, *buf.shape[2:])], 1)
+            new.append(ext.scatter(1, idx, val.to(buf.dtype))[:, :S])
+        out = self._masked(q, new[0], new[1],
+                           position_mask(offsets, seq_lens, T, S))
+        return out, tuple(new)
+
+    def _concat_cache(self, q, k, v, cache, slot):
+        """The reference's growing-concat branch: the span's K/V appended
+        to the cache along the sequence. The reference attends without a
+        mask there (``is_causal=False``), so each row of a span of more
+        than one row also sees the span's later rows (ROADMAP queue 3);
+        the port masks by absolute position, which equals the reference
+        for one-row spans."""
+        k = torch.cat([cache[0], k], dim=1)
+        v = torch.cat([cache[1], v], dim=1)
+        B, T, S = q.shape[0], q.shape[1], k.shape[1]
+        past = torch.full((B,), S - T, dtype=torch.int32, device=q.device)
+        out = self._masked(q, k, v, position_mask(past, past + T, T, S))
+        return out, (k, v)
+
 
 class GPTMLP(nn.Module):
     def __init__(self, cfg: GPTConfig):
@@ -182,23 +270,48 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig):
+    """Pre-LN block. Its MLP is an ``MoEMLP`` where ``layer_idx %
+    moe_every == 0`` in an MoE config, as in the reference."""
+
+    def __init__(self, cfg: GPTConfig, layer_idx=0):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=1e-5)
         self.attn = GPTAttention(cfg)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=1e-5)
-        self.mlp = GPTMLP(cfg)
+        if cfg.moe_num_experts > 0 and layer_idx % cfg.moe_every == 0:
+            std = cfg.initializer_range
+            self.mlp = MoEMLP(
+                cfg.d_model, cfg.d_ff, cfg.moe_num_experts,
+                top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor,
+                dropout=cfg.dropout, init_std=std,
+                out_init_std=std / math.sqrt(2 * cfg.n_layer))
+        else:
+            self.mlp = GPTMLP(cfg)
         self.dropout = nn.Dropout(cfg.dropout)
         self.recompute = cfg.use_recompute
 
-    def _forward(self, x, cache=None, paged=None):
-        x = x + self.dropout(self.attn(self.ln1(x), cache=cache, paged=paged))
-        return x + self.mlp(self.ln2(x))
+    def _forward(self, x, cache=None, paged=None, slot=None, moe_rows=False):
+        """The block's output; with an older cache form (``cache`` and no
+        ``paged``), ``(output, new cache)``."""
+        a = self.attn(self.ln1(x), cache=cache, paged=paged, slot=slot)
+        legacy = cache is not None and paged is None
+        if legacy:
+            a, cache = a
+        x = x + self.dropout(a)
+        h = self.ln2(x)
+        if moe_rows and isinstance(self.mlp, MoEMLP):
+            # every row its own routing group, as a decode step routes
+            # each slot's one row
+            y = self.mlp(h.reshape(-1, 1, h.shape[-1])).view(h.shape)
+        else:
+            y = self.mlp(h)
+        return (x + y, cache) if legacy else x + y
 
-    def forward(self, x, cache=None, paged=None):
+    def forward(self, x, cache=None, paged=None, slot=None, moe_rows=False):
         if cache is None and self.recompute and self.training:
             return self._recomputed(x)
-        return self._forward(x, cache=cache, paged=paged)
+        return self._forward(x, cache=cache, paged=paged, slot=slot,
+                             moe_rows=moe_rows)
 
     def _recomputed(self, x):
         """The block under ``torch.utils.checkpoint``: its activations are
@@ -206,23 +319,28 @@ class GPTBlock(nn.Module):
         checkpoint replays torch's default generators itself; the
         attention's own generator is rewound here, so the recomputation
         draws the same dropout masks, and then put back where the forward
-        left it."""
-        gen = self.attn.generator
-        if gen is None or self.attn.dropout_p == 0.0:
-            return checkpoint(self._forward, x, use_reentrant=False)
-        start = gen.get_state()
+        left it. An MoE MLP's ``aux_loss`` and ``last_stats`` stay the
+        first forward's: the recomputation's are put back."""
+        gen = self.attn.generator if self.attn.dropout_p > 0.0 else None
+        start = gen.get_state() if gen is not None else None
+        moe = self.mlp if isinstance(self.mlp, MoEMLP) else None
         ran = []
 
         def run(h):
             if not ran:
                 ran.append(True)
                 return self._forward(h)
-            resume = gen.get_state()
-            gen.set_state(start)
+            resume = gen.get_state() if gen is not None else None
+            kept = (moe.aux_loss, moe.last_stats) if moe else None
+            if gen is not None:
+                gen.set_state(start)
             try:
                 return self._forward(h)
             finally:
-                gen.set_state(resume)
+                if gen is not None:
+                    gen.set_state(resume)
+                if moe:
+                    moe.aux_loss, moe.last_stats = kept
 
         return checkpoint(run, x, use_reentrant=False)
 
@@ -247,10 +365,13 @@ class GPTModel(nn.Module):
     and raises without one; pass ``device="cpu"`` to build on the CPU.
     Weights are drawn from ``generator`` (a ``torch.Generator`` on the
     model's device) or, when it is None, from torch's default generator:
-    Normal(0, initializer_range) for embeddings and Linear weights, scaled
-    by 1/sqrt(2*n_layer) for the two residual-output projections, zero
+    Normal(0, initializer_range) for embeddings, Linear weights, expert
+    banks ``w1`` and gate weights, scaled by 1/sqrt(2*n_layer) for the
+    residual-output projections (``out_proj``, ``fc2``, ``w2``), zero
     biases, unit LayerNorm scales — the reference's initializers. The
-    attention dropout draws from the same generator.
+    attention dropout draws from the same generator. The dtype cast of a
+    bf16 config covers every weight, the gate's too, as the reference's
+    model cast does.
 
     ``attn_kernel`` picks the cache-less forward's attention route once
     (:func:`~paddle_tpu_torch.ops.flash_attention.select_flash_kernel`):
@@ -261,10 +382,6 @@ class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, generator=None,
                  attn_kernel=None):
         super().__init__()
-        if cfg.moe_num_experts:
-            raise NotImplementedError(
-                "paddle_tpu_torch has the dense GPT trunk only; MoE blocks "
-                f"(moe_num_experts={cfg.moe_num_experts}) are not ported yet")
         if cfg.recompute_policy is not None:
             raise NotImplementedError(
                 f"recompute_policy={cfg.recompute_policy!r}: only full "
@@ -277,8 +394,8 @@ class GPTModel(nn.Module):
             dtype=cfg.torch_dtype)
         with torch.device("meta"):
             self.embeddings = GPTEmbeddings(cfg)
-            self.blocks = nn.ModuleList([GPTBlock(cfg)
-                                         for _ in range(cfg.n_layer)])
+            self.blocks = nn.ModuleList([GPTBlock(cfg, layer_idx=i)
+                                         for i in range(cfg.n_layer)])
             self.ln_f = nn.LayerNorm(cfg.d_model, eps=1e-5)
         self.to_empty(device=dev)
         self._init_weights(generator)
@@ -291,11 +408,13 @@ class GPTModel(nn.Module):
     def _init_weights(self, generator):
         std = self.cfg.initializer_range
         out_std = std / math.sqrt(2 * self.cfg.n_layer)
-        residual_out = set()
-        for blk in self.blocks:
-            residual_out.update((blk.attn.out_proj, blk.mlp.fc2))
+        residual_out = {blk.attn.out_proj for blk in self.blocks}
+        residual_out.update(blk.mlp.fc2 for blk in self.blocks
+                            if isinstance(blk.mlp, GPTMLP))
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, MoEMLP):
+                mod.reset_parameters(generator)
+            elif isinstance(mod, nn.Linear):
                 mod.weight.normal_(0.0, out_std if mod in residual_out
                                    else std, generator=generator)
                 mod.bias.zero_()
@@ -311,7 +430,7 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_ids=None, caches=None,
                 cache_offsets=None, seq_lens=None, block_tables=None,
-                paged_kernel=None):
+                paged_kernel=None, moe_rows=False):
         """Cache-less: returns the final hidden states ``[B, T, D]``.
 
         Paged (``caches`` = per-layer ``(k_pool, v_pool)``, with
@@ -319,22 +438,55 @@ class GPTModel(nn.Module):
         ``[B, M]``, all int32): writes the span's K/V into the pools in
         place and returns ``(hidden, caches)``. ``paged_kernel`` picks the
         attention read: "cuda" (the kernel), "torch" (its plain version) or
-        None (the masked gather path prefill uses)."""
+        None (the masked gather path prefill uses).
+
+        The reference's older forms, each returning ``(hidden, new
+        caches)``: ``caches`` of per-layer ``[B, S, H, Dh]`` buffers with
+        ``cache_offsets`` and ``seq_lens`` and no ``block_tables`` (the
+        slot cache), or ``caches`` alone (the growing concat, which warns
+        once).
+
+        ``moe_rows`` routes every row of the span through the MoE blocks
+        as its own group (``[B*T, 1, H]``), as a decode step routes each
+        slot's one row; by default each batch row is one group."""
+        if caches is not None and cache_offsets is None:
+            _warn_legacy_cache()
         x = self.embeddings(input_ids, position_ids)
         if caches is None:
             for blk in self.blocks:
                 x = blk(x)
             return self.ln_f(x)
-        if block_tables is None or cache_offsets is None or seq_lens is None:
-            raise NotImplementedError(
-                "only the paged KV cache is ported: pass cache_offsets, "
-                "seq_lens and block_tables with caches")
+        if block_tables is None:
+            if cache_offsets is not None and seq_lens is None:
+                raise ValueError("the slot cache (cache_offsets without "
+                                 "block_tables) needs seq_lens")
+            slot = None if cache_offsets is None else (cache_offsets,
+                                                       seq_lens)
+            new = []
+            for blk, c in zip(self.blocks, caches):
+                x, c = blk(x, cache=c, slot=slot, moe_rows=moe_rows)
+                new.append(c)
+            return self.ln_f(x), new
+        if cache_offsets is None or seq_lens is None:
+            raise ValueError("the paged cache needs cache_offsets and "
+                             "seq_lens with block_tables")
         rows = paged_write_rows(cache_offsets, seq_lens, block_tables,
                                 caches[0][0].shape[1], input_ids.shape[1])
         paged = (block_tables, seq_lens, cache_offsets, rows, paged_kernel)
         for blk, c in zip(self.blocks, caches):
-            x = blk(x, cache=c, paged=paged)
+            x = blk(x, cache=c, paged=paged, moe_rows=moe_rows)
         return self.ln_f(x), caches
+
+    def moe_aux_loss(self):
+        """``moe_aux_weight`` times the sum of every MoE block's
+        load-balancing loss from the latest forward (read it in the same
+        training step), or None for a dense trunk."""
+        total = None
+        for blk in self.blocks:
+            aux = getattr(blk.mlp, "aux_loss", None)
+            if aux is not None:
+                total = aux if total is None else total + aux
+        return None if total is None else total * self.cfg.moe_aux_weight
 
 
 class GPTForPretraining(nn.Module):
@@ -349,6 +501,9 @@ class GPTForPretraining(nn.Module):
 
     def forward(self, input_ids, position_ids=None):
         return self.lm_logits(self.gpt(input_ids, position_ids))
+
+    def moe_aux_loss(self):
+        return self.gpt.moe_aux_loss()
 
 
 class GPTPretrainingCriterion(nn.Module):

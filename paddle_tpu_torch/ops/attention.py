@@ -51,6 +51,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
     out = flash_attention(query, key, value, mask=attn_mask,
                           causal=is_causal, kernel=kernel)
+    return output_dropout(out, dropout_p, training, generator)
+
+
+def output_dropout(out, dropout_p, training, generator=None):
+    """Dropout on an attention output, as the reference applies it: when
+    training with ``dropout_p > 0``, a keep-mask drawn from ``generator``
+    and kept values scaled by ``1 / (1 - dropout_p)``; else ``out``."""
     if dropout_p > 0.0 and training:
         keep = torch.rand(out.shape, generator=generator,
                           device=out.device) >= dropout_p

@@ -39,8 +39,20 @@ def scoped_counters(scope, initial=None):
     return d
 
 
+def inc(name, n=1, scope="misc"):
+    """Add ``n`` to one counter of ``scope`` (created at 0)."""
+    d = _counter_scopes.get(scope)
+    if d is None:
+        d = scoped_counters(scope)
+    d[name] = d.get(name, 0) + n
+
+
 def gauge_set(name, value):
     _gauges[name] = value
+
+
+def gauge(name, default=None):
+    return _gauges.get(name, default)
 
 
 def gauge_drop(name):

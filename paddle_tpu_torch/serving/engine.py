@@ -13,9 +13,9 @@ hands immutable prefix blocks to new requests by refcount
   samples the first token at the prompt's last position. Each bucket has
   static input buffers and one body on them, captured into a CUDA graph at
   the bucket's first use (``serving.prefill_compiles`` counts captures;
-  every bucket's graph draws on one shared memory pool) and replayed on
-  the stream the decode graph replays on; on the CPU the body runs
-  directly. The same graph serves a whole suffix, a prefix-hit remainder
+  every bucket's graph, a spec drafter's too, draws on one shared memory
+  pool) and replayed on the stream the decode graph replays on; on the
+  CPU the body runs directly. The same graph serves a whole suffix, a prefix-hit remainder
   and one chunk of a chunked prefill: offset, length and table are data.
 * The decode step runs every slot at ``[max_batch, 1]``: each slot's last
   token at its own position, its K/V row written through its block table,
@@ -222,17 +222,21 @@ class _PrefillBucket:
     offset, length, table row, key, sampling knobs, and the index of the
     row that feeds the sample), the sampled token, and the body on them
     in a :class:`StepGraph`. The body is the reference's ``_prefill_pure``:
-    the paged forward over the bucket through the masked gather path, the
-    pick of row ``end - 1 - start``, the float32 LM head and the first
-    sample (token index 0)."""
+    the paged forward of ``gpt`` over the bucket through the masked
+    gather path into the pools ``kv``, the pick of row ``end - 1 -
+    start``, the float32 LM head ``head_w`` and the first sample (token
+    index 0). With ``head_w=None`` the body only writes K/V (the spec
+    drafter's prefill, the reference's ``_draft_prefill_pure``).
+    ``counter`` is the ``serving`` counter of its captures."""
 
-    def __init__(self, engine, L, pool):
+    def __init__(self, engine, L, pool, gpt, kv, head_w,
+                 counter="prefill_compiles"):
         dev = engine.device
 
         def buf(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        self._engine = engine
+        self._gpt, self._kv, self._head_w = gpt, kv, head_w
         self.ids = buf((1, L), torch.int64)
         self.positions = buf((1, L), torch.int64)
         self.offset = buf(1, torch.int32)
@@ -245,8 +249,7 @@ class _PrefillBucket:
         self.row = buf(1, torch.int64)
         self.token_idx = buf(1, torch.int64)
         self.token = buf(1, torch.int32)
-        self.graph = StepGraph(self.body, dev, counter="prefill_compiles",
-                               pool=pool)
+        self.graph = StepGraph(self.body, dev, counter=counter, pool=pool)
 
     def load(self, ids, positions, start, end, bt_row, key, temperature,
              top_k, top_p):
@@ -260,14 +263,15 @@ class _PrefillBucket:
             b.fill_(float(v) if b.is_floating_point() else int(v))
 
     def body(self):
-        eng = self._engine
         with torch.no_grad():
-            hidden, _ = eng._gpt(
-                self.ids, position_ids=self.positions, caches=eng._kv,
+            hidden, _ = self._gpt(
+                self.ids, position_ids=self.positions, caches=self._kv,
                 cache_offsets=self.offset, seq_lens=self.length,
                 block_tables=self.table)
+            if self._head_w is None:
+                return
             logits = hidden[0].index_select(0, self.row).float() \
-                @ eng._head_w.t()
+                @ self._head_w.t()
             gum = _sampling.gumbel_rows(self.key, self.token_idx,
                                         logits.shape[-1])
             self.token.copy_(_sampling.sample_tokens(
@@ -574,64 +578,56 @@ class GenerationEngine:
             self._note_pool()
             raise
 
-    def _upload(self, array, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(array))
-        return t.to(device=self.device, dtype=dtype)
+    def _prefill_graph_pool(self):
+        """The memory pool every prefill graph of this engine draws on (the
+        target's buckets and a spec drafter's); None on the CPU."""
+        if self.device.type == "cuda" and self._prefill_pool is None:
+            self._prefill_pool = torch.cuda.graph_pool_handle()
+        return self._prefill_pool
 
-    def _paged_prefill(self, gpt, kv, window, end, start, bt_row):
-        """``gpt``'s paged forward over prompt[start:end] (``window``),
-        padded to its bucket, through the masked gather path, called
-        eagerly (the spec drafter's prefill); writes the window's K/V rows
-        into ``kv`` through ``bt_row``. Rows at or past ``end`` go to the
-        garbage block. Returns the hidden states."""
-        L = self.bucket_for(len(window))
+    def _prefill_bucket(self, L):
+        """The bucket of length ``L``, made at its first use."""
+        pb = self._prefill_buckets.get(L)
+        if pb is None:
+            pb = self._prefill_buckets[L] = _PrefillBucket(
+                self, L, self._prefill_graph_pool(), self._gpt, self._kv,
+                self._head_w)
+        return pb
+
+    def _run_prefill(self, pb, window, end, start, bt_row, key=None,
+                     temperature=0.0, top_k=0, top_p=1.0, role="target"):
+        """Load one prefill pass over prompt[start:end] (``window``), padded
+        to the bucket ``pb``, and replay its graph. On a CUDA device the
+        graph is captured at the bucket's first use, from the inputs just
+        loaded: the capture's warm-up runs the body for real on them,
+        writing the rows the replay then writes again with the same
+        values."""
+        L = pb.ids.shape[1]
         ids = np.zeros((1, L), np.int64)
         ids[0, :len(window)] = window
         positions = np.minimum(start + np.arange(L), self.max_seq_len - 1)
-        hidden, _ = gpt(
-            self._upload(ids), position_ids=self._upload(positions[None]),
-            caches=kv,
-            cache_offsets=self._upload(np.asarray([start], np.int32)),
-            seq_lens=self._upload(np.asarray([end], np.int32)),
-            block_tables=self._upload(bt_row[None]))
-        return hidden
-
-    def _prefill_bucket(self, L):
-        """The bucket of length ``L``, made at its first use; every
-        bucket's graph draws on one memory pool."""
-        pb = self._prefill_buckets.get(L)
-        if pb is None:
-            if self.device.type == "cuda" and self._prefill_pool is None:
-                self._prefill_pool = torch.cuda.graph_pool_handle()
-            pb = self._prefill_buckets[L] = _PrefillBucket(
-                self, L, self._prefill_pool)
-        return pb
+        if key is None:
+            key = np.zeros(2, np.int64)
+        pb.load(ids, positions[None], start, end, bt_row, key, temperature,
+                top_k, top_p)
+        if self.device.type == "cuda" and not pb.graph.captured:
+            pb.graph.capture()
+            _explain.record(
+                "serving_prefill_compile", op="serving.prefill", role=role,
+                why=f"first {role} prefill of bucket {L}: its graph was "
+                    "captured; later prefills of this bucket replay it",
+                detail=f"bucket_len={L}, max_batch={self.max_batch_size}")
+        pb.graph()
 
     def _prefill_call(self, window, end, start, bt_row, key, temperature,
                       top_k, top_p):
         """One prefill pass over prompt[start:end], padded to its bucket,
         through the bucket's graph; the sample is taken at ``end - 1``
-        (intermediate chunks discard it). On a CUDA device the graph is
-        captured at the bucket's first use, from the inputs just loaded:
-        the capture's warm-up runs the body for real on them, writing the
-        rows the replay then writes again with the same values."""
-        L = self.bucket_for(len(window))
-        ids = np.zeros((1, L), np.int64)
-        ids[0, :len(window)] = window
-        positions = np.minimum(start + np.arange(L), self.max_seq_len - 1)
-        pb = self._prefill_bucket(L)
+        (intermediate chunks discard it)."""
+        pb = self._prefill_bucket(self.bucket_for(len(window)))
         with _registry.time_block("prefill", scope="serving"):
-            pb.load(ids, positions[None], start, end, bt_row, key,
-                    temperature, top_k, top_p)
-            if self.device.type == "cuda" and not pb.graph.captured:
-                pb.graph.capture()
-                _explain.record(
-                    "serving_prefill_compile", op="serving.prefill",
-                    why=f"first prefill of bucket {L}: its graph was "
-                        "captured; later prefills of this bucket replay it",
-                    detail=f"bucket_len={L}, max_batch="
-                           f"{self.max_batch_size}")
-            pb.graph()
+            self._run_prefill(pb, window, end, start, bt_row, key,
+                              temperature, top_k, top_p)
             return int(pb.token.item())
 
     def _reserve_extra(self, slot, prompt, max_new_tokens):

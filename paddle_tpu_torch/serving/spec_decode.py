@@ -30,6 +30,12 @@ calls, ``spec_decode.py:19-38``) and one device-to-host read:
   through the paged kernel at a span of ``T = K+1`` rows, the exact
   replay, ``accepts`` by cumulative product, ``emitted = accepts + 1``
   capped at ``max_seq_len - cur_lens``, cursors advanced on the device.
+  An MoE target routes each of the ``B (K+1)`` rows as its own group
+  (``moe_rows``), as plain decode routes each slot's one row, so a
+  drafted row never loses its expert slot to its neighbours. The
+  reference routes a slot's K+1 rows as one group, with capacity
+  ``ceil((K+1) cf k / E)``, so its MoE verify can drop a row plain decode
+  keeps and emit other tokens (ROADMAP queue 3).
 
 Both bodies read and write the engine's persistent slot-state buffers
 (``serving.engine``), so the fast path's rebuild, audit and demotion
@@ -52,7 +58,12 @@ recaptured), and rebuilds every in-flight slot's drafter KV from its token
 history under the new drafter weights. Acceptance is kept per weight
 generation (``acceptance_by_generation``), so a swap's effect on it is
 visible. ``reprime`` drops all three decode graphs; the target's prefill
-graphs stay. The drafter's prompt ingestion runs eagerly (no graph).
+graphs stay.
+
+The drafter's prompt ingestion (the reference's ``_draft_prefill_pure``)
+replays one captured graph per bucket, like the target's prefill: the
+drafter's model, pools and table row, K/V written, nothing sampled
+(``serving.draft_prefill_compiles`` counts its captures).
 
 Handoff: ``import_request_kv`` adopts a plain engine's export: the
 target's KV verbatim, while the drafter ingests the prompt again (its KV
@@ -80,7 +91,8 @@ from ..testing import faults as _faults
 from . import sampling as _sampling
 from .block_pool import BlockPool
 from ..convert import _linear_weight_names
-from .engine import GenerationEngine, StepGraph, _refresh_head
+from .engine import (GenerationEngine, StepGraph, _PrefillBucket,
+                     _refresh_head)
 from .engine import _counters as _serving_counters
 
 __all__ = ["DraftVerifyEngine"]
@@ -88,7 +100,8 @@ __all__ = ["DraftVerifyEngine"]
 _counters = _registry.scoped_counters("serving", {
     "spec_rounds": 0, "spec_slot_rounds": 0, "spec_proposed": 0,
     "spec_accepted": 0, "spec_emitted": 0, "draft_prefills": 0,
-    "draft_kv_blocks_hwm": 0, "draft_swaps": 0})
+    "draft_kv_blocks_hwm": 0, "draft_swaps": 0,
+    "draft_prefill_compiles": 0})
 # weight generations whose acceptance keeps its own gauge; older ones fold
 # into one ".historic" rollup, so frequent swaps add no registry keys
 SPEC_ACCEPT_KEEP_GENERATIONS = 4
@@ -187,6 +200,8 @@ class DraftVerifyEngine(GenerationEngine):
                                     device=dev)
         self._draft_graph = StepGraph(self._draft_body, dev)
         self._verify_graph = StepGraph(self._verify_body, dev)
+        # bucket length -> the drafter's prefill bucket (K/V only)
+        self._draft_buckets: dict = {}
 
     # ------------------------------------------------------- step bodies --
     def _draft_body(self):
@@ -232,7 +247,7 @@ class DraftVerifyEngine(GenerationEngine):
                 ids, position_ids=positions.long(), caches=self._kv,
                 cache_offsets=lens, seq_lens=lens + (K + 1),
                 block_tables=self._d_tables,
-                paged_kernel=self._paged_kernel)
+                paged_kernel=self._paged_kernel, moe_rows=True)
             B = ids.shape[0]
             logits = hidden.float().reshape(B * (K + 1), -1) \
                 @ self._head_w.t()
@@ -327,16 +342,28 @@ class DraftVerifyEngine(GenerationEngine):
         if used > _counters["draft_kv_blocks_hwm"]:
             _counters["draft_kv_blocks_hwm"] = used
 
+    def _draft_bucket(self, L):
+        """The drafter's prefill bucket of length ``L``, made at its first
+        use; its graph shares the target's prefill pool."""
+        pb = self._draft_buckets.get(L)
+        if pb is None:
+            pb = self._draft_buckets[L] = _PrefillBucket(
+                self, L, self._prefill_graph_pool(), self._dgpt, self._dkv,
+                None, counter="draft_prefill_compiles")
+        return pb
+
     def _draft_ingest(self, slot, prompt, end):
         """Fill the drafter's KV rows up to ``end`` from its own cursor, in
-        one bucket-padded window through the gather path. No sampling: the
-        target's prefill sample is the first token."""
+        one bucket-padded window through the gather path, by its bucket's
+        graph. No sampling: the target's prefill sample is the first
+        token."""
         start = self._draft_ingested[slot]
         if end <= start:
             return
-        with torch.no_grad():
-            self._paged_prefill(self._dgpt, self._dkv, prompt[start:end],
-                                end, start, self._draft_tables[slot])
+        window = prompt[start:end]
+        self._run_prefill(self._draft_bucket(self.bucket_for(len(window))),
+                          window, end, start, self._draft_tables[slot],
+                          role="draft")
         self._draft_ingested[slot] = end
         _counters["draft_prefills"] += 1
 

@@ -144,12 +144,12 @@ def test_engine_tokens_kernel_equals_plain(cuda):
     assert outs[0] == outs[1]
 
 
-def _tiny_gpt(dev, n_layer, seed):
+def _tiny_gpt(dev, n_layer, seed, **over):
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel)
 
     cfg = GPTConfig(vocab_size=512, n_layer=n_layer, n_head=4, d_model=256,
-                    seq_len=256, initializer_range=0.2)
+                    seq_len=256, initializer_range=0.2, **over)
     return GPTForPretraining(GPTModel(
         cfg, device=dev, generator=torch.Generator(dev).manual_seed(seed)))
 
@@ -324,6 +324,111 @@ def test_prefill_after_a_swap_uses_the_new_weights(cuda):
     eng.swap_weights({k: v.detach() for k, v in b.gpt.state_dict().items()})
     assert eng._prefill_buckets[64].graph.captured
     assert _greedy(eng) == _greedy(GenerationEngine(b, **kw))
+
+
+MOE = dict(moe_num_experts=4, moe_top_k=2, moe_capacity_factor=1.25)
+
+
+def _zero_gates(model):
+    from paddle_tpu_torch.nn.moe import MoEMLP
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, MoEMLP):
+                m.gate.weight.zero_()
+    return model
+
+
+@pytest.mark.parametrize("gate", ["random", "zero"])
+def test_moe_decode_graph_equals_its_body_called_eagerly(cuda, gate):
+    import numpy as np
+
+    from paddle_tpu_torch.nn.moe import metrics
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    model = _tiny_gpt(cuda, 2, 0, **MOE)
+    if gate == "zero":
+        _zero_gates(model)
+    outs = []
+    for replay in (True, False):
+        eng = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                               block_size=16, device=cuda)
+        toks = [eng.prefill(0, list(range(3, 40)), seed=0),
+                eng.prefill(1, list(range(7, 20)), seed=1, temperature=0.8)]
+        if not replay:
+            for buf, host in eng._mirrors():
+                buf.copy_(torch.from_numpy(np.ascontiguousarray(host)))
+        for i in range(12):
+            if replay:
+                toks.extend(eng.decode_step().tolist())
+                if i == 0:  # captured: the stats are a warm-up's
+                    seen = metrics.collect(model)
+                    stats = [m.last_stats for m in model.modules()
+                             if hasattr(m, "last_stats")]
+            else:
+                eng._decode_body()
+                t = eng._d_toks.cpu().numpy()
+                eng._finish_decode(eng._active, 2, t)
+                toks.extend(t.tolist())
+        if replay:
+            # replays (and the graph pool's reuse) leave what collect
+            # reads alone: it is the last eager forward's
+            assert [m.last_stats for m in model.modules()
+                    if hasattr(m, "last_stats")] == stats
+            again = metrics.collect(model)
+            np.testing.assert_array_equal(again["expert_tokens"],
+                                          seen["expert_tokens"])
+        outs.append(toks)
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("gate", ["random", "zero"])
+def test_moe_spec_graphs_equal_plain_decode(cuda, gate):
+    from paddle_tpu_torch.serving import DraftVerifyEngine, GenerationEngine
+
+    model = _tiny_gpt(cuda, 2, 0, **MOE)
+    twin = _tiny_gpt(cuda, 2, 0, **MOE)
+    if gate == "zero":
+        _zero_gates(model)
+        _zero_gates(twin)
+    spec = DraftVerifyEngine(model, twin, draft_k=4, max_batch_size=2,
+                             rng_seed=3, block_size=16, device=cuda)
+    plain = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                             block_size=16, device=cuda)
+    for opts in (dict(seed=0), dict(seed=2, temperature=0.8)):
+        got = [spec.prefill(0, list(range(3, 40)), **opts)]
+        while len(got) < 30:
+            got.extend(spec.decode_step_spec()[0])
+        want = [plain.prefill(0, list(range(3, 40)), **opts)]
+        while len(want) < 30:
+            want.append(int(plain.decode_step()[0]))
+        assert got[:30] == want[:30]
+        spec.release(0)
+        plain.release(0)
+
+
+def test_drafter_prefill_graph_per_bucket_equal_to_its_body(cuda):
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import DraftVerifyEngine
+
+    eng = DraftVerifyEngine(_tiny_gpt(cuda, 2, 0), _tiny_gpt(cuda, 1, 5),
+                            draft_k=4, max_batch_size=2, rng_seed=3,
+                            block_size=16, device=cuda)
+    c0 = registry.counters("serving")["draft_prefill_compiles"]
+    for n in (9, 15, 20, 50):
+        eng.prefill(0, list(range(3, 3 + n)), seed=n)
+        pb = eng._draft_buckets[eng.bucket_for(n)]
+        idx = torch.tensor(eng._draft_blocks[0], device=cuda)
+        rows = [(k[idx].clone(), v[idx].clone()) for k, v in eng._dkv]
+        with torch.no_grad():
+            pb.body()  # the same body on the same buffers, from Python
+        for (k, v), (k0, v0) in zip(eng._dkv, rows):
+            assert torch.equal(k[idx], k0) and torch.equal(v[idx], v0)
+        eng.release(0)
+    assert registry.counters("serving")["draft_prefill_compiles"] == c0 + 3
+    assert sorted(eng._draft_buckets) == [16, 32, 64]
+    assert eng._draft_buckets[16].graph.replays == 2
+    eng.draft_pool.audit()
 
 
 def test_kernel_mismatch_baked_into_a_captured_graph(cuda):

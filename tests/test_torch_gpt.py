@@ -187,8 +187,14 @@ def test_config_accounting_matches_reference():
         assert (a.num_params(), a.flops_per_token()) \
             == (b.num_params(), b.flops_per_token())
     assert tgpt.GPTConfig.PRESETS == jgpt.GPTConfig.PRESETS
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgpt.GPTModel(tgpt.GPTConfig.preset("gpt2-tiny-moe"), device="cpu")
+    # the MoE preset builds, with the reference's MoE defaults
+    a = tgpt.GPTConfig.preset("gpt2-tiny-moe")
+    b = jgpt.GPTConfig.preset("gpt2-tiny-moe")
+    fields = ("moe_num_experts", "moe_top_k", "moe_capacity_factor",
+              "moe_every", "moe_aux_weight")
+    assert [getattr(a, f) for f in fields] == [getattr(b, f) for f in fields]
+    model = tgpt.GPTModel(a, device="cpu")
+    assert type(model.blocks[0].mlp).__name__ == "MoEMLP"
 
 
 def test_seeded_init_is_reproducible():

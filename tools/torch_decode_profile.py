@@ -6,7 +6,7 @@ eagerly, and one speculative round, in one run.
 Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_decode_profile.py [--preset gpt3-1.3B] [--steps 10]
-        [--draft-preset gpt2-small] [--draft-k 4]
+        [--draft-preset gpt2-small] [--draft-k 4] [--moe]
         [--trace decode_trace.json]
 
 Builds the preset in bf16 with random weights from seed 0 and fills every
@@ -23,6 +23,14 @@ slots:
 Then a ``DraftVerifyEngine`` over the same target, the drafter preset in
 bf16 from seed 2 drafting ``--draft-k`` tokens, with the same 8 prompts:
 rounds timed and traced the same way.
+
+``--moe`` makes the target a Mixture-of-Experts model (8 experts, top-2,
+capacity factor 1.25, in every other block: ``chip_smoke.MOE``) and splits
+the eager route's device time per step into the gate (``TopKGate``), the
+rest of the MoE layers (dispatch, expert FFN and combine einsums), the
+paged kernel K4 and everything else: the tool wraps the two MoE forwards
+in ``torch.profiler.record_function`` scopes for the eager route only
+and sums the device time of the kernels launched inside each.
 
 Prints the card (nvidia-smi name and power limit) and, for each route,
 the host-clock p50, the kernels per step, the kernels launched from the
@@ -119,6 +127,60 @@ def measure(step, steps, trace=None):
     return summary, sorted(by_name.items(), key=lambda kv: -kv[1][1])
 
 
+def scope_device_us(events, name):
+    """Device microseconds of the kernels launched inside every CPU range
+    named ``name`` (a ``record_function`` scope)."""
+    return sum(e.device_time_total for e in events
+               if e.name == name
+               and e.device_type == torch.autograd.DeviceType.CPU)
+
+
+def moe_split(step, steps):
+    """The device time per step of ``step`` split into the MoE gate, the
+    rest of the MoE layers, K4 and everything else, from torch.profiler
+    over ``steps`` calls with the two MoE forwards in named scopes."""
+    from paddle_tpu_torch.nn.moe import MoEMLP, TopKGate
+
+    originals = {cls: cls.forward for cls in (TopKGate, MoEMLP)}
+
+    def scoped(cls, name):
+        def forward(self, *a, **k):
+            with torch.profiler.record_function(name):
+                return originals[cls](self, *a, **k)
+        return forward
+
+    TopKGate.forward = scoped(TopKGate, "moe.gate")
+    MoEMLP.forward = scoped(MoEMLP, "moe.layer")
+    try:
+        step()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+    finally:
+        for cls, fwd in originals.items():
+            cls.forward = fwd
+    events = prof.events()
+    # the scopes also show on the device track (gpu_user_annotation
+    # events spanning each range): they are no kernels
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name not in ("moe.gate", "moe.layer")]
+    total = sum(e.time_range.end - e.time_range.start for e in kernels)
+    gate = scope_device_us(events, "moe.gate")
+    layer = scope_device_us(events, "moe.layer")
+    paged = sum(e.time_range.end - e.time_range.start for e in kernels
+                if "paged_attention" in e.name)
+    return {"device_us_per_step": total / steps,
+            "gate_us_per_step": gate / steps,
+            "moe_einsums_us_per_step": (layer - gate) / steps,
+            "paged_attention_us_per_step": paged / steps,
+            "rest_us_per_step": (total - layer - paged) / steps}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="gpt3-1.3B")
@@ -126,6 +188,8 @@ def main():
     ap.add_argument("--draft-k", type=int, default=4)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--moe", action="store_true",
+                    help="profile the MoE variant of the preset (MOE)")
     ap.add_argument("--trace", default=None,
                     help="write the graph route's chrome trace here")
     args = ap.parse_args()
@@ -133,6 +197,7 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from chip_smoke import MOE
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel)
     from paddle_tpu_torch.profiler import registry
@@ -142,7 +207,8 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    cfg = GPTConfig.preset(args.preset, dtype="bfloat16")
+    cfg = GPTConfig.preset(args.preset, dtype="bfloat16",
+                           **(MOE if args.moe else {}))
     model = GPTForPretraining(GPTModel(
         cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)))
     prompts = [np.random.default_rng(0).integers(
@@ -167,6 +233,8 @@ def main():
     routes = {}
     routes["graph"] = measure(eng.decode_step, args.steps, args.trace)
     routes["eager"] = measure(eager_step, args.steps)
+    if args.moe:
+        routes["eager"][0]["moe_split"] = moe_split(eager_step, args.steps)
     del eng
 
     drafter = GPTForPretraining(GPTModel(
@@ -185,7 +253,8 @@ def main():
         "emitted_per_slot_round": c["spec_emitted"] / c["spec_slot_rounds"]})
 
     print(f"card: {smi}")
-    print(f"{args.preset} bf16, 8 slots x {args.prompt_len}-token prompts; "
+    print(f"{args.preset} bf16{' MoE ' + json.dumps(MOE) if args.moe else ''}"
+          f", 8 slots x {args.prompt_len}-token prompts; "
           f"spec: {args.draft_preset} drafting K={args.draft_k}")
     for route, (summary, top) in routes.items():
         print(f"{route}: " + ", ".join(
@@ -195,6 +264,7 @@ def main():
             print(f"  {us / args.steps:9.1f} us/step  "
                   f"{n / args.steps:6.1f}/step  {name[:90]}")
     print(json.dumps({"card": smi, "preset": args.preset,
+                      "moe": MOE if args.moe else None,
                       "draft_preset": args.draft_preset,
                       **{route: summary
                          for route, (summary, _) in routes.items()}}))
