@@ -120,9 +120,14 @@ Phases, in order; any failure exits non-zero:
              its bound;
  7. training gpt3-1.3B in bf16 (full width and depth, random weights from
              a seed) trains through TrainStep + AdamW with master weights,
-             batch 4 x 2048: 3 warm-up and 5 timed steps on one batch; the
-             loss must be finite and falling, and every step must launch
-             K1, K2 and K3 once per layer and the plain attention never;
+             batch 4 x 2048, on one batch: 3 steps of the same step_fn in
+             a plain eager loop, then TrainStep's one CUDA graph (eager
+             call, capture and replay, replay) and 5 timed replays; the
+             loss must be finite and falling, one capture, every replay
+             must launch K1, K2 and K3 once per layer on the card's count
+             and the plain attention never, and a steady step no kernel
+             from the host (torch.profiler); graph and eager step time,
+             MFU and peak memory are reported;
  7b. train -> serve  the trained model saved as a checkpoint (model state,
              float32 on disk, into a temporary directory that is removed
              after); a running server on the seed-0 weights, answering a
@@ -168,6 +173,27 @@ Phases, in order; any failure exits non-zero:
  9d. older cache forms  gpt3-1.3B width, 2 layers, float32: greedy tokens
              through the slot cache and through one-row concat decoding
              equal the paged engine's.
+10. recompute  phase 7's step (full width and depth, bf16, batch 4 x 2048)
+             under each policy of bench.py's ladder (none, full, dots,
+             attn, dots_attn) through TrainStep's graph: the loss finite
+             and falling, one capture, per step on the card's count K1
+             48 times under full and dots and 24 under the rest, K2 and K3
+             24; full recompute's peak memory below none's; step time, MFU
+             and peak memory per policy. Then at 2 layers in float32 each
+             policy's loss and gradients against none's, within 1e-5 and
+             reported bitwise or not;
+10b. recipe  the GPT-3 recipe (AdamW with master weights and decay off
+             biases and LayerNorms, linear warm-up into cosine stepped
+             between calls, global-norm clip 1.0) at full width, 2 layers,
+             bf16: 4 graph steps equal the eager loop's bitwise (losses,
+             parameters, slots); with attention dropout 0.1 each replay
+             keeps 90% within 0.01, scales exactly and draws new masks;
+             every other optimizer, regularizer and clip on a small MLP:
+             captured steps equal eager ones bitwise;
+10c. recapture  mutate_signature (mode=aval) armed: one capture more and
+             the same losses; a restore that rebinds the parameters'
+             storage: the next call captures again and the run continues
+             bitwise as it did from the snapshot.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -178,8 +204,9 @@ from device memory and not from L2; "warm_ms" is K4 on one copy.
 Every K4 row's "launches" is what the card counted for the row's instance
 over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
 one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
-the verify row; "launches_by_path" adds the MoE paths' windows (9, 9b),
-and for K1-K3 the training steps of phases 7 and 9c.
+the verify row, phase 7's graph replays for K1-K3, each counted on the
+card by the kernel itself; "launches_by_path" adds the MoE paths' windows
+(9, 9b, 9c) and, for K1-K3, phase 10's launches per step by policy.
 
 Prints a {"kernels": [...]} line and the nvidia-smi line before the last
 line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -789,7 +816,10 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
     ``AdamW(learning_rate, multi_precision=True)`` under ``TrainStep``, and
     one fixed batch of tokens from seed 0 with its next-token labels.
     Returns ``(cfg, model, opt, train, tokens, labels)``; ``train(tokens,
-    labels)`` is one step and returns the loss (aux loss included)."""
+    labels)`` is one step and returns the loss (aux loss included): the
+    first call eager, the second captured as a CUDA graph and replayed, and
+    every later one a replay; ``train.step_fn(tokens, labels)`` is the same
+    step run eagerly."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
                                              GPTModel,
@@ -823,9 +853,27 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
     return cfg, model, opt, train, tokens, labels
 
 
+def flash_device_counts():
+    """K1-K3 launches the card counted since the last
+    ``reset_device_launches`` (both dtypes)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    counts = fa.device_launches()
+    counts.pop("by_dtype")
+    return counts
+
+
 def phase_training(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
-                   warmup=3, steps=5, **cfg_over):
-    """Returns the result and the trained model (its optimizer dropped)."""
+                   eager_steps=3, warmup=3, steps=5, **cfg_over):
+    """7: the pretraining step through ``TrainStep``'s CUDA graph, beside
+    the same ``step_fn`` in a plain eager loop (first, ``eager_steps``
+    steps, the first untimed). The graph: ``warmup`` calls (eager, capture
+    and replay, replay), then ``steps`` timed replays and 2 profiled ones.
+    Checks: the loss finite and falling; one capture; K1-K3 launched
+    steps x n_layer times on the card's count over the timed window, the
+    plain attention never; no kernel launched from the host in a steady
+    step (torch.profiler: one graph launch a step). Returns the result and
+    the trained model (its optimizer dropped)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.profiler import registry
 
@@ -835,46 +883,71 @@ def phase_training(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
     log(f"training: {preset} bf16 n_layer={cfg.n_layer} attention route "
         f"{model.gpt.attn_kernel!r}, built in {time.perf_counter() - t0:.1f}"
         " s")
-    losses = []
-    for _ in range(warmup):
-        losses.append(float(train(tokens, labels).detach()))
+    registry.reset("jit")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    losses, eager_s = [], []
+    for _ in range(eager_steps):
+        t1 = time.perf_counter()
+        losses.append(float(train.step_fn(tokens, labels).detach()))
+        eager_s.append(time.perf_counter() - t1)
+    eager_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    free_memory()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(warmup):
+        losses.append(float(train(tokens, labels)))
+    torch.cuda.synchronize()
     registry.reset("kernels")
+    fa.reset_device_launches()
     t0 = time.perf_counter()
-    per_step = []
-    for i in range(steps):
+    for _ in range(steps):
         loss = train(tokens, labels)
-        per_step.append(fa.launches())
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
-    losses.append(float(loss.detach()))
-    counts = fa.launches()
+    losses.append(float(loss))
+    counts = flash_device_counts()
+    py_counts = fa.launches()
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof = profile_steps(lambda: train(tokens, labels), 2)
+    jit = dict(registry.counters("jit"))
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training: losses {losses} are not finite and "
                              "falling")
     if model.gpt.attn_kernel != "cuda":
         raise AssertionError(f"training: the model resolved "
                              f"{model.gpt.attn_kernel!r} on the card")
-    for i, c in enumerate(per_step, 1):
-        for name in FLASH_KERNELS:
-            if c[name] != i * cfg.n_layer:
-                raise AssertionError(
-                    f"training: {c[name]} {name} launches after {i} steps, "
-                    f"want {i} x {cfg.n_layer} layers")
-        if c["flash_attention_ref"]:
-            raise AssertionError(f"training: the plain attention ran "
-                                 f"{c['flash_attention_ref']} times")
+    if jit["train_step_captures"] != 1 or jit["train_step_eager"] != 1:
+        raise AssertionError(f"training: TrainStep counters {jit}, want one "
+                             "eager call and one capture")
+    for name in FLASH_KERNELS:
+        if counts[name] != steps * cfg.n_layer:
+            raise AssertionError(
+                f"training: the card counted {counts[name]} {name} launches "
+                f"over {steps} replays, want {steps} x {cfg.n_layer} layers")
+    if any(py_counts.values()):
+        raise AssertionError(f"training: replays moved the Python counters "
+                             f"or took the plain attention: {py_counts}")
+    if prof["kernel_launches"] or prof["graph_launches"] != 2:
+        raise AssertionError(f"training: a steady step launched "
+                             f"{prof['kernel_launches'] / 2} kernels from the "
+                             f"host and {prof['graph_launches'] / 2} graphs")
     tokens_per_step = batch * seq_len
+    flops = cfg.flops_per_token() * tokens_per_step
+    eager_dt = float(np.mean(eager_s[1:]))
     result = {"preset": preset, "batch": batch, "seq_len": seq_len,
-              "steps": steps, "trained_steps": warmup + steps,
+              "steps": steps,
+              "trained_steps": eager_steps + warmup + steps + 2,
               "step_ms": dt * 1e3,
               "tokens_per_s": tokens_per_step / dt,
-              "mfu": cfg.flops_per_token() * tokens_per_step / dt
-              / PEAK_FLOPS[torch.bfloat16],
+              "mfu": flops / dt / PEAK_FLOPS[torch.bfloat16],
+              "eager_step_ms": eager_dt * 1e3,
+              "eager_tokens_per_s": tokens_per_step / eager_dt,
+              "eager_mfu": flops / eager_dt / PEAK_FLOPS[torch.bfloat16],
               "losses": losses, "peak_memory_gb": peak_gb,
-              "launches": counts}
+              "eager_peak_memory_gb": eager_peak_gb,
+              "kernels_per_step": prof["kernels"] / 2,
+              "host_kernel_launches_per_step": prof["kernel_launches"] / 2,
+              "train_step": jit, "launches": counts}
     log("training: " + json.dumps(result))
     del opt, train
     free_memory()
@@ -991,6 +1064,470 @@ def phase_training_parity_bf16(dev, preset="gpt3-1.3B", n_layer=2,
         raise AssertionError(f"bf16 parity: loss {loss_err:.3e} or grad "
                              f"{worst} {rel[worst]:.3e} out of bounds")
     return {"loss": loss_err, "grad": rel[worst]}
+
+
+# ------------------------------------------- recompute and the step graph --
+# bench.py's recompute ladder: name -> GPTConfig overrides
+RECOMPUTE = {"none": {},
+             "full": dict(use_recompute=True),
+             "dots": dict(use_recompute=True, recompute_policy="dots"),
+             "attn": dict(use_recompute=True, recompute_policy="attn"),
+             "dots_attn": dict(use_recompute=True,
+                               recompute_policy="dots_attn")}
+# K1 launches per layer per step: the policies that keep the attention's
+# output run it once, full recompute and "dots" twice
+K1_PER_LAYER = {"none": 1, "full": 2, "dots": 2, "attn": 1, "dots_attn": 1}
+
+
+def phase_recompute(dev, preset="gpt3-1.3B", batch=4, seq_len=2048,
+                    warmup=2, steps=3):
+    """10: each recompute policy at full width and depth (bf16, batch 4 x
+    2048, seed-0 weights, AdamW with master weights) through
+    ``TrainStep``: ``warmup`` calls (eager; capture and replay), then
+    ``steps`` timed replays. Checks: the loss finite and falling, one
+    capture, and per step on the card's count K1 n_layer times
+    ``K1_PER_LAYER`` and K2, K3 n_layer times; full recompute's peak memory
+    below ``none``'s. Reports step time, MFU and peak memory per policy."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    out = {}
+    for name, over in RECOMPUTE.items():
+        free_memory()
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg, model, opt, train, tokens, labels = training_setup(
+            dev, preset, batch, seq_len, **over)
+        registry.reset("jit")
+        losses = [float(train(tokens, labels)) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        fa.reset_device_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss = train(tokens, labels)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        losses.append(float(loss))
+        counts = flash_device_counts()
+        per_step = {k: v / steps for k, v in counts.items()}
+        want = {"flash_fwd": K1_PER_LAYER[name] * cfg.n_layer,
+                "flash_bwd_dq": cfg.n_layer, "flash_bwd_dkv": cfg.n_layer}
+        jit = dict(registry.counters("jit"))
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"recompute {name}: losses {losses}")
+        if per_step != want or jit["train_step_captures"] != 1:
+            raise AssertionError(f"recompute {name}: launches per step "
+                                 f"{per_step}, want {want}; {jit}")
+        out[name] = {"step_ms": dt * 1e3,
+                     "mfu": cfg.flops_per_token() * batch * seq_len / dt
+                     / PEAK_FLOPS[torch.bfloat16],
+                     "peak_memory_gb":
+                         torch.cuda.max_memory_allocated(dev) / 1e9,
+                     "losses": losses, "launches_per_step": per_step}
+        log(f"recompute {name}: " + json.dumps(out[name]))
+        del model, opt, train
+    free_memory()
+    if not out["full"]["peak_memory_gb"] < out["none"]["peak_memory_gb"]:
+        raise AssertionError(
+            f"recompute: full recompute's peak "
+            f"{out['full']['peak_memory_gb']:.2f} GB is not below none's "
+            f"{out['none']['peak_memory_gb']:.2f}")
+    return out
+
+
+def phase_recompute_parity(dev, preset="gpt3-1.3B", n_layer=2, batch=2,
+                           seq_len=2048, tol=(1e-5, 1e-5)):
+    """10: each policy at full width and 2 layers in float32 (seed-0
+    weights), one forward and backward: the loss and every gradient
+    within ``tol`` of the ``none`` run's (the recomputation repeats the
+    same kernels), and whether they are bitwise equal."""
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+
+    runs, report = {}, {}
+    for name, over in RECOMPUTE.items():
+        model = build_gpt(dev, 0, preset, n_layer=n_layer, seq_len=seq_len,
+                          **over)
+        tokens, labels = token_batch(dev, model, batch, seq_len, seed=1)
+        loss = GPTPretrainingCriterion()(model(tokens), labels)
+        loss.backward()
+        runs[name] = (loss.detach(), [p.grad for p in model.parameters()])
+        del model
+        if name == "none":
+            continue
+        (l0, g0), (l1, g1) = runs["none"], runs[name]
+        err = max([check_close(l1, l0, tol, f"recompute {name} loss")]
+                  + [check_close(b, a, tol, f"recompute {name} grad")
+                     for a, b in zip(g0, g1)])
+        report[name] = {"max_abs_err": err, "bitwise": bool(
+            torch.equal(l0, l1) and all(torch.equal(a, b)
+                                        for a, b in zip(g0, g1)))}
+        runs.pop(name)
+    log(f"recompute parity (float32, {n_layer} layers, batch {batch} x "
+        f"{seq_len}, against none, tol {tol}): {json.dumps(report)}")
+    free_memory()
+    return report
+
+
+def token_batch(dev, model, batch, seq_len, seed):
+    """Random tokens from ``seed`` over ``model``'s vocabulary and their
+    next-token labels, on the card."""
+    toks = np.random.default_rng(seed).integers(
+        0, model.gpt.cfg.vocab_size, (batch, seq_len))
+    return (torch.from_numpy(toks).to(dev),
+            torch.from_numpy(np.roll(toks, -1, axis=1)).to(dev))
+
+
+def recipe_setup(dev, seed, preset="gpt3-1.3B", n_layer=2, seq_len=2048,
+                 attn_dropout=0.0):
+    """The GPT-3 pretraining recipe at ``preset``'s width: AdamW with master
+    weights and decoupled decay on every weight but biases and LayerNorms,
+    a linear warm-up into a cosine decay (stepped by the caller between
+    steps), a global-norm clip of 1.0. Returns ``(model, opt, sched,
+    step_fn)``."""
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    model = build_gpt(dev, seed, preset, n_layer=n_layer, seq_len=seq_len,
+                      dtype="bfloat16", dropout=0.0,
+                      attn_dropout=attn_dropout)
+    sched = LinearWarmup(CosineAnnealingDecay(3e-4, T_max=8, eta_min=3e-5),
+                         warmup_steps=2, start_lr=1e-4, end_lr=3e-4)
+    opt = AdamW(learning_rate=sched, weight_decay=0.1, multi_precision=True,
+                parameters=list(model.named_parameters()),
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                apply_decay_param_fun=lambda n: not (
+                    n.endswith(".bias") or ".ln" in n))
+    crit = GPTPretrainingCriterion()
+
+    def step_fn(tokens, labels):
+        loss = crit(model(tokens), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, sched, step_fn
+
+
+class DropoutRecorder:
+    """Test instrumentation: ``ops.attention.output_dropout`` wrapped to
+    keep the input and output of each call made while a CUDA graph
+    captures; replays rewrite those tensors in place."""
+
+    def __init__(self):
+        from paddle_tpu_torch.ops import attention
+
+        self.mod, self.orig, self.calls = attention, \
+            attention.output_dropout, []
+
+    def __enter__(self):
+        def rec(out, p, training, generator=None):
+            res = self.orig(out, p, training, generator)
+            if torch.cuda.is_current_stream_capturing():
+                self.calls.append((out, res, p))
+            return res
+
+        self.mod.output_dropout = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.output_dropout = self.orig
+
+
+def optimizer_cases():
+    """(label, optimizer class name, keyword arguments) for phase 10b's
+    captured-step check: every optimizer, regularizer and clip of the
+    port beside AdamW's recipe, on dense gradients (sparse rows and
+    ``lazy_mode`` are eager-only on the card: ``refusals`` checks that
+    ``TrainStep`` refuses them)."""
+    from paddle_tpu_torch import nn as N
+    from paddle_tpu_torch import regularizer as R
+
+    return [("SGD", "SGD", dict(learning_rate=0.1)),
+            ("Momentum", "Momentum", dict(learning_rate=0.1)),
+            ("Momentum nesterov", "Momentum",
+             dict(learning_rate=0.1, use_nesterov=True)),
+            ("Lars", "Lars", dict(learning_rate=0.5, lars_coeff=0.01)),
+            ("Adamax", "Adamax", dict(learning_rate=0.01)),
+            ("Adagrad", "Adagrad", dict(learning_rate=0.05)),
+            ("Adadelta", "Adadelta", dict(learning_rate=1.0)),
+            ("RMSProp centered", "RMSProp",
+             dict(learning_rate=0.01, momentum=0.5, centered=True)),
+            ("Lamb", "Lamb", dict(learning_rate=0.01)),
+            ("SGD + L1Decay", "SGD", dict(learning_rate=0.1,
+                                          weight_decay=R.L1Decay(0.01))),
+            ("Momentum + L2Decay", "Momentum",
+             dict(learning_rate=0.1, weight_decay=R.L2Decay(0.01))),
+            ("Adagrad + ClipGradByValue", "Adagrad",
+             dict(learning_rate=0.05, grad_clip=N.ClipGradByValue(0.01))),
+            ("RMSProp + ClipGradByNorm", "RMSProp",
+             dict(learning_rate=0.01, grad_clip=N.ClipGradByNorm(0.1)))]
+
+
+def captured_equals_eager(dev, label, cls, kw, steps=3):
+    """A small MLP under ``cls(**kw)`` (its first weight at half the rate),
+    ``steps`` calls of ``TrainStep`` (eager, capture and replay, replay)
+    against the same ``step_fn`` run eagerly: parameters and slots bitwise
+    equal."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.jit import TrainStep
+
+    x = torch.randn(64, 256, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+
+    def build():
+        torch.manual_seed(0)
+        net = torch.nn.Sequential(torch.nn.Linear(256, 512),
+                                  torch.nn.GELU(),
+                                  torch.nn.Linear(512, 256)).to(dev)
+        net[0].weight.optimize_attr = {"learning_rate": 0.5}
+        opt = getattr(O, cls)(parameters=net.parameters(), **kw)
+
+        def step_fn(inp):
+            loss = (net(inp) - inp).square().mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        return net, opt, step_fn
+
+    ng, og, fg = build()
+    ne, oe, fe = build()
+    train = TrainStep(fg, ng, og)
+    for _ in range(steps):
+        train(x)
+        fe(x)
+    torch.cuda.synchronize()
+    sg, se = og.state_dict(), oe.state_dict()
+    same = all(torch.equal(a, b) for a, b in
+               zip(ng.parameters(), ne.parameters())) and \
+        sorted(sg) == sorted(se) and all(
+            torch.equal(sg[k], se[k]) if isinstance(sg[k], torch.Tensor)
+            else sg[k] == se[k] for k in sg)
+    if not same:
+        raise AssertionError(f"recipe: {label}: {steps} TrainStep calls "
+                             "differ from the eager step")
+    return len(sg) - 1
+
+
+def refusals(dev):
+    """A ``step_fn`` that reads the host is refused from its first call,
+    twice, with nothing captured; a sparse embedding is refused when the
+    step is built; then a good step still captures and replays in this
+    process (no capture was left invalidated). Returns the messages."""
+    from paddle_tpu_torch import optimizer as O
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import registry
+
+    lin = torch.nn.Linear(64, 64).to(dev)
+    opt = O.SGD(0.1, parameters=lin.parameters())
+
+    def reads_host(x):
+        loss = lin(x).square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if float(loss) > 1e9:
+            print("large")
+        return loss
+
+    registry.reset("jit")
+    x = torch.ones(8, 64, device=dev)
+    step, said = TrainStep(reads_host, lin, opt), {}
+    for _ in range(2):
+        try:
+            step(x)
+        except RuntimeError as e:
+            if "could not be captured" not in str(e):
+                raise
+            said["host_read"] = str(e)[:120]
+        else:
+            raise AssertionError("refusals: a step that reads the host ran")
+    emb = torch.nn.Embedding(64, 64, sparse=True).to(dev)
+    try:
+        TrainStep(reads_host, emb, O.Adam(0.1, parameters=emb.parameters(),
+                                          lazy_mode=True))
+    except ValueError as e:
+        said["sparse"] = str(e)[:120]
+    else:
+        raise AssertionError("refusals: TrainStep took a sparse embedding")
+    if registry.counters("jit")["train_step_captures"]:
+        raise AssertionError("refusals: a refused step was captured")
+    captured_equals_eager(dev, "SGD after the refusals", "SGD",
+                          dict(learning_rate=0.1))
+    return said
+
+
+def phase_recipe_graph(dev, preset="gpt3-1.3B", n_layer=2, batch=4,
+                       seq_len=2048, steps=4, p=0.1):
+    """10b: the GPT-3 recipe (``recipe_setup``) at full width, 2 layers,
+    bf16. Without dropout, ``steps`` ``TrainStep`` calls give losses,
+    parameters and optimizer slots bitwise equal to the same ``step_fn``
+    in an eager loop, the scheduler stepped between calls on both sides
+    (a rate baked in at capture would break it from the third step). With
+    attention dropout ``p``, each replay's masks (read from the graph's
+    own tensors, layer 0) keep ``1 - p`` of the outputs within 0.01,
+    scale the kept ones by ``1 / (1 - p)`` exactly, and differ from the
+    replay before. Then every optimizer, regularizer and clip of the
+    port: a captured step equals its eager step (``optimizer_cases``),
+    and the steps ``TrainStep`` cannot capture are refused (``refusals``)."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import registry
+
+    runs = []
+    for graph in (True, False):
+        model, opt, sched, step_fn = recipe_setup(dev, 0, preset, n_layer,
+                                                  seq_len)
+        tokens, labels = token_batch(dev, model, batch, seq_len, seed=2)
+        train = TrainStep(step_fn, model, opt) if graph else step_fn
+        registry.reset("jit")
+        losses, rates = [], []
+        for _ in range(steps):
+            rates.append(sched())
+            losses.append(train(tokens, labels).detach().float())
+            sched.step()
+        torch.cuda.synchronize()
+        runs.append((losses, rates, list(model.parameters()),
+                     opt.state_dict(), dict(registry.counters("jit"))))
+        del train, step_fn
+    (lg, rg, pg, sg, jit), (le, re_, pe, se, _) = runs
+    same = (all(torch.equal(a, b) for a, b in zip(lg, le))
+            and all(torch.equal(a, b) for a, b in zip(pg, pe))
+            and all(torch.equal(sg[k], se[k]) for k in sg
+                    if isinstance(sg[k], torch.Tensor)))
+    if not same or rg != re_ or len(set(rg)) != steps or \
+            jit["train_step_captures"] != 1:
+        raise AssertionError(f"recipe: graph losses {lg} vs eager {le} "
+                             f"(bitwise equal: {same}), rates {rg}, {jit}")
+    del runs, pg, pe, sg, se
+    free_memory()
+    result = {"losses": [float(x) for x in lg], "rates": rg,
+              "bitwise": True}
+
+    model, opt, sched, step_fn = recipe_setup(dev, 0, preset, n_layer,
+                                              seq_len, attn_dropout=p)
+    train = TrainStep(step_fn, model, opt)
+    with DropoutRecorder() as rec:
+        train(tokens, labels)
+        train(tokens, labels)  # captured here
+    if len(rec.calls) != n_layer:
+        raise AssertionError(f"recipe: {len(rec.calls)} dropout calls "
+                             f"captured, want {n_layer}")
+    inp, out, _ = rec.calls[0]
+    masks, rates = [], []
+    for i in range(3):
+        if i:
+            train(tokens, labels)
+        torch.cuda.synchronize()
+        keep = out != 0
+        rates.append(float(keep.float().mean()))
+        want = torch.where(keep, inp / (1.0 - p), torch.zeros_like(inp))
+        if abs(rates[-1] - (1 - p)) > 0.01 or not torch.equal(out, want):
+            raise AssertionError(f"recipe: replay {i}: keep rate "
+                                 f"{rates[-1]:.4f} or the scale is off")
+        masks.append(keep.clone())
+    changed = [float((a != b).float().mean())
+               for a, b in zip(masks, masks[1:])]
+    if min(changed) < p:
+        raise AssertionError(f"recipe: replays share their dropout masks "
+                             f"(changed fractions {changed})")
+    result["dropout"] = {"keep_rates": rates, "mask_changed": changed}
+    del model, opt, train, rec, inp, out, masks
+    free_memory()
+
+    result["optimizers"] = {label: captured_equals_eager(dev, label, cls, kw)
+                            for label, cls, kw in optimizer_cases()}
+    result["refusals"] = refusals(dev)
+    log(f"recipe (graph, {preset} width, {n_layer} layers, bf16): "
+        + json.dumps(result))
+    return result
+
+
+def phase_recapture(dev, preset="gpt3-1.3B", n_layer=2, batch=2,
+                    seq_len=1024, steps=5):
+    """10c: ``mutate_signature:nth=2,mode=aval`` armed over ``steps`` calls
+    of the recipe (no dropout) captures once more than an unarmed run,
+    with bitwise the same losses. Then a restore taken after 3 steps that
+    rebinds every parameter's storage (``p.data = ...``; the optimizer's
+    slots and the schedule restored in place) makes the next call capture
+    again, and the 2 steps after it equal the 2 the run took from there,
+    losses and parameters bitwise."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.testing import faults
+
+    def setup():
+        model, opt, sched, step_fn = recipe_setup(dev, 0, preset, n_layer,
+                                                  seq_len)
+        registry.reset("jit")
+        return model, opt, sched, TrainStep(step_fn, model, opt)
+
+    def steps_of(run, n):
+        model, _, sched, train = run
+        tokens, labels = token_batch(dev, model, batch, seq_len, seed=3)
+        losses = []
+        for _ in range(n):
+            losses.append(train(tokens, labels).float())
+            sched.step()
+        return losses
+
+    def captures():
+        return registry.counters("jit")["train_step_captures"]
+
+    runs = {}
+    for spec in (None, "mutate_signature:nth=2,mode=aval"):
+        run = setup()
+        try:
+            if spec:
+                faults.configure(spec)
+            losses = steps_of(run, steps)
+        finally:
+            faults.reset()
+        runs[spec] = (losses, captures())
+        del run
+        free_memory()
+    (plain, plain_caps), (armed, armed_caps) = runs.values()
+    if armed_caps != plain_caps + 1 or not all(
+            torch.equal(a, b) for a, b in zip(plain, armed)):
+        raise AssertionError(f"recapture: armed {armed_caps} captures, "
+                             f"losses {armed}; unarmed {plain_caps}, "
+                             f"{plain}")
+
+    run = setup()
+    model, opt, sched, _ = run
+    steps_of(run, 3)
+    snap = ([p.detach().clone() for p in model.parameters()],
+            {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in opt.state_dict().items()},
+            sched.state_dict(), sched.lr_sched.state_dict())
+    want = steps_of(run, 2)
+    want_params = [p.detach().clone() for p in model.parameters()]
+    before = captures()
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), snap[0]):
+            p.data = v.clone()
+    opt.set_state_dict(snap[1])
+    sched.set_state_dict(snap[2])
+    sched.lr_sched.set_state_dict(snap[3])
+    got = steps_of(run, 2)
+    recaptured = captures() - before
+    same = all(torch.equal(a, b) for a, b in zip(got, want)) and all(
+        torch.equal(a, b) for a, b in zip(model.parameters(), want_params))
+    if recaptured != 1 or not same:
+        raise AssertionError(f"recapture: after a rebinding restore "
+                             f"{recaptured} captures, losses {got} vs "
+                             f"{want} (parameters equal: {same})")
+    result = {"mutate_signature_captures": [plain_caps, armed_caps],
+              "losses": [float(x) for x in plain],
+              "restore_recaptures": recaptured,
+              "resumed_losses": [float(x) for x in got]}
+    log("recapture: " + json.dumps(result))
+    del run, model, opt, snap
+    free_memory()
+    return result
 
 
 # --------------------------------------------------------- train -> serve --
@@ -2876,12 +3413,13 @@ def phase_moe_spec(dev, plain, preset="gpt3-1.3B"):
 
 
 def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
-                       seq_len=2048, steps=3):
+                       seq_len=2048, steps=4):
     """9c: the MoE model (``MOE``, full width, 4 layers, 2 of them MoE)
     trained through ``TrainStep`` + AdamW with master weights on one
-    batch of 4 x 2048, loss + ``moe_aux_loss()``: the loss and the aux
-    loss finite, the loss falling, K1-K3 launched once per layer per
-    step and the plain attention never."""
+    batch of 4 x 2048, loss + ``moe_aux_loss()`` (the first step eager,
+    the second captured and replayed, the rest replays): the loss and
+    the aux loss finite, the loss falling, K1-K3 launched once per layer
+    per step on the card's count and the plain attention never."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.profiler import registry
 
@@ -2895,6 +3433,7 @@ def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     registry.reset("kernels")
+    fa.reset_device_launches()
     losses, auxes, times = [], [], []
     for _ in range(steps):
         t1 = time.perf_counter()
@@ -2903,7 +3442,8 @@ def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
         times.append(time.perf_counter() - t1)
         losses.append(float(loss.detach()))
         auxes.append(float(model.moe_aux_loss().detach()))
-    counts = fa.launches()
+    counts = dict(flash_device_counts(), flash_attention_ref=fa.launches()[
+        "flash_attention_ref"])
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if not (all(np.isfinite(losses)) and all(np.isfinite(auxes))) or \
             not losses[-1] < losses[0]:
@@ -2919,9 +3459,9 @@ def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
               "parameters": n_params, "batch": batch, "seq_len": seq_len,
               "losses": losses, "aux_losses": auxes,
               "step_ms": [t * 1e3 for t in times],
-              "step_ms_after_first": sorted(times[1:])[len(times[1:]) // 2]
+              "replay_step_ms": sorted(times[2:])[len(times[2:]) // 2]
               * 1e3,
-              "tokens_per_s": batch * seq_len / min(times[1:]),
+              "tokens_per_s": batch * seq_len / min(times[2:]),
               "peak_memory_gb": peak_gb, "launches": counts}
     log("moe training: " + json.dumps(result))
     del model, opt, train
@@ -3125,10 +3665,16 @@ def main():
     phase_training_parity(dev)
     phase_training_parity_bf16(dev)
     moe_trained = phase_moe_training(dev)
+    policies = phase_recompute(dev)
+    policy_parity = phase_recompute_parity(dev)
+    recipe = phase_recipe_graph(dev)
+    recaptured = phase_recapture(dev)
     for name, row in flash.items():
         row["launches_by_path"] = {
             "training": trained["launches"][name],
-            "moe training": moe_trained["launches"][name]}
+            "moe training": moe_trained["launches"][name],
+            **{f"recompute {pol} (per step)": r["launches_per_step"][name]
+               for pol, r in policies.items()}}
     log(f"serving on {smi}: {served['tokens_per_s']:.1f} tokens/s, p50 TTFT "
         f"{served['ttft_p50_ms']:.1f} ms, p50 decode step "
         f"{served['decode_step_p50_ms']:.2f} ms (CUDA graph)")
@@ -3183,9 +3729,27 @@ def main():
         f"{moe_spec['round_p50_ms']:.2f} ms; dense spec p50 TTFT "
         f"{spec['ttft_p50_ms']:.1f} ms with drafter prefill graphs "
         f"{json.dumps(spec['draft_prefill_buckets'])}")
+    log(f"training graph on {smi}: step {trained['step_ms']:.1f} ms "
+        f"(graph) / {trained['eager_step_ms']:.1f} ms (eager loop), MFU "
+        f"{trained['mfu']:.4f} / {trained['eager_mfu']:.4f}, peak memory "
+        f"{trained['peak_memory_gb']:.1f} / "
+        f"{trained['eager_peak_memory_gb']:.1f} GB, "
+        f"{trained['host_kernel_launches_per_step']:.0f} kernels launched "
+        f"from the host per step")
+    log(f"recompute on {smi}: " + ", ".join(
+        f"{pol} {r['step_ms']:.1f} ms MFU {r['mfu']:.4f} peak "
+        f"{r['peak_memory_gb']:.1f} GB K1 "
+        f"{r['launches_per_step']['flash_fwd']:.0f}/step"
+        for pol, r in policies.items())
+        + f"; float32 parity against none {json.dumps(policy_parity)}")
+    log(f"recipe on {smi}: graph == eager bitwise over "
+        f"{len(recipe['losses'])} steps, rates {recipe['rates']}; dropout "
+        f"{json.dumps(recipe['dropout'])}; {len(recipe['optimizers'])} "
+        f"optimizer cases captured == eager; recapture "
+        f"{json.dumps(recaptured)}")
     log(f"moe training on {smi}: {moe_trained['n_layer']} layers, batch "
         f"{moe_trained['batch']} x {moe_trained['seq_len']}: step "
-        f"{moe_trained['step_ms_after_first']:.1f} ms after the first, "
+        f"{moe_trained['replay_step_ms']:.1f} ms (graph replay), "
         f"losses {moe_trained['losses']}, peak memory "
         f"{moe_trained['peak_memory_gb']:.1f} GB")
     log(f"total {time.perf_counter() - t_start:.1f} s")

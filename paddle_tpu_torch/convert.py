@@ -4,7 +4,7 @@
 as ``{name: numpy array}``, or the path of a ``paddle_tpu.framework.save``
 pickle of it — into ``{name: torch.Tensor}`` named like the port's modules;
 ``load_paddle_tpu_state`` checks it against a port model and copies it in.
-``optimizer_state_from_paddle_tpu`` does the same for an Adam/AdamW state.
+``optimizer_state_from_paddle_tpu`` does the same for an optimizer's state.
 The other way, ``state_to_paddle_tpu`` and ``optimizer_state_to_paddle_tpu``
 give a port model's and optimizer's state in the reference's names and
 layout (what ``incubate.checkpoint`` writes).
@@ -103,29 +103,37 @@ def load_paddle_tpu_state(model, np_state):
     return model
 
 
+def _linear_weight_ids(model):
+    return {id(mod.weight) for mod in model.modules()
+            if isinstance(mod, nn.Linear)}
+
+
 def optimizer_state_from_paddle_tpu(np_opt_state, optimizer, model):
-    """A state dict for ``optimizer.set_state_dict`` from a reference Adam or
-    AdamW ``state_dict()`` (slots as arrays or tensor-likes).
+    """A state dict for ``optimizer.set_state_dict`` from the reference's
+    ``state_dict()`` of the same optimizer class (slots as arrays or
+    tensor-likes): any of SGD, Momentum, Lars, Adam, AdamW, Adamax,
+    Adagrad, Adadelta, RMSProp and Lamb.
 
     Slot ``"<acc>/p<i>"`` belongs to parameter ``i`` of ``optimizer``, which
-    must list ``model``'s parameters in the reference's order. Every
-    parameter needs ``moment1`` and ``moment2``, and ``master_weight`` when
-    the optimizer keeps one for it (``multi_precision`` and a non-float32
-    parameter). Slots of a Linear weight are transposed from ``[in, out]``
-    to ``[out, in]`` as the weight itself is; ``model`` says which
-    parameters those are, since a square weight cannot be told by its
-    shape. ``_opt_step`` and ``LR_Scheduler`` are carried as they are.
-    Raises ``KeyError`` for a missing or an extra slot and ``ValueError``
-    for a mis-shaped one."""
+    must list the parameters in the reference's order. Every parameter
+    that takes gradients needs every slot the optimizer keeps for it
+    (``optimizer._slots``: Adam's ``moment1`` and ``moment2``, and
+    ``master_weight`` where it keeps one; Momentum's ``velocity``; ...),
+    each cast to that slot's dtype. Slots of a Linear weight of ``model``
+    are transposed from ``[in, out]`` to ``[out, in]`` as the weight itself
+    is; ``model`` says which parameters those are, since a square weight
+    cannot be told by its shape.
+    ``_opt_step`` and ``LR_Scheduler`` are carried as they are. Raises
+    ``KeyError`` for a missing or an extra slot and ``ValueError`` for a
+    mis-shaped one."""
     params = optimizer._parameter_list
-    linear = {id(mod.weight) for mod in model.modules()
-              if isinstance(mod, nn.Linear)}
+    linear = _linear_weight_ids(model)
     want = {}
     for i, p in enumerate(params):
-        names = ["moment1", "moment2"]
-        if optimizer._uses_master(p):
-            names.append("master_weight")
-        want.update({f"{n}/p{i}": i for n in names})
+        if p is None or not p.requires_grad:
+            continue
+        want.update({f"{name}/p{i}": (i, dtype)
+                     for name, dtype, _ in optimizer._slots(p)})
     given = {k for k in np_opt_state if k not in ("_opt_step",
                                                    "LR_Scheduler")}
     missing, extra = sorted(set(want) - given), sorted(given - set(want))
@@ -136,7 +144,7 @@ def optimizer_state_from_paddle_tpu(np_opt_state, optimizer, model):
     out = {"_opt_step": int(np_opt_state.get("_opt_step", 0))}
     if "LR_Scheduler" in np_opt_state:
         out["LR_Scheduler"] = dict(np_opt_state["LR_Scheduler"])
-    for key, i in want.items():
+    for key, (i, dtype) in want.items():
         p = params[i]
         arr = _leaf(np_opt_state[key])
         if id(p) in linear:
@@ -148,7 +156,7 @@ def optimizer_state_from_paddle_tpu(np_opt_state, optimizer, model):
                              + (" (after the [in, out] -> [out, in] "
                                 "transpose)" if id(p) in linear else ""))
         out[key] = torch.from_numpy(np.array(arr, np.float32, order="C")).to(
-            p.device)
+            device=p.device, dtype=dtype)
     return out
 
 
@@ -167,10 +175,9 @@ def optimizer_state_to_paddle_tpu(optimizer, model):
     """``optimizer.state_dict()`` in the reference's layout: the slots of a
     Linear weight of ``model`` transposed to ``[in, out]`` as the weight
     is. Keys (``"<accumulator>/p<i>"``, ``_opt_step``, ``LR_Scheduler``)
-    are the reference's already."""
+    are the reference's already, for every optimizer of the port."""
     params = optimizer._parameter_list
-    linear = {id(mod.weight) for mod in model.modules()
-              if isinstance(mod, nn.Linear)}
+    linear = _linear_weight_ids(model)
     out = {}
     for key, value in optimizer.state_dict().items():
         if isinstance(value, torch.Tensor):

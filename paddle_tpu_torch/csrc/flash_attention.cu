@@ -117,6 +117,18 @@ using namespace nvcuda;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 
+// Launches per kernel (0 K1, 1 K2, 2 K3) and dtype (0 float32, 1 bf16),
+// counted on the card by the first thread of block (0, 0): a launch
+// replayed from a CUDA graph counts too, where a count kept on the host
+// moves only at capture. Slot 2 x kernel + dtype.
+constexpr int kTallies = 6;
+__device__ unsigned long long g_launch_tally[kTallies];
+
+__device__ __forceinline__ void count_launch(int kernel, int bf16) {
+  if ((blockIdx.x | blockIdx.y) == 0 && threadIdx.x == 0)
+    atomicAdd(&g_launch_tally[2 * kernel + bf16], 1ull);
+}
+
 template <typename T>
 struct Elem;
 
@@ -289,6 +301,7 @@ __device__ void mm(float* C, int ldc, const T* A, int lda, const T* B,
 // ------------------------------------------------------------------ K1 --
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
+  count_launch(0, sizeof(T) == 2);
   using C = Cfg<T, H>;
   constexpr int BLK = C::BLK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -389,6 +402,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Params p) {
 // ------------------------------------------------------------------ K2 --
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+  count_launch(1, sizeof(T) == 2);
   using C = Cfg<T, H>;
   constexpr int BLK = C::BLK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -465,6 +479,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
 // ------------------------------------------------------------------ K3 --
 template <typename T, int H>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+  count_launch(2, sizeof(T) == 2);
   using C = Cfg<T, H>;
   constexpr int BLK = C::BLK;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -647,6 +662,7 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[STEPS][4],
 template <int H>
 __global__ void __launch_bounds__(384, 1)
     flash_fwd_kernel_sm90(const __grid_constant__ HopperArgs args) {
+  count_launch(0, 1);
   using namespace hopper;
   using C = FwdCfg<H>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES;
@@ -820,6 +836,7 @@ __global__ void __launch_bounds__(384, 1)
 template <int H>
 __global__ void __launch_bounds__(384, 1)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ HopperArgs args) {
+  count_launch(1, 1);
   using namespace hopper;
   using C = DqCfg<H>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES;
@@ -990,6 +1007,7 @@ __global__ void __launch_bounds__(384, 1)
 template <int H>
 __global__ void __launch_bounds__(256, 2)
     flash_bwd_dkv_kernel_sm90(const __grid_constant__ HopperArgs args) {
+  count_launch(2, 1);
   using namespace hopper;
   using C = DkvCfg<H>;
   constexpr int BK = C::BK, BQ = C::BQ, CH = C::CH, STAGES = C::STAGES;
@@ -1418,4 +1436,23 @@ extern "C" int flash_attention_smem(int kind, int dtype, int H) {
   if (dtype == 0) return smem_h<float>(kind, H);
   if (dtype == 1) return smem_h<__nv_bfloat16>(kind, H);
   return -1;
+}
+
+// The launch tally (g_launch_tally): its number of slots, a copy of the
+// counts into out[kTallies] and a reset to zero; the last two wait for the
+// card first and return a cudaError_t.
+extern "C" int flash_attention_tally_slots() { return kTallies; }
+
+extern "C" int flash_attention_launch_tally(unsigned long long* out) {
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return int(err);
+  return int(cudaMemcpyFromSymbol(out, g_launch_tally,
+                                  sizeof(g_launch_tally)));
+}
+
+extern "C" int flash_attention_reset_tally() {
+  const unsigned long long zero[kTallies] = {};
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) return int(err);
+  return int(cudaMemcpyToSymbol(g_launch_tally, zero, sizeof(zero)));
 }

@@ -28,9 +28,8 @@ import warnings
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
-
 from ..device import resolve_device
+from ..distributed.fleet.utils import recompute, recompute_policy_fn
 from ..nn.moe import MoEMLP, validate_moe_config
 from ..ops.attention import (attention, output_dropout,
                              scaled_dot_product_attention)
@@ -90,9 +89,9 @@ class GPTConfig:
         self.attn_dropout = attn_dropout
         self.dtype = dtype
         # use_recompute recomputes each block's forward in the backward
-        # when training; only recompute_policy=None (save nothing, the
-        # reference's full remat) is ported, a named policy is refused
-        # when a model is built from this config
+        # when training, keeping what recompute_policy names (None: full
+        # recompute; "dots", "attn", "dots_attn" or a callable: see
+        # distributed.fleet.utils.recompute)
         self.use_recompute = use_recompute
         self.recompute_policy = recompute_policy
         self.initializer_range = initializer_range
@@ -289,6 +288,8 @@ class GPTBlock(nn.Module):
             self.mlp = GPTMLP(cfg)
         self.dropout = nn.Dropout(cfg.dropout)
         self.recompute = cfg.use_recompute
+        self.recompute_policy = cfg.recompute_policy
+        recompute_policy_fn(cfg.recompute_policy)  # refuses unknown names
 
     def _forward(self, x, cache=None, paged=None, slot=None, moe_rows=False):
         """The block's output; with an older cache form (``cache`` and no
@@ -314,13 +315,26 @@ class GPTBlock(nn.Module):
                              moe_rows=moe_rows)
 
     def _recomputed(self, x):
-        """The block under ``torch.utils.checkpoint``: its activations are
-        dropped after the forward and recomputed in the backward. The
-        checkpoint replays torch's default generators itself; the
-        attention's own generator is rewound here, so the recomputation
+        """The block under :func:`~paddle_tpu_torch.distributed.fleet.utils.
+        recompute` with ``recompute_policy``: its activations, less what the
+        policy keeps, are dropped after the forward and recomputed in the
+        backward. The checkpoint replays torch's default generators itself;
+        the attention's own generator is rewound here, so the recomputation
         draws the same dropout masks, and then put back where the forward
         left it. An MoE MLP's ``aux_loss`` and ``last_stats`` stay the
-        first forward's: the recomputation's are put back."""
+        first forward's: the recomputation's are put back.
+
+        Under CUDA-graph capture no generator's state can be read, so a
+        recomputed block with dropout raises there."""
+        dropout = self.attn.dropout_p > 0.0 or any(
+            m.p > 0.0 for m in self.modules() if isinstance(m, nn.Dropout))
+        if dropout and x.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a recomputed GPTBlock with dropout cannot be captured in a "
+                "CUDA graph: the recomputation must replay the dropout "
+                "masks, and no generator state can be read under capture; "
+                "train with dropout 0, or without use_recompute, under "
+                "jit.TrainStep on the card")
         gen = self.attn.generator if self.attn.dropout_p > 0.0 else None
         start = gen.get_state() if gen is not None else None
         moe = self.mlp if isinstance(self.mlp, MoEMLP) else None
@@ -342,7 +356,7 @@ class GPTBlock(nn.Module):
                 if moe:
                     moe.aux_loss, moe.last_stats = kept
 
-        return checkpoint(run, x, use_reentrant=False)
+        return recompute(run, x, policy=self.recompute_policy)
 
 
 class GPTEmbeddings(nn.Module):
@@ -382,11 +396,6 @@ class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None, generator=None,
                  attn_kernel=None):
         super().__init__()
-        if cfg.recompute_policy is not None:
-            raise NotImplementedError(
-                f"recompute_policy={cfg.recompute_policy!r}: only full "
-                "recompute (recompute_policy=None) is ported; the named "
-                "policies are not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
         self.attn_kernel = select_flash_kernel(

@@ -39,10 +39,13 @@ class MoEMLP(nn.Module):
 
     The forward's load-balancing loss lands on ``aux_loss`` and its
     routing stats on ``last_stats`` (read them in the same step; see
-    ``nn.moe.metrics``). A forward that a CUDA graph is capturing leaves
-    both as they were: the graph's outputs live in its memory pool, which
-    other graphs' replays overwrite. Built alone, the banks are drawn
-    from torch's default generator (Normal ``init_std`` for ``w1``,
+    ``nn.moe.metrics``). An inference forward (no autograd) that a CUDA
+    graph is capturing leaves both as they were: the graph's outputs live
+    in its memory pool, which other graphs' replays overwrite. A training
+    forward under capture (``jit.TrainStep``) sets them, since the step
+    adds ``aux_loss`` to its loss: they are then the graph's tensors, which
+    each replay rewrites with that step's values. Built alone, the banks
+    are drawn from torch's default generator (Normal ``init_std`` for ``w1``,
     ``out_init_std`` for ``w2``, zero biases); ``GPTModel`` draws them
     from its own generator."""
 
@@ -91,7 +94,7 @@ class MoEMLP(nn.Module):
 
     def forward(self, x):
         dispatch, combine, aux_loss, stats = self.gate(x)
-        if not _capturing(x):
+        if torch.is_grad_enabled() or not _capturing(x):
             self.aux_loss, self.last_stats = aux_loss, stats
         dispatch = dispatch.to(x.dtype)
         combine = combine.to(x.dtype)

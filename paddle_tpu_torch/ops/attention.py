@@ -20,6 +20,14 @@ def attention(q, k, v, mask=None, causal=False, scale=None):
     input dtype before the PV product, as the reference does. ``mask`` is a
     bool keep-mask or an additive float mask broadcastable to
     ``[B, N, T, S]``."""
+    logits = attention_logits(q, k, mask, causal, scale)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bnqk,bknh->bqnh", probs, v)
+
+
+def attention_logits(q, k, mask=None, causal=False, scale=None):
+    """:func:`attention`'s float32 scores ``[B, N, T, S]``: the product in
+    the inputs' dtype, then scaled, masked (-inf) and offset in float32."""
     H = q.shape[-1]
     scale = scale if scale is not None else H ** -0.5
     logits = torch.einsum("bqnh,bknh->bnqk", q, k).float() * scale
@@ -32,8 +40,7 @@ def attention(q, k, v, mask=None, causal=False, scale=None):
             logits = logits.masked_fill(~mask, float("-inf"))
         else:
             logits = logits + mask.float()
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bnqk,bknh->bqnh", probs, v)
+    return logits
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -14,29 +14,36 @@ to ``[B * N, T, H]``.
 * :func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref` and
   :func:`flash_bwd_dkv_ref` are the plain versions, written from the
   kernels' formulas in float32.
-* :class:`FlashAttentionFunction` runs K1 forward and K2 + K3 backward.
+* :func:`attention_op` (``torch.ops.paddle_tpu_torch.flash_attention``)
+  is attention as one operator returning ``(out, lse)``, with its autograd:
+  K1 forward and K2 + K3 backward (the kernel route), or plain attention,
+  the reference's XLA path (the plain route). A recompute policy sees it
+  as one op and can keep its outputs. :class:`FlashAttentionFunction` is
+  its kernel route, :func:`flash_attention_ref` its plain route.
 * :func:`flash_attention` applies the reference's eligibility rule and
   routes an eligible call on the "cuda" route to the kernels; everything
-  else takes :func:`flash_attention_ref`, plain attention under torch
-  autograd (the reference's XLA path).
+  else takes the plain route.
 * :func:`select_flash_kernel` resolves a model's route once.
 
 Launch counts live in the ``kernels`` registry scope: ``flash_fwd``,
-``flash_bwd_dq`` and ``flash_bwd_dkv`` count kernel launches, the ``_ref``
-names calls of the plain versions, and ``flash_attention_ref`` calls of the
-plain attention path. A call the "cuda" route cannot take records its
-reason as a ``kernel_fallback`` event in the explainer ring.
+``flash_bwd_dq`` and ``flash_bwd_dkv`` count kernel launches (a call made
+while a CUDA graph captures counts nothing; the card's tally,
+:func:`device_launches`, counts every launch, replays too), the ``_ref``
+names calls of the plain versions, and ``flash_attention_ref`` forwards of
+the plain attention route. A call the "cuda" route cannot take records
+its reason as a ``kernel_fallback`` event in the explainer ring.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from . import _build
-from .attention import attention
+from .attention import attention, attention_logits
 
 HEAD_DIMS = (64, 96, 128, 256)
 SEQ_MULTIPLE = 128
@@ -142,10 +149,12 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal=False, scale=None):
 
 
 def flash_attention_ref(q, k, v, mask=None, causal=False, scale=None):
-    """Plain attention under torch autograd: the path every call takes that
-    the kernels do not (the reference's ``_attention_xla``)."""
-    _counters["flash_attention_ref"] += 1
-    return attention(q, k, v, mask=mask, causal=causal, scale=scale)
+    """Plain attention, :func:`~.attention.attention` (the reference's
+    ``_attention_xla``): the path every call takes that the kernels do
+    not. It is :func:`attention_op`'s plain route, so a recompute policy
+    sees it as one op."""
+    return attention_op(q, k, v, mask, bool(causal),
+                        _scale(scale, q.shape[-1]), False)[0]
 
 
 # ---------------------------------------------------------------- kernels --
@@ -209,6 +218,9 @@ def _lib():
         for fn in (lib.flash_attention_fwd, lib.flash_attention_bwd_dq,
                    lib.flash_attention_bwd_dkv):
             fn.restype = ctypes.c_int
+        lib.flash_attention_launch_tally.argtypes = [ctypes.c_void_p]
+        lib.flash_attention_reset_tally.argtypes = []
+        lib.flash_attention_tally_slots.argtypes = []
     return lib
 
 
@@ -222,7 +234,9 @@ def _launch(fn, name, q, ptrs, operands, causal, scale):
                  _DTYPE_CODE[q.dtype], scale, int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
-    _counters[name] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        # a capture records the launch; its replays are counted on the card
+        _counters[name] += 1
 
 
 def flash_fwd(q, k, v, causal=False, scale=None):
@@ -285,27 +299,78 @@ def _kernel_operand(t):
     return t.contiguous()
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """Attention through K1 forward and K2 + K3 backward (the reference's
-    ``custom_vjp`` ``_flash_flat``). Saves ``(q, k, v, out, lse)``; the
-    backward computes ``delta`` and returns gradients shaped like q, k, v."""
+@torch.library.custom_op("paddle_tpu_torch::flash_attention",
+                         mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 mask: Optional[torch.Tensor], causal: bool, scale: float,
+                 kernel: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Attention as one operator: ``(out, lse)``, ``lse`` the float32
+    log-sum-exp of each row's scores ``[B, N, T]``.
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_fwd(q, k, v, causal, scale)
+    ``kernel=True`` is K1 (its wrapper: the CUDA kernel on CUDA tensors, the
+    plain version on CPU tensors; ``mask`` must be None), and its autograd
+    runs K2 + K3 from the saved ``(q, k, v, out, lse)``. ``kernel=False``
+    is the plain route, counted as ``flash_attention_ref``:
+    :func:`~.attention.attention`'s math (float32 scores, the
+    probabilities rounded to q's dtype before the product with v, as the
+    reference's ``_attention_xla``), any mask or key length; the op keeps
+    no probabilities, so its backward runs that math again under torch
+    autograd and returns autograd's gradients of it (the mask takes none).
+    Being one operator, it is what a recompute policy sees and can keep
+    (``distributed.fleet.utils.recompute``'s ``"attn"``, the reference's
+    ``attn_out`` name on both of its routes): a kept output is never
+    recomputed, so K1 is not launched again."""
+    if kernel:
+        return flash_fwd(q, k, v, causal, scale)
+    _counters["flash_attention_ref"] += 1
+    logits = attention_logits(q, k, mask, causal, scale)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return (torch.einsum("bnqk,bknh->bqnh", probs, v),
+            torch.logsumexp(logits, dim=-1))
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, mask, causal, scale, kernel = inputs
+    out, lse = output
+    if kernel:
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return out
+    else:
+        ctx.save_for_backward(q, k, v, mask)
+    ctx.causal, ctx.scale, ctx.kernel = causal, scale, kernel
+    ctx.mark_non_differentiable(lse)
+
+
+def _attention_backward(ctx, dout, _dlse):
+    if not ctx.kernel:
+        q, k, v, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = attention(*ins, mask=mask, causal=ctx.causal,
+                            scale=ctx.scale)
+        return (*torch.autograd.grad(out, ins, dout), None, None, None,
+                None)
+    q, k, v, out, lse = ctx.saved_tensors
+    dout = _kernel_operand(dout)
+    delta = flash_delta(out, dout)
+    args = (q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
+    dq = flash_bwd_dq(*args)
+    dk, dv = flash_bwd_dkv(*args)
+    return dq, dk, dv, None, None, None, None
+
+
+attention_op.register_autograd(_attention_backward,
+                               setup_context=_attention_setup)
+
+
+class FlashAttentionFunction:
+    """Attention through K1 forward and K2 + K3 backward (the reference's
+    ``custom_vjp`` ``_flash_flat``): the kernel route of
+    :func:`attention_op`, returning the output."""
 
     @staticmethod
-    def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dout = _kernel_operand(dout)
-        delta = flash_delta(out, dout)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.causal, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.causal,
-                               ctx.scale)
-        return dq, dk, dv, None, None
+    def apply(q, k, v, causal, scale):
+        return attention_op(q, k, v, None, bool(causal), float(scale),
+                            True)[0]
 
 
 # ------------------------------------------------------------- dispatcher --
@@ -332,21 +397,22 @@ def flash_attention(q, k, v, mask=None, causal=False, scale=None,
 
     ``kernel``: "cuda", "torch" or None (auto: "cuda" for CUDA tensors,
     "torch" for CPU tensors). On the "cuda" route an eligible call runs
-    :class:`FlashAttentionFunction`, which launches the kernels or raises;
-    an ineligible one takes the plain path and records why. "cuda" with
-    CPU tensors raises. The "torch" route is :func:`flash_attention_ref`."""
+    :func:`attention_op` on the kernels, which launch or raise; an
+    ineligible one takes the plain path and records why. "cuda" with CPU
+    tensors raises. The plain path is :func:`flash_attention_ref`, the
+    op's plain route (so a recompute policy sees it too)."""
     route = kernel or ("cuda" if q.device.type == "cuda" else "torch")
     if route not in ("cuda", "torch"):
         raise ValueError(f"flash_attention: kernel={kernel!r} (expected "
                          "cuda | torch | None)")
+    scale = _scale(scale, q.shape[-1])
     if route == "cuda":
         if q.device.type != "cuda":
             raise ValueError(f"flash_attention: kernel='cuda' needs CUDA "
                              f"tensors, q is on {q.device}")
         why = flash_ineligible(q, k, mask)
         if why is None:
-            return FlashAttentionFunction.apply(q, k, v, bool(causal),
-                                                _scale(scale, q.shape[-1]))
+            return attention_op(q, k, v, None, bool(causal), scale, True)[0]
         _explain.record("kernel_fallback", op="flash_attention", why=why,
                         shape=str(tuple(q.shape)))
     return flash_attention_ref(q, k, v, mask=mask, causal=causal,
@@ -384,6 +450,37 @@ def select_flash_kernel(requested=None, *, device, head_dim, dtype):
                              f"or bfloat16, the model is {dtype}; ask for "
                              "attn_kernel='torch' explicitly")
     return "cuda"
+
+
+def _tally_call(fn, *args):
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch tally: cudaError {err}")
+
+
+def reset_device_launches():
+    """Zero the kernels' launch tally on the card (after the card has
+    finished what was queued). CUDA machines only."""
+    _tally_call(_lib().flash_attention_reset_tally)
+
+
+def device_launches():
+    """Launches of K1, K2 and K3 since :func:`reset_device_launches`, as the
+    card counted them: ``{"flash_fwd": n, "flash_bwd_dq": n,
+    "flash_bwd_dkv": n}`` over both dtypes, and the same per dtype under
+    ``"by_dtype"``. The first thread of each launch counts it on the card,
+    so replays of a CUDA graph count too (the Python counters of
+    :func:`launches` do not move under a replay). Waits for the card; CUDA
+    machines only."""
+    lib = _lib()
+    buf = (ctypes.c_ulonglong * lib.flash_attention_tally_slots())()
+    _tally_call(lib.flash_attention_launch_tally, buf)
+    names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    out = {n: buf[2 * k] + buf[2 * k + 1] for k, n in enumerate(names)}
+    out["by_dtype"] = {
+        dt: {n: buf[2 * k + code] for k, n in enumerate(names)}
+        for dt, code in (("float32", 0), ("bfloat16", 1))}
+    return out
 
 
 def launches():

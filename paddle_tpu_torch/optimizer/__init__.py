@@ -1,7 +1,11 @@
 """Optimizers of the port (counterpart of paddle_tpu/optimizer): the
-Optimizer base, Adam and AdamW, and the GPT pretraining schedulers."""
+Optimizer base, SGD, Momentum, Lars, the Adam family, the regularizers and
+the fifteen learning-rate schedulers."""
 from . import lr
-from .adam import Adam, AdamW
-from .optimizer import Optimizer
+from .adam import Adadelta, Adagrad, Adam, Adamax, AdamW, Lamb, RMSProp
+from .optimizer import SGD, Lars, Momentum, Optimizer
+from .regularizer import L1Decay, L2Decay
 
-__all__ = ["Optimizer", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Lars", "Adam", "AdamW",
+           "Adamax", "Adagrad", "Adadelta", "RMSProp", "Lamb", "L1Decay",
+           "L2Decay", "lr"]

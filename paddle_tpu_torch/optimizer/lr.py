@@ -1,15 +1,23 @@
-"""Learning-rate schedulers (counterpart of paddle_tpu/optimizer/lr.py, the
-pair GPT pretraining uses: a linear warm-up into a cosine decay).
+"""Learning-rate schedulers (counterpart of paddle_tpu/optimizer/lr.py):
+all fifteen of the reference's, with its formulas and its ``state_dict``.
 
 A scheduler is plain Python: ``sched()`` is the current rate,
-``sched.step()`` advances it one step. An optimizer given a scheduler as
-its ``learning_rate`` reads it at every update and never steps it.
+``sched.step()`` advances it one step (``ReduceOnPlateau.step(metrics)``
+takes the monitored value). An optimizer given a scheduler as its
+``learning_rate`` reads it at every update and never steps it; under a
+CUDA graph (``jit.TrainStep``) the rate read before each replay is written
+into the optimizer's device scalar, so a scheduler stepped between calls
+takes effect at every replay.
 """
 from __future__ import annotations
 
 import math
 
-__all__ = ["LRScheduler", "LinearWarmup", "CosineAnnealingDecay"]
+__all__ = ["LRScheduler", "NoamDecay", "PiecewiseDecay", "NaturalExpDecay",
+           "InverseTimeDecay", "PolynomialDecay", "LinearWarmup",
+           "ExponentialDecay", "MultiStepDecay", "StepDecay", "LambdaDecay",
+           "ReduceOnPlateau", "CosineAnnealingDecay", "MultiplicativeDecay",
+           "OneCycleLR", "CyclicLR"]
 
 
 class LRScheduler:
@@ -40,15 +48,80 @@ class LRScheduler:
     def set_state_dict(self, state_dict):
         self.__dict__.update(state_dict)
 
+    set_dict = set_state_dict
+    state_keys = state_dict
+
+
+class NoamDecay(LRScheduler):
+    def __init__(self, d_model, warmup_steps, learning_rate=1.0, last_epoch=-1,
+                 verbose=False):
+        self.d_model = d_model
+        self.warmup_steps = warmup_steps
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = max(self.last_epoch, 1)
+        return self.base_lr * (self.d_model ** -0.5) * min(
+            step ** -0.5, step * self.warmup_steps ** -1.5)
+
+
+class PiecewiseDecay(LRScheduler):
+    def __init__(self, boundaries, values, last_epoch=-1, verbose=False):
+        self.boundaries = list(boundaries)
+        self.values = list(values)
+        super().__init__(values[0], last_epoch, verbose)
+
+    def get_lr(self):
+        for i, b in enumerate(self.boundaries):
+            if self.last_epoch < b:
+                return self.values[i]
+        return self.values[len(self.boundaries)]
+
+
+class NaturalExpDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * math.exp(-self.gamma * self.last_epoch)
+
+
+class InverseTimeDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr / (1 + self.gamma * self.last_epoch)
+
+
+class PolynomialDecay(LRScheduler):
+    def __init__(self, learning_rate, decay_steps, end_lr=0.0001, power=1.0,
+                 cycle=False, last_epoch=-1, verbose=False):
+        self.decay_steps = decay_steps
+        self.end_lr = end_lr
+        self.power = power
+        self.cycle = cycle
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        step = self.last_epoch
+        if self.cycle:
+            div = math.ceil(step / self.decay_steps) if step > 0 else 1
+            decay_steps = self.decay_steps * div
+        else:
+            decay_steps = self.decay_steps
+            step = min(step, decay_steps)
+        return (self.base_lr - self.end_lr) * \
+            (1 - step / decay_steps) ** self.power + self.end_lr
+
 
 class LinearWarmup(LRScheduler):
-    """``start_lr`` rising linearly to ``end_lr`` over ``warmup_steps``,
-    then ``learning_rate``: a float, or a scheduler stepped from there on."""
-
     def __init__(self, learning_rate, warmup_steps, start_lr, end_lr,
                  last_epoch=-1, verbose=False):
-        self.lr_sched = learning_rate if isinstance(learning_rate,
-                                                    LRScheduler) else None
+        self.lr_sched = learning_rate \
+            if isinstance(learning_rate, LRScheduler) else None
         self.warmup_steps = warmup_steps
         self.start_lr = start_lr
         self.end_lr = end_lr
@@ -65,9 +138,60 @@ class LinearWarmup(LRScheduler):
         return self.base_lr
 
 
-class CosineAnnealingDecay(LRScheduler):
-    """``eta_min + (base - eta_min) * (1 + cos(pi * step / T_max)) / 2``."""
+class ExponentialDecay(LRScheduler):
+    def __init__(self, learning_rate, gamma, last_epoch=-1, verbose=False):
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
 
+    def get_lr(self):
+        return self.base_lr * self.gamma ** self.last_epoch
+
+
+class MultiStepDecay(LRScheduler):
+    def __init__(self, learning_rate, milestones, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.milestones = list(milestones)
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        n = sum(1 for m in self.milestones if m <= self.last_epoch)
+        return self.base_lr * self.gamma ** n
+
+
+class StepDecay(LRScheduler):
+    def __init__(self, learning_rate, step_size, gamma=0.1, last_epoch=-1,
+                 verbose=False):
+        self.step_size = step_size
+        self.gamma = gamma
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.gamma ** (self.last_epoch // self.step_size)
+
+
+class LambdaDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        return self.base_lr * self.lr_lambda(self.last_epoch)
+
+
+class MultiplicativeDecay(LRScheduler):
+    def __init__(self, learning_rate, lr_lambda, last_epoch=-1, verbose=False):
+        self.lr_lambda = lr_lambda
+        self._cur = float(learning_rate)
+        super().__init__(learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        if self.last_epoch > 0:
+            self._cur = self._cur * self.lr_lambda(self.last_epoch)
+        return self._cur
+
+
+class CosineAnnealingDecay(LRScheduler):
     def __init__(self, learning_rate, T_max, eta_min=0, last_epoch=-1,
                  verbose=False):
         self.T_max = T_max
@@ -77,3 +201,97 @@ class CosineAnnealingDecay(LRScheduler):
     def get_lr(self):
         return self.eta_min + (self.base_lr - self.eta_min) * \
             (1 + math.cos(math.pi * self.last_epoch / self.T_max)) / 2
+
+
+class ReduceOnPlateau(LRScheduler):
+    def __init__(self, learning_rate, mode="min", factor=0.1, patience=10,
+                 threshold=1e-4, threshold_mode="rel", cooldown=0, min_lr=0,
+                 epsilon=1e-8, verbose=False):
+        self.mode = mode
+        self.factor = factor
+        self.patience = patience
+        self.threshold = threshold
+        self.threshold_mode = threshold_mode
+        self.cooldown = cooldown
+        self.min_lr = min_lr
+        self.best = None
+        self.num_bad = 0
+        self.cooldown_counter = 0
+        self.base_lr = float(learning_rate)
+        self.last_lr = self.base_lr
+        self.last_epoch = 0
+
+    def step(self, metrics=None, epoch=None):
+        if metrics is None:
+            return
+        cur = float(metrics)
+        if self.best is None:
+            self.best = cur
+            return
+        better = cur < self.best - self.threshold if self.mode == "min" \
+            else cur > self.best + self.threshold
+        if better:
+            self.best = cur
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.cooldown_counter > 0:
+            self.cooldown_counter -= 1
+            self.num_bad = 0
+        elif self.num_bad > self.patience:
+            self.last_lr = max(self.last_lr * self.factor, self.min_lr)
+            self.cooldown_counter = self.cooldown
+            self.num_bad = 0
+
+    def get_lr(self):
+        return self.last_lr
+
+
+class OneCycleLR(LRScheduler):
+    def __init__(self, max_learning_rate, total_steps, divide_factor=25.0,
+                 end_learning_rate=0.0001, phase_pct=0.3,
+                 anneal_strategy="cos", three_phase=False, last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.total_steps = total_steps
+        self.initial_lr = max_learning_rate / divide_factor
+        self.end_lr = end_learning_rate
+        self.phase_pct = phase_pct
+        super().__init__(self.initial_lr, last_epoch, verbose)
+
+    def get_lr(self):
+        step = min(self.last_epoch, self.total_steps)
+        up = int(self.phase_pct * self.total_steps)
+        if step <= up and up > 0:
+            pct = step / up
+            return self.initial_lr + (self.max_lr - self.initial_lr) * \
+                (1 - math.cos(math.pi * pct)) / 2
+        down = self.total_steps - up
+        pct = (step - up) / max(down, 1)
+        return self.end_lr + (self.max_lr - self.end_lr) * \
+            (1 + math.cos(math.pi * pct)) / 2
+
+
+class CyclicLR(LRScheduler):
+    def __init__(self, base_learning_rate, max_learning_rate, step_size_up,
+                 step_size_down=None, mode="triangular", exp_gamma=1.0,
+                 scale_fn=None, scale_mode="cycle", last_epoch=-1,
+                 verbose=False):
+        self.max_lr = max_learning_rate
+        self.up = step_size_up
+        self.down = step_size_down or step_size_up
+        self.mode = mode
+        self.exp_gamma = exp_gamma
+        super().__init__(base_learning_rate, last_epoch, verbose)
+
+    def get_lr(self):
+        total = self.up + self.down
+        cycle = self.last_epoch // total
+        pos = self.last_epoch % total
+        x = pos / self.up if pos < self.up else 1 - (pos - self.up) / self.down
+        amp = self.max_lr - self.base_lr
+        if self.mode == "triangular2":
+            amp = amp / (2 ** cycle)
+        elif self.mode == "exp_range":
+            amp = amp * (self.exp_gamma ** self.last_epoch)
+        return self.base_lr + amp * x

@@ -31,9 +31,11 @@ imported, or :func:`configure` at run time)::
                                          transit before the pod acks
     "page_pool_exhausted:times=3"        first 3 admission budget checks
                                          report the KV block pool full
-    "mutate_signature:nth=3"             3rd zero-dispatch replay runs on
-                                         a perturbed signature
+    "mutate_signature:nth=3"             3rd replay check of a captured
+                                         step sees a perturbed signature
     "mutate_signature:nth=3,mode=aval"   ... perturbing an argument aval
+                                         (a CUDA graph pins no scalar:
+                                         the default mode changes nothing)
     "draft_garbage"                      every speculative round's drafter
                                          proposals are replaced with
                                          garbage (output must not change)
@@ -62,14 +64,14 @@ Points and their sites in this package:
     draft_garbage        spec_decode drafting round            rounds
     kernel_mismatch      ops/paged_attention route             nth
     truncate_checkpoint  incubate/checkpoint writer            nth, bytes
+    mutate_signature     jit.TrainStep's signature check       nth, mode
     ===================  ====================================  ============
 
 The remaining points parse, arm and fire like the reference's, but no site
 in this package fires them yet: ``kill_at_step``, ``rank_preempt`` and
 ``step_hang`` (the elastic ``CheckpointHook``), ``nan_loss`` (hapi),
 ``store_flaky``, ``store_slow`` and ``store_partition`` (the rendezvous
-store), ``mutate_signature`` (lazy capture), ``pod_kill`` and
-``router_drop`` (the serving fleet). The ``net_*`` data-plane points of
+store), ``pod_kill`` and ``router_drop`` (the serving fleet). The ``net_*`` data-plane points of
 the reference's ``testing/netfaults.py`` are not ported: arming one
 raises.
 

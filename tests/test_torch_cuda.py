@@ -602,3 +602,204 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
         fa.flash_fwd(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd(q, k.bfloat16(), v)
+
+
+# ------------------------------------------------- TrainStep's CUDA graph --
+def _train_run(cuda, graph, steps=4, dtype="bfloat16", policy=None,
+               recompute=False, attn_dropout=0.0, sched=True):
+    """A small GPT (head_dim 64, seq_len 128: the kernels' shapes) under
+    AdamW with master weights, a warm-up-into-cosine schedule stepped
+    between calls and a global-norm clip: ``steps`` calls of TrainStep
+    (``graph``) or of the same step_fn eagerly. Returns (losses, model,
+    optimizer, step)."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    cfg = tgpt.GPTConfig.preset("gpt2-tiny", vocab_size=256, n_head=2,
+                                dtype=dtype, attn_dropout=attn_dropout,
+                                use_recompute=recompute,
+                                recompute_policy=policy)
+    model = tgpt.GPTForPretraining(tgpt.GPTModel(
+        cfg, device=cuda, generator=torch.Generator(cuda).manual_seed(0)))
+    lr = topt.lr.LinearWarmup(topt.lr.CosineAnnealingDecay(
+        1e-3, T_max=6), warmup_steps=2, start_lr=1e-4, end_lr=1e-3) \
+        if sched else 1e-3
+    opt = topt.AdamW(learning_rate=lr, multi_precision=True,
+                     parameters=model.parameters(),
+                     grad_clip=tnn.ClipGradByGlobalNorm(1.0))
+    crit = tgpt.GPTPretrainingCriterion()
+
+    def step_fn(tokens, labels):
+        loss = crit(model(tokens), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 256, (2, 128), generator=g).to(cuda)
+    labels = toks.roll(-1, 1)
+    step = TrainStep(step_fn, model, opt) if graph else step_fn
+    losses = []
+    for _ in range(steps):
+        losses.append(step(toks, labels).detach().float())
+        if sched:
+            lr.step()
+    torch.cuda.synchronize()
+    return losses, model, opt, step
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_graph_equals_the_eager_loop_bitwise(cuda, dtype):
+    from paddle_tpu_torch.profiler import registry
+
+    registry.reset("jit")
+    fa.reset_device_launches()
+    lg, mg, og, _ = _train_run(cuda, True, dtype=dtype)
+    counts = fa.device_launches()
+    assert registry.counters("jit")["train_step_captures"] == 1
+    assert registry.counters("jit")["train_step_replays"] == 3
+    # every call launched K1-K3 once per layer, replays included
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_dkv"] == 4 * 2
+    le, me, oe, _ = _train_run(cuda, False, dtype=dtype)
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    assert all(torch.equal(a, b) for a, b in zip(mg.parameters(),
+                                                 me.parameters()))
+    sg, se = og.state_dict(), oe.state_dict()
+    for k, v in sg.items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, se[k]), k
+
+
+@pytest.mark.parametrize("policy,k1", [(None, 2), ("dots", 2), ("attn", 1),
+                                       ("dots_attn", 1)])
+def test_recompute_policies_in_the_graph_launch_k1_as_kept(cuda, policy, k1):
+    fa.reset_device_launches()
+    lr, _, _, _ = _train_run(cuda, True, steps=3, policy=policy,
+                             recompute=True)
+    counts = fa.device_launches()
+    assert counts["flash_fwd"] == 3 * 2 * k1
+    assert counts["flash_bwd_dq"] == counts["flash_bwd_dkv"] == 3 * 2
+    lp, _, _, _ = _train_run(cuda, True, steps=3)
+    assert all(torch.equal(a, b) for a, b in zip(lr, lp))
+
+
+def test_train_step_recaptures_on_rebinding_and_mutate_signature(cuda):
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.testing import faults
+
+    registry.reset("jit")
+    plain, _, _, _ = _train_run(cuda, True, steps=5, sched=False)
+    try:
+        faults.configure("mutate_signature:nth=2,mode=aval")
+        armed, _, _, _ = _train_run(cuda, True, steps=5, sched=False)
+    finally:
+        faults.reset()
+    assert registry.counters("jit")["train_step_captures"] == 1 + 2
+    assert all(torch.equal(a, b) for a, b in zip(plain, armed))
+    # a rebinding restore: the next call captures again, and the run goes
+    # on as it did from the snapshot
+    losses, model, opt, step = _train_run(cuda, True, steps=3, sched=False)
+    snap = [p.detach().clone() for p in model.parameters()]
+    slots = {k: v.clone() if isinstance(v, torch.Tensor) else v
+             for k, v in opt.state_dict().items()}
+    toks = torch.randint(0, 256, (2, 128),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    want = [step(toks, toks.roll(-1, 1)) for _ in range(2)]
+    before = registry.counters("jit")["train_step_captures"]
+    with torch.no_grad():
+        for p, v in zip(model.parameters(), snap):
+            p.data = v.clone()
+    opt.set_state_dict(slots)
+    got = [step(toks, toks.roll(-1, 1)) for _ in range(2)]
+    assert registry.counters("jit")["train_step_captures"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_dropout_masks_change_between_replays(cuda):
+    from paddle_tpu_torch.ops import attention
+
+    kept = []
+    orig = attention.output_dropout
+
+    def rec(out, p, training, generator=None):
+        res = orig(out, p, training, generator)
+        if torch.cuda.is_current_stream_capturing():
+            kept.append(res)
+        return res
+
+    attention.output_dropout = rec
+    try:
+        losses, model, opt, step = _train_run(cuda, True, steps=2,
+                                              attn_dropout=0.25,
+                                              dtype="float32")
+    finally:
+        attention.output_dropout = orig
+    out = kept[0]
+    toks = torch.randint(0, 256, (2, 128),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    masks = []
+    for _ in range(2):
+        step(toks, toks.roll(-1, 1))
+        torch.cuda.synchronize()
+        masks.append(out != 0)
+        assert abs(masks[-1].float().mean().item() - 0.75) < 0.02
+    assert (masks[0] != masks[1]).float().mean().item() > 0.25
+
+
+def test_train_step_refuses_a_step_that_reads_the_host(cuda):
+    # the read is caught in the first call, before any capture: the stream
+    # stays usable, and a good step captures and replays after it
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import registry
+
+    lin = torch.nn.Linear(4, 4).to(cuda)
+    opt = topt.SGD(0.1, parameters=lin.parameters())
+
+    def reads_host(x):
+        loss = lin(x).sum()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if float(loss) > 1e9:  # a Python branch on a tensor
+            print("large")
+        return loss
+
+    registry.reset("jit")
+    step = TrainStep(reads_host, lin, opt)
+    x = torch.ones(2, 4, device=cuda)
+    for _ in range(2):  # refused every time, never captured
+        with pytest.raises(RuntimeError, match="could not be captured"):
+            step(x)
+    assert registry.counters("jit")["train_step_captures"] == 0
+    assert torch.cuda.get_sync_debug_mode() == 0
+    losses, _, _, _ = _train_run(cuda, True, steps=3, sched=False)
+    assert registry.counters("jit")["train_step_captures"] == 1
+    assert all(torch.isfinite(v) for v in losses)
+
+
+def test_train_step_refuses_a_sparse_embedding_on_the_card(cuda):
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+
+    emb = torch.nn.Embedding(16, 8, sparse=True).to(cuda)
+    opt = topt.Adam(0.1, parameters=emb.parameters(), lazy_mode=True)
+
+    def step_fn(ids):
+        loss = emb(ids).square().sum()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    with pytest.raises(ValueError, match="sparse gradients"):
+        TrainStep(step_fn, emb, opt)
+    ids = torch.tensor([1, 3, 3], device=cuda)
+    before = emb.weight.detach().clone()
+    step_fn(ids)  # the eager loop takes it: only rows 1 and 3 move
+    moved = (emb.weight.detach() != before).any(1)
+    assert moved.nonzero().flatten().tolist() == [1, 3]

@@ -216,6 +216,41 @@ def test_routes_resolve_once_and_never_demote_quietly():
         tgpt.GPTModel(cfg, device="cpu", attn_kernel="cuda")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["causal", "bool_mask", "float_mask",
+                                  "cross_length"])
+def test_plain_route_is_attention_under_autograd(case, dtype):
+    # the plain route (attention_op's, one op for a recompute policy) keeps
+    # attention()'s numbers: its output and every gradient equal plain
+    # attention under torch autograd bit for bit, in bf16 too (scores and
+    # probabilities rounded as the reference's _attention_xla rounds them)
+    from paddle_tpu_torch.ops.attention import attention, attention_logits
+
+    S = 192 if case == "cross_length" else 128
+    rng = np.random.default_rng(5)
+    q, do = (torch.from_numpy(rng.standard_normal((2, 128, 2, 64)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((2, S, 2, 64)).astype(
+        np.float32)).to(dtype) for _ in range(2))
+    keep = torch.from_numpy(rng.random((2, 1, 128, S)) > 0.3)
+    keep[..., 0] = True
+    mask = {"bool_mask": keep,
+            "float_mask": torch.where(keep, 0.0, -1e4),
+            }.get(case)
+    kw = dict(mask=mask, causal=case == "causal")
+    runs = []
+    for fn in (fa.flash_attention, attention):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*ins, **kw)
+        out.backward(do)
+        runs.append((out.detach(), *(t.grad for t in ins)))
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+    _, lse = fa.attention_op(q, k, v, mask, kw["causal"], 64 ** -0.5, False)
+    assert torch.equal(lse, torch.logsumexp(
+        attention_logits(q, k, **kw), -1))
+
+
 def test_fallback_on_the_cuda_route_records_its_reason(monkeypatch):
     # an ineligible call on the "cuda" route takes the plain path and says
     # why; the device check is the only part that needs a card, so the

@@ -174,7 +174,10 @@ def _served_spans(mod, sched_cls, req_cls, prefill_eng, decode_eng,
     and the names of its spans in order, and the untraced span names."""
     prompt = list(range(3, 22))
     mod.drain_spans()
-    mod.enable()
+    # the default ring: an earlier test in this process may have left a
+    # smaller one (tests/test_tracing.py enables the reference's with
+    # capacity=4), which would drop this request's later spans
+    mod.enable(capacity=8192)
     try:
         req = req_cls(prompt, max_new_tokens=4, seed=5)
         if handoff:

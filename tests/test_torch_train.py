@@ -208,7 +208,12 @@ def test_recompute_replays_the_attention_dropout_masks():
     assert torch.equal(s0, s1)  # the generator ends where the forward left it
     for name in g0:
         torch.testing.assert_close(g1[name], g0[name], **TOL)
-    with pytest.raises(NotImplementedError, match="recompute_policy"):
+    # the named policies are ported (tests/test_torch_recompute.py holds
+    # each against the reference); an unknown one is refused at build
+    tgpt.GPTModel(tgpt.GPTConfig.preset(
+        "gpt2-tiny", use_recompute=True, recompute_policy="dots"),
+        device="cpu")
+    with pytest.raises(ValueError, match="recompute policy"):
         tgpt.GPTModel(tgpt.GPTConfig.preset(
-            "gpt2-tiny", use_recompute=True, recompute_policy="dots"),
+            "gpt2-tiny", use_recompute=True, recompute_policy="bogus"),
             device="cpu")
