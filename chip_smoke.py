@@ -194,6 +194,28 @@ Phases, in order; any failure exits non-zero:
              the same losses; a restore that rebinds the parameters'
              storage: the next call captures again and the run continues
              bitwise as it did from the snapshot.
+11. fit      hapi.Model(GPTForPretraining).prepare(AdamW,
+             GPTPretrainingCriterion, amp_configs="O1").fit(DataLoader(...,
+             shuffle=True, num_workers=2)) at gpt3-1.3B, full width and
+             depth, float32 parameters: 8 batches of 4 x 2048 over 8
+             sequences each seen 4 times, through the shm ring. One
+             TrainStep capture; K1-K3 8 x 24 each on the card's count, all
+             on the bf16 instance; the loss finite and falling; no worker
+             initialised CUDA. Reports the p50 host time of a batch beside
+             phase 7's step, tokens/s, MFU, peak memory, dataloader.wait,
+             worker_busy and the workers' start;
+11b. resume  full width, 2 layers, O1: fit(epochs=2) against fit(epochs=1)
+             then a fresh fit(epochs=2, resume=True): the second epoch's
+             losses, parameters and optimizer slots bitwise equal;
+             max_ckpt_to_keep=1 keeps one epoch; a torn .pdparams is
+             skipped; nan_loss:step=3 gives a NaN loss there and training
+             goes on;
+11c. fp16    full width, 2 layers: 4 eager steps under
+             auto_cast(dtype="float16") with GradScaler: finite losses, the
+             attention on the plain route with a kernel_fallback record
+             naming float16 and K1 not launched; a step with an inf
+             gradient leaves the parameters bitwise and halves the scale;
+             scaler.step inside TrainStep is refused before any capture.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -206,7 +228,12 @@ over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
 one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
 the verify row, phase 7's graph replays for K1-K3, each counted on the
 card by the kernel itself; "launches_by_path" adds the MoE paths' windows
-(9, 9b, 9c) and, for K1-K3, phase 10's launches per step by policy.
+(9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance) and phase
+10's launches per step by policy.
+
+Before it prints a result it stops the DataLoader's fork server, the
+resource tracker and any worker still running, and fails if any other
+process it started is still alive; on a failed phase it stops them too.
 
 Prints a {"kernels": [...]} line and the nvidia-smi line before the last
 line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
@@ -221,6 +248,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -1526,6 +1554,352 @@ def phase_recapture(dev, preset="gpt3-1.3B", n_layer=2, batch=2,
               "resumed_losses": [float(x) for x in got]}
     log("recapture: " + json.dumps(result))
     del run, model, opt, snap
+    free_memory()
+    return result
+
+
+# -------------------------------------------- Model.fit, AMP, the scaler --
+def fit_dataset(vocab, n_seq=8, repeats=4, seq_len=2048, seed=0):
+    """``n_seq`` distinct ``seq_len + 1``-token sequences (numpy, ``seed``),
+    each ``repeats`` times, as an ``io.TensorDataset`` of (inputs, next
+    tokens): a dataset whose loss can fall within one epoch."""
+    from paddle_tpu_torch import io
+
+    seqs = np.random.default_rng(seed).integers(0, vocab,
+                                                (n_seq, seq_len + 1))
+    rows = np.tile(np.arange(n_seq), repeats)
+    return io.TensorDataset([seqs[rows, :-1], seqs[rows, 1:]])
+
+
+def fit_model(dev, n_layer=None, seed=0, lr=1e-4, preset="gpt3-1.3B"):
+    """``preset`` at full width (``n_layer`` cut when given) with
+    float32 parameters from ``seed``, dropout 0, behind ``hapi.Model``
+    prepared with ``AdamW(lr)``, ``GPTPretrainingCriterion`` and
+    ``amp_configs="O1"``. Returns ``(cfg, model)``."""
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel,
+                                             GPTPretrainingCriterion)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    over = {} if n_layer is None else {"n_layer": n_layer}
+    cfg = GPTConfig.preset(preset, dropout=0.0, attn_dropout=0.0, **over)
+    net = GPTForPretraining(GPTModel(
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
+    model = hapi.Model(net)
+    model.prepare(AdamW(learning_rate=lr, parameters=net.parameters()),
+                  GPTPretrainingCriterion(), amp_configs="O1")
+    return cfg, model
+
+
+def batch_recorder():
+    """A ``hapi`` callback keeping each batch's logged loss and host time
+    (``on_train_batch_begin`` to ``_end``: the step, its host read of the
+    loss included, the wait for the batch not)."""
+    from paddle_tpu_torch.callbacks import Callback
+
+    class Recorder(Callback):
+        def __init__(self):
+            self.losses, self.seconds = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.seconds.append(time.perf_counter() - self._t0)
+            self.losses.append(logs["loss"])
+
+    return Recorder()
+
+
+def worker_import_s():
+    """Seconds a fresh interpreter takes to import the DataLoader's worker
+    module (torch comes with the package): the fixed share of a worker's
+    start."""
+    code = ("import time; t = time.perf_counter(); "
+            "import paddle_tpu_torch.io._worker; "
+            "print(time.perf_counter() - t)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True,
+                         timeout=300)
+    return float(out.stdout.strip().splitlines()[-1])
+
+
+def phase_fit(dev, train_step_ms, batches=8, batch=4, seq_len=2048,
+              workers=2):
+    """11: ``hapi.Model(GPTForPretraining).prepare(AdamW,
+    GPTPretrainingCriterion, amp_configs="O1").fit(DataLoader(...,
+    shuffle=True, num_workers=2))`` at gpt3-1.3B, full width and depth,
+    float32 parameters: one epoch of ``batches`` batches of ``batch`` x
+    ``seq_len`` over 8 distinct sequences each seen 4 times. Checks: one
+    TrainStep capture; K1-K3 ``batches`` x 24 each on the card's count,
+    all on the bf16 instance and none on float32; every logged loss
+    finite and the last below the first; every batch from the workers,
+    none of which initialised CUDA. Reports the p50 host time of a batch
+    beside phase 7's graph step (``train_step_ms``), tokens/s and MFU at
+    that p50, peak memory, ``dataloader.wait`` and ``worker_busy``, the
+    workers' start (to their first batch) in the first epoch and in a
+    second iteration of the loader, and what importing the worker module
+    costs a fresh interpreter."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    t0 = time.perf_counter()
+    cfg, model = fit_model(dev)
+    built_s = time.perf_counter() - t0
+    ds = fit_dataset(cfg.vocab_size, repeats=batches * batch // 8,
+                     seq_len=seq_len)
+    loader = io.DataLoader(ds, batch_size=batch, shuffle=True,
+                           num_workers=workers)
+    rec = batch_recorder()
+    for scope in ("jit", "dataloader", "timings", "kernels"):
+        registry.reset(scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fa.reset_device_launches()
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    hist = model.fit(loader, epochs=1, verbose=0, callbacks=[rec])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = fa.device_launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    jit = dict(registry.counters("jit"))
+    dl = dict(registry.counters("dataloader"))
+    timings = registry.timings("timings")
+    # a second epoch's workers fork from the fork server, which imported
+    # torch once for the first
+    registry.reset("timings")
+    next(iter(loader))
+    restart_s = registry.timings("timings")[
+        "timings.dataloader.worker_start"]["total_s"]
+    n_layer = cfg.n_layer
+    if model.network.gpt.attn_kernel != "cuda":
+        raise AssertionError(f"fit: attention route "
+                             f"{model.network.gpt.attn_kernel!r}")
+    if jit["train_step_captures"] != 1:
+        raise AssertionError(f"fit: TrainStep counters {jit}, want one "
+                             "capture")
+    for name in FLASH_KERNELS:
+        got = counts["by_dtype"]["bfloat16"][name]
+        if got != batches * n_layer or counts["by_dtype"]["float32"][name]:
+            raise AssertionError(
+                f"fit: the card counted {counts['by_dtype']} launches, want "
+                f"{batches} x {n_layer} of each kernel on bf16, 0 on float32")
+    if len(rec.losses) != batches or not all(np.isfinite(rec.losses)) or \
+            not rec.losses[-1] < rec.losses[0]:
+        raise AssertionError(f"fit: losses {rec.losses} are not finite and "
+                             "falling")
+    if dl.get("worker_batches") != batches or dl.get("worker_cuda_inits"):
+        raise AssertionError(f"fit: dataloader counters {dl}")
+    steady = rec.seconds[2:]  # after the eager call and the capture
+    p50_s = _median(steady)
+    tokens = batch * seq_len
+    result = {
+        "preset": "gpt3-1.3B", "params": "float32", "amp": "O1 bf16",
+        "batch": batch, "seq_len": seq_len, "batches": batches,
+        "workers": workers, "built_s": built_s, "fit_s": fit_s,
+        "losses": rec.losses, "history": hist,
+        "batch_ms": [s * 1e3 for s in rec.seconds],
+        "batch_p50_ms": p50_s * 1e3, "train_step_ms_phase_7": train_step_ms,
+        "tokens_per_s": tokens / p50_s,
+        "mfu": cfg.flops_per_token() * tokens / p50_s
+        / PEAK_FLOPS[torch.bfloat16],
+        "peak_memory_gb": peak_gb, "train_step": jit, "dataloader": dl,
+        "dataloader_wait_p50_ms": timings["timings.dataloader.wait"][
+            "p50_ms"],
+        "dataloader_wait_ms": timings["timings.dataloader.wait"],
+        "worker_busy_s": timings["timings.dataloader.worker_busy"][
+            "total_s"],
+        "worker_start_s": timings["timings.dataloader.worker_start"][
+            "total_s"],
+        "worker_restart_s": restart_s,
+        "worker_import_s": worker_import_s(),
+        "launches": {k: counts[k] for k in FLASH_KERNELS},
+        "launches_by_dtype": counts["by_dtype"]}
+    log("fit: " + json.dumps(result))
+    del model, loader
+    free_memory()
+    return result
+
+
+def _state_of(model):
+    return ([p.detach().clone() for p in model.network.parameters()],
+            {k: v.clone() for k, v in model._optimizer.state_dict().items()
+             if isinstance(v, torch.Tensor)})
+
+
+def phase_fit_resume(dev, n_layer=2, batch=4, seq_len=2048):
+    """11b: full width, ``n_layer`` layers, float32 parameters under O1,
+    ``shuffle=False``, attention dropout 0, 4 batches an epoch:
+    ``fit(epochs=2, save_dir=A, max_ckpt_to_keep=1)`` against ``fit(epochs=1,
+    save_dir=B)`` and then a fresh ``Model(...).fit(epochs=2, save_dir=B,
+    resume=True)``: the second epoch's losses, the final parameters and the
+    optimizer's slots bitwise equal; A keeps one epoch's files. A torn
+    ``.pdparams`` (truncated) is skipped with a ``checkpoint_skip`` record
+    and the run resumes from the epoch before. ``nan_loss:step=3`` armed
+    gives a NaN loss at that batch, and training goes on."""
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.profiler import explainer
+    from paddle_tpu_torch.testing import faults
+
+    def run(save_dir=None, epochs=1, resume=False, **kw):
+        cfg, model = fit_model(dev, n_layer=n_layer)
+        ds = fit_dataset(cfg.vocab_size, repeats=2, seq_len=seq_len)
+        rec = batch_recorder()
+        t0 = time.perf_counter()
+        model.fit(io.DataLoader(ds, batch_size=batch, shuffle=False),
+                  epochs=epochs, save_dir=save_dir, resume=resume, verbose=0,
+                  callbacks=[rec], **kw)
+        torch.cuda.synchronize()
+        return model, rec.losses, time.perf_counter() - t0
+
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    try:
+        a, b = str(root / "a"), str(root / "b")
+        full, full_losses, full_s = run(a, epochs=2, max_ckpt_to_keep=1)
+        want = _state_of(full)
+        del full
+        free_memory()
+        kept = sorted(os.listdir(a))
+        if kept != ["1.pdmeta", "1.pdopt", "1.pdparams"]:
+            raise AssertionError(f"fit resume: max_ckpt_to_keep=1 left {kept}")
+        _, first_losses, _ = run(b, epochs=1)
+        resumed, resumed_losses, resumed_s = run(b, epochs=2, resume=True)
+        got = _state_of(resumed)
+        del resumed
+        free_memory()
+        params_equal = all(torch.equal(x, y) for x, y in zip(got[0],
+                                                               want[0]))
+        slots_equal = got[1].keys() == want[1].keys() and all(
+            torch.equal(got[1][k], want[1][k]) for k in want[1])
+        if resumed_losses != full_losses[4:] or first_losses != \
+                full_losses[:4] or not params_equal or not slots_equal:
+            raise AssertionError(
+                f"fit resume: losses {first_losses} + {resumed_losses} vs "
+                f"{full_losses}; parameters equal {params_equal}, slots "
+                f"equal {slots_equal}")
+        ckpt_bytes = sum((Path(b) / f).stat().st_size
+                         for f in os.listdir(b) if f.startswith("1."))
+        with open(os.path.join(b, "1.pdparams"), "r+b") as f:
+            f.truncate(4096)
+        n_skip = len(explainer.events(kind="checkpoint_skip"))
+        _, torn_losses, _ = run(b, epochs=1, resume=True)
+        skips = explainer.events(kind="checkpoint_skip")[n_skip:]
+        restored = explainer.events(kind="checkpoint_restore")[-1]
+        if len(skips) != 1 or skips[0]["epoch"] != 1 or torn_losses or \
+                restored["epoch"] != 0:
+            raise AssertionError(f"fit resume: a torn checkpoint gave skips "
+                                 f"{skips}, restore {restored}, losses "
+                                 f"{torn_losses}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    faults.configure("nan_loss:step=3")
+    try:
+        model, nan_losses, _ = run(epochs=1)
+    finally:
+        faults.reset()
+    finite = all(torch.isfinite(p).all() for p in model.network.parameters())
+    if not (len(nan_losses) == 4 and np.isnan(nan_losses[3])
+            and np.isfinite(nan_losses[:3]).all() and finite):
+        raise AssertionError(f"fit resume: nan_loss gave {nan_losses}, "
+                             f"parameters finite {finite}")
+    del model
+    free_memory()
+    result = {"n_layer": n_layer, "losses": full_losses,
+              "resumed_losses": resumed_losses, "bitwise": True,
+              "checkpoint_gb": ckpt_bytes / 1e9,
+              "fit_2_epochs_s": full_s, "resumed_fit_s": resumed_s,
+              "torn_skipped_epoch": skips[0]["epoch"],
+              "nan_loss_losses": nan_losses}
+    log("fit resume: " + json.dumps(result))
+    return result
+
+
+def phase_fp16_scaler(dev, n_layer=2, batch=4, seq_len=2048, steps=4):
+    """11c: full width, ``n_layer`` layers, float32 parameters: ``steps``
+    eager steps under ``auto_cast(dtype="float16")`` with ``GradScaler``:
+    the losses finite, the attention on the plain route with a
+    ``kernel_fallback`` record naming float16 (the kernels take float32
+    and bf16, as the reference's), K1 not launched. Then a step whose
+    gradient is set to inf before ``scaler.step``: the parameters bitwise
+    unchanged and the scale halved. Then a ``step_fn`` calling
+    ``scaler.step`` under ``TrainStep``: refused before anything is
+    captured."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import explainer, registry
+
+    cfg, model = fit_model(dev, n_layer=n_layer)
+    net, opt, crit = model.network, model._optimizer, model._loss
+    scaler = amp.GradScaler()
+    tokens, labels = token_batch(dev, net, batch, seq_len, seed=5)
+
+    def step_fn(x, y):
+        with amp.auto_cast(dtype="float16"):
+            loss = crit(net(x), y)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    torch.cuda.synchronize()
+    fa.reset_device_launches()
+    n_fb = len(explainer.events(kind="kernel_fallback"))
+    losses, scales, times = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(step_fn(tokens, labels).detach()))
+        times.append(time.perf_counter() - t0)
+        scales.append(scaler._scale)
+    fallbacks = explainer.events(kind="kernel_fallback")[n_fb:]
+    k1 = fa.device_launches()["flash_fwd"]
+    if not all(np.isfinite(losses)) or k1 or \
+            len(fallbacks) != steps * n_layer or \
+            not all("float16" in e["why"] for e in fallbacks):
+        raise AssertionError(f"fp16: losses {losses}, K1 launches {k1}, "
+                             f"fallback records {fallbacks[-2:]} "
+                             f"({len(fallbacks)})")
+    with amp.auto_cast(dtype="float16"):
+        loss = crit(net(tokens), labels)
+    scaler.scale(loss).backward()
+    next(net.parameters()).grad.fill_(float("inf"))
+    before = [p.detach().clone() for p in net.parameters()]
+    scale = scaler._scale
+    scaler.step(opt)
+    scaler.update()
+    opt.clear_grad()
+    unchanged = all(torch.equal(a, p) for a, p in zip(before,
+                                                       net.parameters()))
+    if not unchanged or scaler._scale != scale / 2:
+        raise AssertionError(f"fp16: the inf step changed the parameters "
+                             f"({not unchanged}) or the scale {scale} -> "
+                             f"{scaler._scale}")
+    registry.reset("jit")
+    try:
+        TrainStep(step_fn, net, opt)(tokens, labels)
+    except RuntimeError as e:
+        if "could not be captured" not in str(e):
+            raise
+        refusal = str(e).split("(")[0]
+    else:
+        raise AssertionError("fp16: TrainStep captured a step that calls "
+                             "scaler.step")
+    if registry.counters("jit")["train_step_captures"]:
+        raise AssertionError("fp16: the refused step was captured")
+    opt.clear_grad()
+    result = {"n_layer": n_layer, "losses": losses, "scales": scales,
+              "step_ms": [t * 1e3 for t in times],
+              "fallback_why": fallbacks[0]["why"], "k1_launches": k1,
+              "inf_step": {"parameters_unchanged": True,
+                           "scale": [scale, scaler._scale]},
+              "train_step_refusal": refusal}
+    log("fp16 scaler: " + json.dumps(result))
+    del model, net, opt
     free_memory()
     return result
 
@@ -3600,6 +3974,47 @@ def flash_instances(lib_path):
     return out
 
 
+def child_processes():
+    """[(pid, command line)] of every live process whose parent is this
+    one (zombies are not counted: they have ended)."""
+    me = str(os.getpid())
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            # the fields after the command, which may hold ")" itself
+            stat = (d / "stat").read_text()
+            state, ppid = stat.rsplit(")", 1)[1].split()[:2]
+            if ppid == me and state != "Z":
+                cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ")
+                out.append((int(d.name), cmd.decode(errors="replace")[:160]))
+        except (OSError, ValueError):
+            continue
+    return out
+
+
+def stop_children():
+    """Stop the DataLoader's workers, fork server and resource tracker
+    (they would end a moment after this process), then every other child
+    still alive. Returns those others: the script starts none that should
+    still run here."""
+    dataloader = sys.modules.get("paddle_tpu_torch.io.dataloader")
+    if dataloader is not None:
+        dataloader.stop_servers()
+    left = child_processes()
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid, _ in child_processes():
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + 10
+        while child_processes() and time.monotonic() < deadline:
+            time.sleep(0.1)
+    return left
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on a "
@@ -3669,9 +4084,13 @@ def main():
     policy_parity = phase_recompute_parity(dev)
     recipe = phase_recipe_graph(dev)
     recaptured = phase_recapture(dev)
+    fitted = phase_fit(dev, trained["step_ms"])
+    resumed = phase_fit_resume(dev)
+    fp16 = phase_fp16_scaler(dev)
     for name, row in flash.items():
         row["launches_by_path"] = {
             "training": trained["launches"][name],
+            "fit (bf16 instance)": fitted["launches"][name],
             "moe training": moe_trained["launches"][name],
             **{f"recompute {pol} (per step)": r["launches_per_step"][name]
                for pol, r in policies.items()}}
@@ -3752,6 +4171,28 @@ def main():
         f"{moe_trained['replay_step_ms']:.1f} ms (graph replay), "
         f"losses {moe_trained['losses']}, peak memory "
         f"{moe_trained['peak_memory_gb']:.1f} GB")
+    log(f"fit on {smi}: gpt3-1.3B float32 parameters under O1, batch "
+        f"{fitted['batch']} x {fitted['seq_len']}, {fitted['workers']} "
+        f"workers: p50 batch {fitted['batch_p50_ms']:.1f} ms (phase 7's "
+        f"graph step {trained['step_ms']:.1f} ms), "
+        f"{fitted['tokens_per_s']:.0f} tokens/s, MFU {fitted['mfu']:.4f}, "
+        f"peak memory {fitted['peak_memory_gb']:.1f} GB; dataloader.wait "
+        f"p50 {fitted['dataloader_wait_p50_ms']:.3f} ms, worker_busy "
+        f"{fitted['worker_busy_s']:.3f} s, workers' first batch after "
+        f"{fitted['worker_start_s']:.2f} s, "
+        f"{fitted['worker_restart_s']:.3f} s in a second epoch (worker "
+        f"module import {fitted['worker_import_s']:.2f} s); losses "
+        f"{fitted['losses'][0]:.4f} -> {fitted['losses'][-1]:.4f}")
+    log(f"fit resume on {smi}: bitwise over epoch 2 "
+        f"{resumed['resumed_losses']}, checkpoint "
+        f"{resumed['checkpoint_gb']:.2f} GB, torn epoch "
+        f"{resumed['torn_skipped_epoch']} skipped, nan_loss "
+        f"{resumed['nan_loss_losses']}; fp16 losses {fp16['losses']}, "
+        f"scales {fp16['scales']}, fallback \"{fp16['fallback_why']}\", "
+        f"inf step {json.dumps(fp16['inf_step'])}")
+    left = stop_children()
+    if left:
+        raise AssertionError(f"processes still running at the end: {left}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [*paged, *flash.values()]}))
     print(smi)
@@ -3762,4 +4203,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:  # a failed phase leaves nothing running either
+        stop_children()
+    sys.exit(rc)

@@ -32,6 +32,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ....amp.auto_cast import restored as _amp_restored
+from ....amp.auto_cast import snapshot as _amp_snapshot
 from ....ops import flash_attention  # noqa: F401  (registers the op)
 
 __all__ = ["recompute", "recompute_policy_fn", "POLICIES"]
@@ -92,8 +94,18 @@ def recompute(function, *args, layer=None, use_reentrant=True, policy=None,
     torch's default generators are saved and replayed by the checkpoint,
     except while a CUDA graph captures the step: their state cannot be read
     then, so under capture a recomputed ``function`` must draw no random
-    numbers from them (``GPTBlock`` refuses dropout there)."""
+    numbers from them (``GPTBlock`` refuses dropout there). Under
+    ``amp.auto_cast`` the recomputation casts as the forward did."""
     fn = recompute_policy_fn(policy)
+    amp = _amp_snapshot()
+    if amp is not None:
+        # the recomputation runs in the backward, outside the forward's
+        # auto_cast: it casts as the forward did
+        inner = function
+
+        def function(*a, **k):
+            with _amp_restored(amp):
+                return inner(*a, **k)
     capturing = torch.cuda.is_available() and \
         torch.cuda.is_current_stream_capturing()
     opts = dict(use_reentrant=False, preserve_rng_state=not capturing)

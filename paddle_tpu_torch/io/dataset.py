@@ -1,0 +1,247 @@
+"""Datasets and samplers (counterpart of paddle_tpu/io/dataset.py).
+
+Plain Python over numpy, as in the reference. The samplers draw from
+numpy's global generator exactly as the reference's do, so the same
+``np.random.seed`` gives the same index order in both packages;
+``DistributedBatchSampler`` shuffles with ``default_rng(epoch)`` as there.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+__all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
+           "ChainDataset", "ConcatDataset", "Subset", "random_split",
+           "Sampler", "SequenceSampler", "RandomSampler", "BatchSampler",
+           "DistributedBatchSampler", "WeightedRandomSampler"]
+
+
+class Dataset:
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+
+class IterableDataset(Dataset):
+    def __iter__(self):
+        raise NotImplementedError
+
+    def __getitem__(self, idx):
+        raise RuntimeError("IterableDataset is not indexable")
+
+    def __len__(self):
+        raise RuntimeError("IterableDataset has no len()")
+
+
+class TensorDataset(Dataset):
+    def __init__(self, tensors):
+        self.tensors = tensors
+
+    def __getitem__(self, idx):
+        return tuple(t[idx] for t in self.tensors)
+
+    def __len__(self):
+        return len(self.tensors[0])
+
+
+class ComposeDataset(Dataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+
+    def __len__(self):
+        return min(len(d) for d in self.datasets)
+
+    def __getitem__(self, idx):
+        out = []
+        for d in self.datasets:
+            item = d[idx]
+            out.extend(item if isinstance(item, tuple) else (item,))
+        return tuple(out)
+
+
+class ChainDataset(IterableDataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+
+    def __iter__(self):
+        for d in self.datasets:
+            yield from d
+
+
+class ConcatDataset(Dataset):
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.cum = np.cumsum([len(d) for d in self.datasets]).tolist()
+
+    def __len__(self):
+        return self.cum[-1]
+
+    def __getitem__(self, idx):
+        if idx < 0:
+            idx += len(self)
+        for i, c in enumerate(self.cum):
+            if idx < c:
+                prev = self.cum[i - 1] if i else 0
+                return self.datasets[i][idx - prev]
+        raise IndexError(idx)
+
+
+class Subset(Dataset):
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = list(indices)
+
+    def __getitem__(self, idx):
+        return self.dataset[self.indices[idx]]
+
+    def __len__(self):
+        return len(self.indices)
+
+
+def random_split(dataset, lengths, generator=None):
+    total = len(dataset)
+    lengths = list(lengths)
+    if all(isinstance(l, float) for l in lengths):
+        lengths = [int(math.floor(total * l)) for l in lengths]
+        lengths[-1] = total - sum(lengths[:-1])
+    assert sum(lengths) == total
+    perm = np.random.permutation(total).tolist()
+    out, off = [], 0
+    for l in lengths:
+        out.append(Subset(dataset, perm[off:off + l]))
+        off += l
+    return out
+
+
+class Sampler:
+    def __init__(self, data_source=None):
+        self.data_source = data_source
+
+    def __iter__(self):
+        raise NotImplementedError
+
+    def __len__(self):
+        return len(self.data_source)
+
+
+class SequenceSampler(Sampler):
+    def __iter__(self):
+        return iter(range(len(self.data_source)))
+
+
+class RandomSampler(Sampler):
+    def __init__(self, data_source, replacement=False, num_samples=None,
+                 generator=None):
+        super().__init__(data_source)
+        self.replacement = replacement
+        self._num_samples = num_samples
+
+    @property
+    def num_samples(self):
+        return self._num_samples or len(self.data_source)
+
+    def __iter__(self):
+        n = len(self.data_source)
+        if self.replacement:
+            return iter(np.random.randint(0, n, self.num_samples).tolist())
+        return iter(np.random.permutation(n)[: self.num_samples].tolist())
+
+    def __len__(self):
+        return self.num_samples
+
+
+class WeightedRandomSampler(Sampler):
+    def __init__(self, weights, num_samples, replacement=True):
+        super().__init__(None)
+        self.weights = np.asarray(weights, np.float64)
+        self.num_samples = num_samples
+        self.replacement = replacement
+
+    def __iter__(self):
+        p = self.weights / self.weights.sum()
+        return iter(np.random.choice(len(self.weights), self.num_samples,
+                                     replace=self.replacement, p=p).tolist())
+
+    def __len__(self):
+        return self.num_samples
+
+
+class BatchSampler(Sampler):
+    def __init__(self, dataset=None, sampler=None, shuffle=False, batch_size=1,
+                 drop_last=False):
+        super().__init__(dataset)
+        if sampler is not None:
+            self.sampler = sampler
+        elif shuffle:
+            self.sampler = RandomSampler(dataset)
+        else:
+            self.sampler = SequenceSampler(dataset)
+        self.batch_size = batch_size
+        self.drop_last = drop_last
+
+    def __iter__(self):
+        batch = []
+        for idx in self.sampler:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def __len__(self):
+        n = len(self.sampler)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+
+class DistributedBatchSampler(BatchSampler):
+    """Shards sample indices across data-parallel ranks: rank ``r`` of
+    ``n`` takes every ``n``-th index from ``r``, the list padded by its head
+    to a multiple of ``n``."""
+
+    def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
+                 shuffle=False, drop_last=False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        # the port has no process group yet (ROADMAP queue 1 item 6):
+        # without num_replicas / rank it is rank 0 of 1
+        num_replicas = num_replicas or 1
+        rank = rank if rank is not None else 0
+        self.nranks = num_replicas
+        self.local_rank = rank
+        self.epoch = 0
+        self.num_samples = int(math.ceil(len(dataset) / self.nranks))
+        self.total_size = self.num_samples * self.nranks
+
+    def __iter__(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            rng = np.random.default_rng(self.epoch)
+            indices = rng.permutation(n).tolist()
+        else:
+            indices = list(range(n))
+        indices += indices[: (self.total_size - n)]
+        indices = indices[self.local_rank::self.nranks]
+        batch = []
+        for idx in indices:
+            batch.append(idx)
+            if len(batch) == self.batch_size:
+                yield batch
+                batch = []
+        if batch and not self.drop_last:
+            yield batch
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return (self.num_samples + self.batch_size - 1) // self.batch_size

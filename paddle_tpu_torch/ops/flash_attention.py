@@ -40,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from ..amp.auto_cast import cast_inputs as _amp_cast
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from . import _build
@@ -400,7 +401,14 @@ def flash_attention(q, k, v, mask=None, causal=False, scale=None,
     :func:`attention_op` on the kernels, which launch or raise; an
     ineligible one takes the plain path and records why. "cuda" with CPU
     tensors raises. The plain path is :func:`flash_attention_ref`, the
-    op's plain route (so a recompute policy sees it too)."""
+    op's plain route (so a recompute policy sees it too).
+
+    Under ``amp.auto_cast`` the inputs first take the plan of the op
+    ``flash_attention`` (white-listed: q, k, v and a float mask in the low
+    dtype), as the reference's dispatcher casts them; the kernels take
+    float32 and bf16 only, so a float16 call takes the plain path and
+    records why."""
+    q, k, v, mask = _amp_cast("flash_attention", q, k, v, mask)
     route = kernel or ("cuda" if q.device.type == "cuda" else "torch")
     if route not in ("cuda", "torch"):
         raise ValueError(f"flash_attention: kernel={kernel!r} (expected "

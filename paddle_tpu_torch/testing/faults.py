@@ -65,11 +65,12 @@ Points and their sites in this package:
     kernel_mismatch      ops/paged_attention route             nth
     truncate_checkpoint  incubate/checkpoint writer            nth, bytes
     mutate_signature     jit.TrainStep's signature check       nth, mode
+    nan_loss             hapi.Model.train_batch                step
     ===================  ====================================  ============
 
 The remaining points parse, arm and fire like the reference's, but no site
 in this package fires them yet: ``kill_at_step``, ``rank_preempt`` and
-``step_hang`` (the elastic ``CheckpointHook``), ``nan_loss`` (hapi),
+``step_hang`` (the elastic ``CheckpointHook``),
 ``store_flaky``, ``store_slow`` and ``store_partition`` (the rendezvous
 store), ``pod_kill`` and ``router_drop`` (the serving fleet). The ``net_*`` data-plane points of
 the reference's ``testing/netfaults.py`` are not ported: arming one

@@ -803,3 +803,97 @@ def test_train_step_refuses_a_sparse_embedding_on_the_card(cuda):
     step_fn(ids)  # the eager loop takes it: only rows 1 and 3 move
     moved = (emb.weight.detach() != before).any(1)
     assert moved.nonzero().flatten().tolist() == [1, 3]
+
+
+# ------------------------------------------- Model.fit, AMP, GradScaler --
+def test_fit_under_o1_runs_the_bf16_kernels_through_one_graph(cuda):
+    """hapi.Model.fit on a float32 model under O1, fed by a DataLoader with
+    two shm-ring workers: one capture, every K1-K3 launch on the bf16
+    instance (eager warm-up and replays alike), finite losses."""
+    import numpy as np
+
+    from paddle_tpu_torch import hapi, io
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.profiler import registry
+
+    cfg = tgpt.GPTConfig.preset("gpt2-tiny", vocab_size=256, n_head=2)
+    net = tgpt.GPTForPretraining(tgpt.GPTModel(
+        cfg, device=cuda, generator=torch.Generator(cuda).manual_seed(0)))
+    model = hapi.Model(net)
+    model.prepare(topt.AdamW(learning_rate=1e-3,
+                             parameters=net.parameters()),
+                  tgpt.GPTPretrainingCriterion(), amp_configs="O1")
+    toks = np.random.default_rng(0).integers(0, 256, (8, 129))
+    loader = io.DataLoader(io.TensorDataset([toks[:, :-1], toks[:, 1:]]),
+                           batch_size=2, shuffle=True, num_workers=2)
+    registry.reset("jit")
+    torch.cuda.synchronize()
+    fa.reset_device_launches()
+    hist = model.fit(loader, epochs=2, verbose=0)
+    counts = fa.device_launches()
+    assert registry.counters("jit")["train_step_captures"] == 1
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert counts["by_dtype"]["bfloat16"][name] == 8 * cfg.n_layer
+        assert counts["by_dtype"]["float32"][name] == 0
+    assert all(np.isfinite(h["loss"]) for h in hist)
+    assert all(p.dtype == torch.float32 for p in net.parameters())
+
+
+def test_grad_scaler_is_refused_under_train_step(cuda):
+    """The scaler reads its all-finite flag on the host (as the
+    reference's does), so TrainStep refuses a step that calls it, in the
+    first (eager) call, before anything is captured."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import registry
+
+    lin = torch.nn.Linear(8, 8).to(cuda)
+    opt = topt.SGD(0.1, parameters=lin.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=1024.0)
+
+    def step_fn(x):
+        with amp.auto_cast(dtype="float16"):
+            loss = lin(x).float().square().mean()
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss
+
+    registry.reset("jit")
+    step = TrainStep(step_fn, lin, opt)
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        step(torch.ones(4, 8, device=cuda))
+    assert registry.counters("jit")["train_step_captures"] == 0
+    # eagerly the same step runs, and an inf gradient skips the update
+    step_fn(torch.ones(4, 8, device=cuda))
+    before = [p.detach().clone() for p in lin.parameters()]
+    scale = scaler._scale
+    loss = lin(torch.ones(4, 8, device=cuda)).sum() * float("inf")
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    scaler.update()
+    assert all(torch.equal(a, p) for a, p in zip(before, lin.parameters()))
+    assert scaler._scale == scale / 2
+
+
+def test_float16_attention_takes_the_plain_route_and_says_why(cuda):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.profiler import explainer
+
+    q = torch.randn(1, 128, 2, 64, device=cuda)
+    torch.cuda.synchronize()
+    fa.reset_device_launches()
+    n0 = len(explainer.events(kind="kernel_fallback"))
+    with amp.auto_cast(dtype="float16"):
+        out = fa.flash_attention(q, q, q, causal=True, kernel="cuda")
+    assert out.dtype == torch.float16
+    why = explainer.events(kind="kernel_fallback")[n0:]
+    assert len(why) == 1 and "float16" in why[0]["why"]
+    assert fa.device_launches()["flash_fwd"] == 0
+    with amp.auto_cast():  # bf16: the kernel
+        assert fa.flash_attention(q, q, q, causal=True,
+                                  kernel="cuda").dtype == torch.bfloat16
+    assert fa.device_launches()["by_dtype"]["bfloat16"]["flash_fwd"] == 1

@@ -5,13 +5,17 @@
 Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_train_profile.py [--preset gpt3-1.3B] [--batch 4]
-        [--seq-len 2048] [--steps 2] [--route both|graph|eager]
+        [--seq-len 2048] [--steps 2] [--route both|graph|eager|fit|all]
         [--trace train_trace.json]
 
 Builds the training step of ``chip_smoke.py`` phase 7 through its
 ``training_setup`` (the preset in bf16 with random weights from seed 0,
 ``TrainStep`` with ``AdamW(1e-4, multi_precision=True)``, one fixed
-batch). Per route: 3 warm-up steps (for the graph: the eager call, the
+batch). The "fit" route is phase 11's step instead: ``hapi.Model
+.train_batch`` on the preset with float32 parameters under O1 (built by
+``chip_smoke.fit_model``), its batch handed over as CPU tensors as the
+DataLoader hands it; "all" runs eager, graph and fit, one model at a
+time. Per route: 3 warm-up steps (for a graph: the eager call, the
 capture and a replay), 5 steps timed on the host clock, then ``--steps``
 more traced with ``torch.profiler``. Prints the card (nvidia-smi name and
 power limit), and per route the step time, the device-busy share of the
@@ -90,8 +94,11 @@ def profile(step, steps):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = list(prof.events())
+    # device events, less the ranges a record_function (RecordEvent) span
+    # draws on the device timeline: they are no kernel
     kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     host = [e.name for e in events
             if e.device_type != torch.autograd.DeviceType.CUDA]
     busy_us = _busy_union((e.time_range.start, e.time_range.end)
@@ -132,7 +139,7 @@ def main():
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--route", default="both",
-                    choices=("both", "graph", "eager"))
+                    choices=("both", "graph", "eager", "fit", "all"))
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace of the window here")
     args = ap.parse_args()
@@ -140,25 +147,43 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import training_setup
+    from chip_smoke import fit_model, free_memory, training_setup
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    _, _, _, train, tokens, labels = training_setup(
-        dev, args.preset, args.batch, args.seq_len)
-    routes = {"eager": lambda: train.step_fn(tokens, labels),
-              "graph": lambda: train(tokens, labels)}
-    order = ["eager", "graph"] if args.route == "both" else [args.route]
+    order = {"both": ["eager", "graph"], "all": ["eager", "graph", "fit"]}
+    order = order.get(args.route, [args.route])
+
+    def bf16_routes():
+        _, _, _, train, tokens, labels = training_setup(
+            dev, args.preset, args.batch, args.seq_len)
+        return {"eager": lambda: train.step_fn(tokens, labels),
+                "graph": lambda: train(tokens, labels)}
+
+    routes = bf16_routes() if {"eager", "graph"} & set(order) else {}
+
+    def fit_route():
+        """Phase 11's step, built once the other routes' model is gone."""
+        routes.clear()
+        free_memory()
+        _, model = fit_model(dev, preset=args.preset)
+        toks = torch.randint(0, model.network.gpt.cfg.vocab_size,
+                             (args.batch, args.seq_len + 1),
+                             generator=torch.Generator().manual_seed(0))
+        return lambda: model.train_batch([toks[:, :-1]], toks[:, 1:])
+
     print(f"card: {smi}")
     out = {"card": smi, "preset": args.preset, "batch": args.batch,
            "seq_len": args.seq_len}
     prof = None
     for route in order:
-        res, prof = profile(routes[route], args.steps)
+        step = fit_route() if route == "fit" else routes[route]
+        res, prof = profile(step, args.steps)
         out[route] = res
-        print(f"{args.preset} bf16, batch {args.batch} x {args.seq_len}, "
+        kind = "float32 under O1" if route == "fit" else "bf16"
+        print(f"{args.preset} {kind}, batch {args.batch} x {args.seq_len}, "
               f"{route}: step {res['step_ms']:.1f} ms (host clock, 5 "
               f"steps), device {res['device_ms_per_step']:.1f} ms, busy "
               f"{res['device_busy_share']:.1%}, "
