@@ -170,6 +170,9 @@ Phases, in order; any failure exits non-zero:
              bf16, TrainStep + AdamW with master weights, batch 4 x 2048,
              loss + moe_aux_loss(), 3 steps on one batch: both finite,
              the loss falling, K1-K3 launched once per layer per step;
+             the autograd engine's AccumulateGrad stream warnings per
+             call (and with the MoE aux loss dropped after the warm-up)
+             and the host's waits over two replays are reported;
  9d. older cache forms  gpt3-1.3B width, 2 layers, float32: greedy tokens
              through the slot cache and through one-row concat decoding
              equal the paged engine's.
@@ -216,6 +219,27 @@ Phases, in order; any failure exits non-zero:
              naming float16 and K1 not launched; a step with an inf
              gradient leaves the parameters bitwise and halves the scale;
              scaler.step inside TrainStep is refused before any capture.
+12. distributed  two ranks, children of this script, on cuda:0 with gloo
+             carrying CUDA tensors (the card machine has one card, and two
+             NCCL ranks cannot share it): fleet.init(mp_degree=2), phase
+             7's model (gpt3-1.3B bf16, full width and depth, seed 0)
+             through fleet.distributed_model, its AdamW with master weights
+             and its batch: the first-step logits (each rank's vocabulary
+             block) within MP_LOGITS_TOL of phase 7's model's, built whole
+             in the rank from the same seed, where the same model with q,
+             k and v split as one contiguous block (the control) must miss
+             them by more; 3 eager steps: the losses within MP_LOSS_TOL of
+             phase 7's first three, K1-K3 launched 3 x 24 times on each
+             rank's card count at 16 heads a rank, TrainStep refusing to
+             capture over the gloo group; step time, bytes all-reduced per
+             step and per-rank peak memory reported;
+12b.         the same world at dp = 2 and at mp = 2, gpt3-1.3B width at 2
+             layers in float32, SGD: the parameters after 3 steps (merged
+             back over mp) within SMALL_PARAM_TOL of a single-process run;
+             the dp = 2 state saved as a sharded checkpoint at world 2 and
+             read back whole by this process;
+12c.         init_parallel_env() alone at world 1 in a child process picks
+             NCCL and runs one all_reduce and one barrier.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -235,8 +259,8 @@ Before it prints a result it stops the DataLoader's fork server, the
 resource tracker and any worker still running, and fails if any other
 process it started is still alive; on a failed phase it stops them too.
 
-Prints a {"kernels": [...]} line and the nvidia-smi line before the last
-line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
+Prints a {"phases": {...}} line (each phase's seconds), a {"kernels":
+[...]} line and the nvidia-smi line before the last line, {"ok": true, "device": {...}}. Without CUDA, or without the rest of
 the repository beside it, it prints no result and exits 2.
 """
 from __future__ import annotations
@@ -305,6 +329,19 @@ DESIGNS = {
                      "accumulators, 2 blocks per SM; float32 and bf16 at "
                      "H=96/256: " + _WMMA,
 }
+
+
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds kept under ``name`` for the
+    ``phases`` line."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 3)
 
 
 def log(msg):
@@ -837,7 +874,8 @@ def phase_flash_kernels(dev):
 
 # -------------------------------------------------------------- training --
 def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
-                   learning_rate=1e-4, **cfg_over):
+                   learning_rate=1e-4, graph=True, distribute=False,
+                   **cfg_over):
     """The pretraining step of ``bench.py``: ``preset`` in bf16 (dropout 0,
     random weights from ``seed``), ``GPTPretrainingCriterion`` (plus the
     model's ``moe_aux_loss()`` for an MoE config),
@@ -847,18 +885,18 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
     labels)`` is one step and returns the loss (aux loss included): the
     first call eager, the second captured as a CUDA graph and replayed, and
     every later one a replay; ``train.step_fn(tokens, labels)`` is the same
-    step run eagerly."""
+    step run eagerly. ``graph=False``: ``train`` is that eager step itself.
+    ``distribute``: the model goes through ``fleet.distributed_model``
+    (after ``fleet.init``) before the optimizer is built."""
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
-                                             GPTModel,
-                                             GPTPretrainingCriterion)
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
     from paddle_tpu_torch.optimizer import AdamW
 
-    cfg = GPTConfig.preset(preset, seq_len=seq_len, dtype="bfloat16",
-                           dropout=0.0, **cfg_over)
-    model = GPTForPretraining(GPTModel(
-        cfg, device=dev,
-        generator=torch.Generator(device=dev).manual_seed(seed)))
+    cfg, model = pretraining_model(dev, preset, seq_len, seed, **cfg_over)
+    if distribute:
+        from paddle_tpu_torch.distributed import fleet
+
+        fleet.distributed_model(model)
     crit = GPTPretrainingCriterion()
     opt = AdamW(learning_rate=learning_rate, multi_precision=True,
                 parameters=model.parameters())
@@ -873,12 +911,29 @@ def training_setup(dev, preset="gpt3-1.3B", batch=4, seq_len=2048, seed=0,
         opt.clear_grad()
         return loss
 
-    train = TrainStep(step_fn, model, opt)
-    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                             (batch, seq_len))
-    tokens = torch.from_numpy(toks).to(dev)
-    labels = torch.from_numpy(np.roll(toks, -1, axis=1)).to(dev)
+    train = TrainStep(step_fn, model, opt) if graph else step_fn
+    tokens, labels = pretraining_batch(dev, cfg.vocab_size, batch, seq_len)
     return cfg, model, opt, train, tokens, labels
+
+
+def pretraining_model(dev, preset="gpt3-1.3B", seq_len=2048, seed=0,
+                      **cfg_over):
+    """``training_setup``'s model: ``(cfg, GPTForPretraining)``."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+
+    cfg = GPTConfig.preset(preset, seq_len=seq_len, dtype="bfloat16",
+                           dropout=0.0, **cfg_over)
+    return cfg, GPTForPretraining(GPTModel(
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
+
+
+def pretraining_batch(dev, vocab, batch=4, seq_len=2048):
+    """``training_setup``'s batch (seed 0) and its next-token labels."""
+    toks = np.random.default_rng(0).integers(0, vocab, (batch, seq_len))
+    return (torch.from_numpy(toks).to(dev),
+            torch.from_numpy(np.roll(toks, -1, axis=1)).to(dev))
 
 
 def flash_device_counts():
@@ -1240,36 +1295,34 @@ def recipe_setup(dev, seed, preset="gpt3-1.3B", n_layer=2, seq_len=2048,
 
 
 class DropoutRecorder:
-    """Test instrumentation: ``ops.attention.output_dropout`` wrapped to
-    keep the input and output of each call made while a CUDA graph
-    captures; replays rewrite those tensors in place."""
+    """Test instrumentation: the GPT's ``hashed_dropout`` wrapped to keep
+    the input and output of each call with a rate above 0 made while a
+    CUDA graph captures; replays rewrite those tensors in place."""
 
     def __init__(self):
-        from paddle_tpu_torch.ops import attention
+        from paddle_tpu_torch.models import gpt
 
-        self.mod, self.orig, self.calls = attention, \
-            attention.output_dropout, []
+        self.mod, self.orig, self.calls = gpt, gpt.hashed_dropout, []
 
     def __enter__(self):
-        def rec(out, p, training, generator=None):
-            res = self.orig(out, p, training, generator)
-            if torch.cuda.is_current_stream_capturing():
-                self.calls.append((out, res, p))
+        def rec(y, p, key, site, *shard):
+            res = self.orig(y, p, key, site, *shard)
+            if p > 0 and torch.cuda.is_current_stream_capturing():
+                self.calls.append((y, res, p))
             return res
 
-        self.mod.output_dropout = rec
+        self.mod.hashed_dropout = rec
         return self
 
     def __exit__(self, *exc):
-        self.mod.output_dropout = self.orig
+        self.mod.hashed_dropout = self.orig
 
 
 def optimizer_cases():
     """(label, optimizer class name, keyword arguments) for phase 10b's
     captured-step check: every optimizer, regularizer and clip of the
-    port beside AdamW's recipe, on dense gradients (sparse rows and
-    ``lazy_mode`` are eager-only on the card: ``refusals`` checks that
-    ``TrainStep`` refuses them)."""
+    port beside AdamW's recipe, on dense gradients (under the graph a
+    sparse embedding takes the dense path: ``refusals`` checks it)."""
     from paddle_tpu_torch import nn as N
     from paddle_tpu_torch import regularizer as R
 
@@ -1343,12 +1396,14 @@ def captured_equals_eager(dev, label, cls, kw, steps=3):
 
 def refusals(dev):
     """A ``step_fn`` that reads the host is refused from its first call,
-    twice, with nothing captured; a sparse embedding is refused when the
-    step is built; then a good step still captures and replays in this
-    process (no capture was left invalidated). Returns the messages."""
+    twice, with nothing captured; then a good step still captures and
+    replays in this process (no capture was left invalidated); a sparse
+    embedding takes the dense gradient path under the graph, with a
+    ``kernel_fallback`` event naming it (one capture, finite losses).
+    Returns the messages."""
     from paddle_tpu_torch import optimizer as O
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.profiler import explainer, registry
 
     lin = torch.nn.Linear(64, 64).to(dev)
     opt = O.SGD(0.1, parameters=lin.parameters())
@@ -1374,18 +1429,32 @@ def refusals(dev):
             said["host_read"] = str(e)[:120]
         else:
             raise AssertionError("refusals: a step that reads the host ran")
-    emb = torch.nn.Embedding(64, 64, sparse=True).to(dev)
-    try:
-        TrainStep(reads_host, emb, O.Adam(0.1, parameters=emb.parameters(),
-                                          lazy_mode=True))
-    except ValueError as e:
-        said["sparse"] = str(e)[:120]
-    else:
-        raise AssertionError("refusals: TrainStep took a sparse embedding")
     if registry.counters("jit")["train_step_captures"]:
         raise AssertionError("refusals: a refused step was captured")
     captured_equals_eager(dev, "SGD after the refusals", "SGD",
                           dict(learning_rate=0.1))
+    emb = torch.nn.Embedding(64, 64, sparse=True).to(dev)
+    eopt = O.Adam(0.1, parameters=emb.parameters(), lazy_mode=True)
+
+    def emb_step(ids):
+        loss = emb(ids).square().mean()
+        loss.backward()
+        eopt.step()
+        eopt.clear_grad()
+        return loss
+
+    n0 = len(explainer.events(kind="kernel_fallback"))
+    captures = registry.counters("jit")["train_step_captures"]
+    sparse_step = TrainStep(emb_step, emb, eopt)
+    ev = explainer.events(kind="kernel_fallback")[n0:]
+    ids = torch.tensor([[1, 3, 3, 0], [5, 1, 2, 3]], device=dev)
+    losses = [float(sparse_step(ids)) for _ in range(3)]
+    if [e["op"] for e in ev] != ["nn.Embedding(sparse=True)"] or \
+            registry.counters("jit")["train_step_captures"] != captures + 1 \
+            or not all(np.isfinite(losses)):
+        raise AssertionError(f"refusals: a sparse embedding under the graph "
+                             f"gave events {ev}, losses {losses}")
+    said["sparse"] = ev[0]["why"][:120]
     return said
 
 
@@ -1401,7 +1470,8 @@ def phase_recipe_graph(dev, preset="gpt3-1.3B", n_layer=2, batch=4,
     scale the kept ones by ``1 / (1 - p)`` exactly, and differ from the
     replay before. Then every optimizer, regularizer and clip of the
     port: a captured step equals its eager step (``optimizer_cases``),
-    and the steps ``TrainStep`` cannot capture are refused (``refusals``)."""
+    the steps ``TrainStep`` cannot capture are refused and a sparse
+    embedding takes the dense path (``refusals``)."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.profiler import registry
 
@@ -1614,11 +1684,11 @@ def batch_recorder():
 
 
 def worker_import_s():
-    """Seconds a fresh interpreter takes to import the DataLoader's worker
-    module (torch comes with the package): the fixed share of a worker's
-    start."""
-    code = ("import time; t = time.perf_counter(); "
-            "import paddle_tpu_torch.io._worker; "
+    """Seconds a fresh interpreter takes to load the DataLoader's worker
+    file as a worker does (by path: the standard library and numpy, no
+    torch): the fixed share of a worker's start."""
+    code = ("import time; t = time.perf_counter(); import runpy; "
+            "runpy.run_path('paddle_tpu_torch/io/_worker.py'); "
             "print(time.perf_counter() - t)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True,
@@ -1670,7 +1740,7 @@ def phase_fit(dev, train_step_ms, batches=8, batch=4, seq_len=2048,
     dl = dict(registry.counters("dataloader"))
     timings = registry.timings("timings")
     # a second epoch's workers fork from the fork server, which imported
-    # torch once for the first
+    # numpy once for the first
     registry.reset("timings")
     next(iter(loader))
     restart_s = registry.timings("timings")[
@@ -1692,8 +1762,10 @@ def phase_fit(dev, train_step_ms, batches=8, batch=4, seq_len=2048,
             not rec.losses[-1] < rec.losses[0]:
         raise AssertionError(f"fit: losses {rec.losses} are not finite and "
                              "falling")
-    if dl.get("worker_batches") != batches or dl.get("worker_cuda_inits"):
-        raise AssertionError(f"fit: dataloader counters {dl}")
+    if dl.get("worker_batches") != batches or dl.get("worker_cuda_inits") \
+            or dl.get("worker_torch_imports"):
+        raise AssertionError(f"fit: dataloader counters {dl} (no worker "
+                             "may initialise CUDA or import torch)")
     steady = rec.seconds[2:]  # after the eager call and the capture
     p50_s = _median(steady)
     tokens = batch * seq_len
@@ -2130,7 +2202,7 @@ def profile_steps(step, n):
             step()
         torch.cuda.synchronize()
     out = {"split": {}, "combine": 0, "kernels": 0, "graph_launches": 0,
-           "kernel_launches": 0}
+           "kernel_launches": 0, "host_syncs": {}}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out["kernels"] += 1
@@ -2145,7 +2217,15 @@ def profile_steps(step, n):
         elif e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                         "cuLaunchKernel", "cuLaunchKernelEx"):
             out["kernel_launches"] += 1
+        elif e.name in _SYNCS:
+            out["host_syncs"][e.name] = out["host_syncs"].get(e.name, 0) + 1
     return out
+
+
+# host calls that wait for the card (the profile's own final synchronize
+# counts one cudaDeviceSynchronize)
+_SYNCS = ("cudaDeviceSynchronize", "cudaStreamSynchronize",
+          "cudaEventSynchronize", "cudaStreamWaitEvent")
 
 
 def fill_slots(engine, vocab, n_slots, prompt_len=512, seed=5):
@@ -3793,7 +3873,10 @@ def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
     batch of 4 x 2048, loss + ``moe_aux_loss()`` (the first step eager,
     the second captured and replayed, the rest replays): the loss and
     the aux loss finite, the loss falling, K1-K3 launched once per layer
-    per step on the card's count and the plain attention never."""
+    per step on the card's count and the plain attention never. Reports
+    the AccumulateGrad stream-mismatch warnings of each call, again with
+    the MoE layers' ``aux_loss`` dropped after the warm-up, and the host
+    calls that wait for the card over two steady replays."""
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.profiler import registry
 
@@ -3808,17 +3891,20 @@ def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
     torch.cuda.reset_peak_memory_stats(dev)
     registry.reset("kernels")
     fa.reset_device_launches()
-    losses, auxes, times = [], [], []
+    losses, auxes, times, warned = [], [], [], []
     for _ in range(steps):
         t1 = time.perf_counter()
-        loss = train(tokens, labels)
-        torch.cuda.synchronize()
+        with stream_mismatch_warnings() as seen:
+            loss = train(tokens, labels)
+            torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
+        warned.append(len(seen))
         losses.append(float(loss.detach()))
         auxes.append(float(model.moe_aux_loss().detach()))
     counts = dict(flash_device_counts(), flash_attention_ref=fa.launches()[
         "flash_attention_ref"])
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    prof = profile_steps(lambda: train(tokens, labels), 2)
     if not (all(np.isfinite(losses)) and all(np.isfinite(auxes))) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"moe training: losses {losses}, aux "
@@ -3836,11 +3922,56 @@ def phase_moe_training(dev, preset="gpt3-1.3B", n_layer=4, batch=4,
               "replay_step_ms": sorted(times[2:])[len(times[2:]) // 2]
               * 1e3,
               "tokens_per_s": batch * seq_len / min(times[2:]),
-              "peak_memory_gb": peak_gb, "launches": counts}
-    log("moe training: " + json.dumps(result))
+              "peak_memory_gb": peak_gb, "launches": counts,
+              "stream_mismatch_warnings": warned,
+              "host_syncs_2_replays": prof["host_syncs"],
+              "graph_launches_2_replays": prof["graph_launches"]}
     del model, opt, train
     free_memory()
+    result["stream_mismatch_warnings_aux_dropped"] = \
+        moe_warnings_with_aux_dropped(dev, preset, n_layer, batch, seq_len)
+    log("moe training: " + json.dumps(result))
     return result
+
+
+class stream_mismatch_warnings:
+    """``with stream_mismatch_warnings() as seen:`` records the autograd
+    engine's AccumulateGrad stream-mismatch warnings raised inside."""
+
+    def __enter__(self):
+        self._cm = warnings.catch_warnings(record=True)
+        self._seen = self._cm.__enter__()
+        warnings.simplefilter("always")
+        self.hits = []
+        return self.hits
+
+    def __exit__(self, *exc):
+        self.hits.extend(w for w in self._seen
+                         if "AccumulateGrad" in str(w.message))
+        return self._cm.__exit__(*exc)
+
+
+def moe_warnings_with_aux_dropped(dev, preset, n_layer, batch, seq_len):
+    """9c's first two TrainStep calls (eager warm-up, capture) again, the
+    MoE layers' ``aux_loss`` and ``last_stats`` (which hold the warm-up's
+    autograd graph) dropped between them: the stream-mismatch warnings
+    per call."""
+    from paddle_tpu_torch.nn.moe import MoEMLP
+
+    _, model, opt, train, tokens, labels = training_setup(
+        dev, preset, batch, seq_len, n_layer=n_layer, **MOE)
+    warned = []
+    for _ in range(2):
+        with stream_mismatch_warnings() as seen:
+            train(tokens, labels)
+            torch.cuda.synchronize()
+        warned.append(len(seen))
+        for m in model.modules():
+            if isinstance(m, MoEMLP):
+                m.aux_loss = m.last_stats = None
+    del model, opt, train
+    free_memory()
+    return warned
 
 
 # -------------------------------------------------- older cache forms --
@@ -3924,6 +4055,341 @@ _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
 _TYPES = {"13__nv_bfloat16": "bf16", "f": "float32"}
 
 
+# ------------------------------------------- distributed on one card (12) --
+MP_STEPS = 3
+# phase 12's loss gap to phase 7's, two bf16 ulps at a loss of 8 to 16:
+# both losses are rounded to bf16 (one ulp, 0.0625, between them at
+# most), and the row-parallel layers round each rank's partial product to
+# bf16 before the all-reduce adds them, where one GEMM rounds once; the
+# logits move by about one of their own ulps, the mean loss by far less
+MP_LOSS_TOL = 0.125
+# phase 12's first-step logits (this rank's vocabulary block) against
+# phase 7's model whole, the largest gap over 4 x 2048 x 25152 logits: an
+# H100 read 0.078-0.085 (mean 0.0106, mean |logit| 0.72), the bf16
+# row-parallel sums' rounding; three times that, 16 bf16 ulps where
+# |logit| is 2 to 4, while the contiguous-qkv control misses by 5.0-5.8
+MP_LOGITS_TOL = 0.25
+# 12b: float32 with TF32 off, SGD: the only differences are the order of
+# the float32 sums (the row-parallel partial products, the averaged
+# gradients), about 1e-6 relative; 3 steps at rate 0.1 keep them ~1e-7
+SMALL_PARAM_TOL = 1e-5
+
+
+def _fleet_init(dp, mp):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"dp_degree": dp, "mp_degree": mp}
+    fleet.init(is_collective=True, strategy=s)
+    return fleet.get_hybrid_communicate_group()
+
+
+def mp_rank_leg(steps, setup_kw):
+    """Phase 12 on one rank (a child of this script, gloo on its device):
+    ``fleet.init(mp_degree=2)``, phase 7's model (gpt3-1.3B bf16, full
+    width and depth, seed 0; ``setup_kw`` for ``training_setup``) through
+    ``fleet.distributed_model``, its AdamW with master weights and its
+    batch, ``steps`` eager steps. Then ``TrainStep`` over the same model
+    must refuse the gloo group."""
+    from paddle_tpu_torch.distributed import parallel_env
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    dev = parallel_env.device()
+    t0 = time.perf_counter()
+    hcg = _fleet_init(1, 2)
+    mp = hcg.get_model_parallel_group()
+    model_kw = {k: v for k, v in setup_kw.items()
+                if k not in ("batch", "learning_rate")}
+    # phase 7's model whole (the same seed and builder): its first-step
+    # logits, this rank's block of the vocabulary
+    _, whole = pretraining_model(dev, **model_kw)
+    tokens, _ = pretraining_batch(dev, whole.gpt.cfg.vocab_size,
+                                  setup_kw.get("batch", 4),
+                                  whole.gpt.cfg.seq_len)
+    with torch.no_grad():
+        want = vocab_block(whole(tokens), mp.rank, mp.nranks)
+    del whole
+    cfg, model, opt, step_fn, tokens, labels = training_setup(
+        dev, graph=False, distribute=True, **setup_kw)
+    with torch.no_grad():
+        logits_gap = gap_of(model(tokens), want)
+    heads = model.gpt.blocks[0].attn.qkv_proj.weight.shape[0] // (
+        3 * model.gpt.blocks[0].attn.head_dim)
+    build_s = time.perf_counter() - t0
+    cuda = dev.type == "cuda"  # the CPU only in a rehearsal
+    registry.reset("collective")
+    if cuda:
+        fa.reset_device_launches()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        losses.append(float(step_fn(tokens, labels).detach()))
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t1)
+    counts = flash_device_counts() if cuda else None
+    coll = dict(registry.counters("collective"))
+    reduced = sum(v for k, v in coll.items()
+                  if k.endswith(".bytes") and k.split(".")[0] in (
+                      "psum", "pmax", "all_reduce"))
+    try:
+        TrainStep(step_fn, model, opt)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    state_gb = sum(t.numel() * t.element_size() for t in (
+        *model.parameters(),
+        *(v for st in opt._accumulators.values() for v in st.values())))
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+    del model, opt, step_fn
+    control = contiguous_qkv_gap(dev, model_kw, tokens, want)
+    return {"rank": hcg.get_model_parallel_rank(), "heads": heads,
+            "n_head": cfg.n_head, "n_layer": cfg.n_layer,
+            "losses": losses, "step_s": step_s, "build_s": build_s,
+            "launches": counts, "bytes_reduced_per_step": reduced / steps,
+            "collective": coll, "peak_memory_gb": peak_gb,
+            "state_gb": state_gb / 1e9, "capture_refused": refused,
+            "logits_gap": logits_gap, "contiguous_qkv_gap": control}
+
+
+def vocab_block(logits, rank, nranks):
+    """Rank ``rank``'s block of ``nranks`` of the vocabulary (the mp
+    form's LM head's columns)."""
+    v = logits.shape[-1] // nranks
+    return logits[..., rank * v:(rank + 1) * v].clone()
+
+
+def gap_of(got, want):
+    """The largest and the mean absolute gap of two logits tensors, and
+    the mean absolute logit."""
+    d = (got.float() - want.float()).abs()
+    return {"max": float(d.max()), "mean": float(d.mean()),
+            "mean_abs_logit": float(want.float().abs().mean())}
+
+
+def contiguous_qkv_gap(dev, model_kw, tokens, want):
+    """The control of phase 12's logits check: phase 7's model with q, k
+    and v split as one contiguous block of ``qkv_proj``'s columns (a third
+    of the heads' q, k and v each, not whole heads), through
+    ``fleet.distributed_model``; its first-step logits' gap to ``want``."""
+    from paddle_tpu_torch.distributed import fleet
+
+    _, model = pretraining_model(dev, **model_kw)
+    for blk in model.gpt.blocks:
+        for p in (blk.attn.qkv_proj.weight, blk.attn.qkv_proj.bias):
+            p.shard_layout = (1, 1)
+    fleet.distributed_model(model)
+    with torch.no_grad():
+        return gap_of(model(tokens), want)
+
+
+def _small_model(dev, n_layer, preset="gpt3-1.3B", seed=0, **over):
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+
+    cfg = GPTConfig.preset(preset, n_layer=n_layer, seq_len=512,
+                           dropout=0.0, **over)
+    return cfg, GPTForPretraining(GPTModel(
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed)))
+
+
+def small_rank_leg(dp, mp, ckpt_dir, model_kw, steps=3, n_layer=2,
+                   batch=4):
+    """Phase 12b on one rank: gpt3-1.3B width at ``n_layer`` layers in
+    float32 (seed 0), SGD(0.1), ``steps`` eager steps on batch x 512
+    tokens (seed 0), once in this process alone and once at ``dp x mp``
+    (this rank's rows of the batch, its mp slices); the parameters merged
+    back against the single-process run's. At dp > 1 the trained state is
+    then saved as a sharded checkpoint (this rank's chunk)."""
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.distributed import (collective, fleet, parallel_env,
+                                              spmd)
+    from paddle_tpu_torch.incubate.checkpoint import (CheckpointManager,
+                                                      capture_training_state)
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import SGD
+
+    dev = parallel_env.device()
+    crit = GPTPretrainingCriterion()
+    vocab = model_kw.get("vocab_size", 50304)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, vocab, (batch, 513))).to(dev)
+
+    def train(model, x, y):
+        opt = SGD(learning_rate=0.1, parameters=model.parameters())
+        out = []
+        for _ in range(steps):
+            loss = crit(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            out.append(loss.detach())
+        return out
+
+    _, plain = _small_model(dev, n_layer, **model_kw)
+    plain_losses = train(plain, toks[:, :-1], toks[:, 1:])
+    want = {k: v.detach().cpu() for k, v in
+            convert.state_to_paddle_tpu(plain).items()}
+    del plain
+    hcg = _fleet_init(dp, mp)
+    _, model = _small_model(dev, n_layer, **model_kw)
+    fleet.distributed_model(model)
+    x, y = (spmd.shard_batch(t) for t in (toks[:, :-1], toks[:, 1:]))
+    losses = train(model, x, y)
+    for loss in losses:
+        collective.all_reduce(loss, collective.ReduceOp.AVG,
+                              group=hcg.get_data_parallel_group())
+    got = convert.merged_state_to_paddle_tpu(model)
+    diff = max(float((got[k].float() - want[k].float()).abs().max())
+               for k in want)
+    loss_diff = max(abs(float(a) - float(b))
+                    for a, b in zip(losses, plain_losses))
+    saved = None
+    if dp > 1:
+        mgr = CheckpointManager(ckpt_dir, async_save=False, shard=True)
+        mgr.save(capture_training_state(model), step=steps)
+        saved = {k: float(v.double().sum())
+                 for k, v in convert.state_to_paddle_tpu(model).items()}
+    return {"max_param_diff": diff, "max_loss_diff": loss_diff,
+            "rows": tuple(x.shape), "saved_sums": saved}
+
+
+NCCL_WORLD_1 = """
+import torch
+from paddle_tpu_torch.distributed import (barrier, collective,
+                                          init_parallel_env, parallel_env)
+import torch.distributed as dist
+init_parallel_env(timeout=120)
+t = torch.ones(8, device="cuda")
+collective.all_reduce(t)
+barrier()
+torch.cuda.synchronize()
+print(dist.get_backend(), float(t.sum()), str(parallel_env.device()))
+dist.destroy_process_group()
+"""
+
+
+def phase_distributed(dev, phase7_losses, setup_kw=None, model_kw=None):
+    """12, 12b, 12c: see the module's docstring. ``setup_kw`` and
+    ``model_kw`` cut the models of 12 and 12b (a rehearsal on the CPU)."""
+    from paddle_tpu_torch.incubate.checkpoint import load_resharded
+    from paddle_tpu_torch.testing.world import World
+
+    free_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    result = {}
+    try:
+        t0 = time.perf_counter()
+        world = World(2, tmp, timeout=600, device=device, backend="gloo")
+        result["world_start_s"] = time.perf_counter() - t0
+        try:
+            ranks = world.run(mp_rank_leg, MP_STEPS, setup_kw or {})
+            small = {kind: world.run(small_rank_leg, dp, mp,
+                                     os.path.join(tmp, "ckpt"),
+                                     model_kw or {})
+                     for kind, (dp, mp) in (("dp2", (2, 1)),
+                                            ("mp2", (1, 2)))}
+        finally:
+            world.close()
+        log("distributed: first-step logits against phase 7's model's: "
+            + json.dumps([{k: r[k] for k in (
+                "rank", "logits_gap", "contiguous_qkv_gap")} for r in ranks]))
+        for r in ranks:
+            if not r["logits_gap"]["max"] <= MP_LOGITS_TOL:
+                raise AssertionError(
+                    f"tensor parallel: rank {r['rank']}'s first-step logits "
+                    f"miss phase 7's model's by {r['logits_gap']} > "
+                    f"{MP_LOGITS_TOL}")
+            if not r["contiguous_qkv_gap"]["max"] > MP_LOGITS_TOL:
+                raise AssertionError(
+                    f"tensor parallel: the contiguous qkv split's logits "
+                    f"pass the check ({r['contiguous_qkv_gap']}): it has "
+                    "no teeth")
+            gaps = [abs(a - b) for a, b in zip(r["losses"], phase7_losses)]
+            if max(gaps) > MP_LOSS_TOL or not all(
+                    np.isfinite(r["losses"])):
+                raise AssertionError(
+                    f"tensor parallel: rank {r['rank']}'s losses "
+                    f"{r['losses']} against phase 7's {phase7_losses[:3]}: "
+                    f"gaps {gaps} > {MP_LOSS_TOL}")
+            r["loss_gaps"] = gaps
+            if r["heads"] != r["n_head"] // 2:
+                raise AssertionError(f"tensor parallel: {r['heads']} heads "
+                                     f"a rank, want {r['n_head']} / 2")
+            for name in FLASH_KERNELS if r["launches"] is not None else ():
+                if r["launches"][name] != MP_STEPS * r["n_layer"]:
+                    raise AssertionError(
+                        f"tensor parallel: rank {r['rank']} counted "
+                        f"{r['launches'][name]} {name} launches, want "
+                        f"{MP_STEPS} x {r['n_layer']}")
+            if r["launches"] is not None and (
+                    not r["capture_refused"]
+                    or "gloo" not in r["capture_refused"]):
+                raise AssertionError("tensor parallel: TrainStep did not "
+                                     "refuse a gloo group on the card")
+        for kind, res in small.items():
+            for i, r in enumerate(res):
+                if r["max_param_diff"] > SMALL_PARAM_TOL:
+                    raise AssertionError(
+                        f"12b {kind}: rank {i}'s parameters after 3 steps "
+                        f"miss the single-process run's by "
+                        f"{r['max_param_diff']} > {SMALL_PARAM_TOL}")
+        state, man = load_resharded(os.path.join(tmp, "ckpt"), rank=0,
+                                    world_size=1)
+        sums = {k: float(np.asarray(v, np.float64).sum())
+                for k, v in state["model"].items()}
+        want = small["dp2"][0]["saved_sums"]
+        for res in small.values():
+            for r in res:
+                r.pop("saved_sums")
+        if not man["sharded"] or man["world_size"] != 2 or any(
+                abs(sums[k] - v) > 1e-9 * max(1.0, abs(v))
+                for k, v in want.items()):
+            raise AssertionError("12b: the sharded checkpoint written at "
+                                 "world 2 did not read back whole")
+        result.update(ranks=ranks, small=small, checkpoint_world_2={
+            "manifest_world_size": man["world_size"],
+            "sharded": man["sharded"]})
+        result["nccl_world_1"] = nccl_world_1()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("distributed: " + json.dumps(result, default=str))
+    return result
+
+
+def nccl_world_1():
+    """12c: ``init_parallel_env()`` in a child process at world 1."""
+    t1 = time.perf_counter()
+    env = dict(os.environ, PADDLE_TRAINERS_NUM="1", PADDLE_TRAINER_ID="0",
+               PADDLE_MASTER=f"127.0.0.1:{free_port()}",
+               PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", NCCL_WORLD_1], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"12c: init_parallel_env at world 1 failed:\n"
+                             f"{out.stderr[-2000:]}")
+    backend, total, device = out.stdout.split()[-3:]
+    if backend != "nccl" or float(total) != 8.0:
+        raise AssertionError(f"12c: {out.stdout!r}")
+    return {"backend": backend, "device": device,
+            "seconds": time.perf_counter() - t1}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def ptxas_instances(lib_path):
     """Every kernel instance in the library's ``-Xptxas -v`` log:
     ``[{"kernel", "args", "registers", "spill_stores", "lines"}]``, with
@@ -3995,13 +4461,17 @@ def child_processes():
 
 
 def stop_children():
-    """Stop the DataLoader's workers, fork server and resource tracker
-    (they would end a moment after this process), then every other child
-    still alive. Returns those others: the script starts none that should
+    """Stop the DataLoader's workers and fork server and multiprocessing's
+    resource tracker (they would end a moment after this process), then
+    every other child still alive. Returns those others: the script starts none that should
     still run here."""
     dataloader = sys.modules.get("paddle_tpu_torch.io.dataloader")
     if dataloader is not None:
         dataloader.stop_servers()
+    # phase 12's spawned ranks start multiprocessing's resource tracker
+    from multiprocessing import resource_tracker
+
+    resource_tracker._resource_tracker._stop()
     left = child_processes()
     for sig in (signal.SIGTERM, signal.SIGKILL):
         for pid, _ in child_processes():
@@ -4035,7 +4505,7 @@ def main():
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build()
+    libs = timed("2 build", _build.build)
     log(f"build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for r in ptxas_instances(libs["paged_attention"]):
         for line in r["lines"]:
@@ -4045,20 +4515,21 @@ def main():
             f"{r['registers']} registers, {r['spill_stores']} bytes spill "
             f"stores, {r['smem_bytes']} bytes shared memory")
 
-    paged = phase_kernels(dev)
-    served, plain = phase_serving(dev)
-    swapped, retried = phase_swap(dev)
-    handoff, ctx = phase_handoff(dev)
-    graphs = phase_prefill_graphs(dev, ctx["model"])
-    observed = phase_observability(dev, ctx)
+    paged = timed("3 kernels", phase_kernels, dev)
+    served, plain = timed("4 serving", phase_serving, dev)
+    swapped, retried = timed("4c-4d swap, retry", phase_swap, dev)
+    handoff, ctx = timed("4e handoff", phase_handoff, dev)
+    graphs = timed("4f prefill graphs", phase_prefill_graphs, dev,
+                   ctx["model"])
+    observed = timed("4g observability", phase_observability, dev, ctx)
     del ctx
     free_memory()
-    phase_parity(dev)
-    spec = phase_spec_serving(dev, plain)
-    phase_spec_swap(dev)
-    moe_served, moe_plain = phase_moe_serving(dev)
-    moe_spec = phase_moe_spec(dev, moe_plain)
-    phase_legacy_cache(dev)
+    timed("5 parity", phase_parity, dev)
+    spec = timed("5b spec", phase_spec_serving, dev, plain)
+    timed("5c spec swap", phase_spec_swap, dev)
+    moe_served, moe_plain = timed("9 moe serving", phase_moe_serving, dev)
+    moe_spec = timed("9b moe spec", phase_moe_spec, dev, moe_plain)
+    timed("9d older cache forms", phase_legacy_cache, dev)
     for row in paged:  # launches the card counted on the main paths
         verify = row["name"] == "paged_attention_verify"
         row["launches"] = (spec["verify_launches"] if verify
@@ -4068,32 +4539,37 @@ def main():
              "moe spec": moe_spec["verify_launches"]} if verify else
             {"serving": served["decode_launches"],
              "moe serving": moe_served["decode_launches"]})
-    flash = phase_flash_kernels(dev)
-    trained, model = phase_training(dev)
+    flash = timed("6 kernels (training)", phase_flash_kernels, dev)
+    trained, model = timed("7 training", phase_training, dev)
     for name, row in flash.items():
         row["launches"] = trained["launches"][name]
-    followed = phase_train_to_serve(dev, model,
-                                    step=trained["trained_steps"])
+    followed = timed("7b train -> serve", phase_train_to_serve, dev, model,
+                     step=trained["trained_steps"])
     del model
     free_memory()
-    phase_train_state_round_trip(dev)
-    phase_training_parity(dev)
-    phase_training_parity_bf16(dev)
-    moe_trained = phase_moe_training(dev)
-    policies = phase_recompute(dev)
-    policy_parity = phase_recompute_parity(dev)
-    recipe = phase_recipe_graph(dev)
-    recaptured = phase_recapture(dev)
-    fitted = phase_fit(dev, trained["step_ms"])
-    resumed = phase_fit_resume(dev)
-    fp16 = phase_fp16_scaler(dev)
+    timed("7b state round trip", phase_train_state_round_trip, dev)
+    timed("8 training parity", phase_training_parity, dev)
+    timed("8 training parity bf16", phase_training_parity_bf16, dev)
+    moe_trained = timed("9c moe training", phase_moe_training, dev)
+    policies = timed("10 recompute", phase_recompute, dev)
+    policy_parity = timed("10 recompute parity", phase_recompute_parity,
+                          dev)
+    recipe = timed("10b recipe", phase_recipe_graph, dev)
+    recaptured = timed("10c recapture", phase_recapture, dev)
+    fitted = timed("11 fit", phase_fit, dev, trained["step_ms"])
+    resumed = timed("11b resume", phase_fit_resume, dev)
+    fp16 = timed("11c fp16", phase_fp16_scaler, dev)
+    dist = timed("12 distributed", phase_distributed, dev,
+                 trained["losses"][:3])
     for name, row in flash.items():
         row["launches_by_path"] = {
             "training": trained["launches"][name],
             "fit (bf16 instance)": fitted["launches"][name],
             "moe training": moe_trained["launches"][name],
             **{f"recompute {pol} (per step)": r["launches_per_step"][name]
-               for pol, r in policies.items()}}
+               for pol, r in policies.items()},
+            **{f"mp=2 rank {r['rank']} (gloo, eager)": r["launches"][name]
+               for r in dist["ranks"]}}
     log(f"serving on {smi}: {served['tokens_per_s']:.1f} tokens/s, p50 TTFT "
         f"{served['ttft_p50_ms']:.1f} ms, p50 decode step "
         f"{served['decode_step_p50_ms']:.2f} ms (CUDA graph)")
@@ -4170,7 +4646,11 @@ def main():
         f"{moe_trained['batch']} x {moe_trained['seq_len']}: step "
         f"{moe_trained['replay_step_ms']:.1f} ms (graph replay), "
         f"losses {moe_trained['losses']}, peak memory "
-        f"{moe_trained['peak_memory_gb']:.1f} GB")
+        f"{moe_trained['peak_memory_gb']:.1f} GB; AccumulateGrad stream "
+        f"warnings per call {moe_trained['stream_mismatch_warnings']}, "
+        f"{moe_trained['stream_mismatch_warnings_aux_dropped']} with "
+        f"aux_loss dropped after the warm-up; host syncs over 2 replays "
+        f"{moe_trained['host_syncs_2_replays']}")
     log(f"fit on {smi}: gpt3-1.3B float32 parameters under O1, batch "
         f"{fitted['batch']} x {fitted['seq_len']}, {fitted['workers']} "
         f"workers: p50 batch {fitted['batch_p50_ms']:.1f} ms (phase 7's "
@@ -4190,10 +4670,25 @@ def main():
         f"{resumed['nan_loss_losses']}; fp16 losses {fp16['losses']}, "
         f"scales {fp16['scales']}, fallback \"{fp16['fallback_why']}\", "
         f"inf step {json.dumps(fp16['inf_step'])}")
+    r0 = dist["ranks"][0]
+    peak = max(r["peak_memory_gb"] for r in dist["ranks"])
+    staged = {k: v for k, v in r0["collective"].items() if "staged" in k}
+    small = {k: [r["max_param_diff"] for r in v]
+             for k, v in dist["small"].items()}
+    log(f"tensor parallel on {smi}: gpt3-1.3B bf16 at mp=2, two ranks on "
+        f"cuda:0 over gloo: steps {[round(x, 3) for x in r0['step_s']]} s, "
+        f"{r0['bytes_reduced_per_step'] / 1e9:.3f} GB all-reduced per step "
+        f"and rank, peak {peak:.1f} GB per rank, state "
+        f"{r0['state_gb']:.2f} GB per rank; losses {r0['losses']} against "
+        f"phase 7's {trained['losses'][:3]} (gaps {r0['loss_gaps']}); host "
+        f"staged {staged}; 12b parameter gaps {json.dumps(small)}; 12c "
+        f"{json.dumps(dist['nccl_world_1'])}")
     left = stop_children()
     if left:
         raise AssertionError(f"processes still running at the end: {left}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
+    print(json.dumps({"phases": PHASE_SECONDS}))
     print(json.dumps({"kernels": [*paged, *flash.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,12 @@ names map one to one; a ``gpt.`` prefix (the reference's
 ``GPTForPretraining`` saves its trunk under it) is accepted either way.
 Layout: the reference's Linear stores its weight ``[in, out]``, torch's
 ``[out, in]``, so every 2-D weight of a Linear is transposed.
+
+A model sharded for tensor parallelism (``fleet.distributed_model``:
+parameters carrying ``mp_shard``) takes a full reference state as this
+rank's slices (``state_from_paddle_tpu``), and
+``merged_state_to_paddle_tpu`` gathers every rank's slices back into the
+full reference state (a collective: every mp rank calls it).
 """
 from __future__ import annotations
 
@@ -80,11 +86,16 @@ def state_from_paddle_tpu(np_state, model):
                        f"{' ...' if len(missing) > 5 else ''}, extra "
                        f"{extra[:5]}{' ...' if len(extra) > 5 else ''}")
     linear = _linear_weight_names(model)
+    shards = _mp_shards(model)
     out = {}
     for name, target in own.items():
         arr = _leaf(src[name])
         if name in linear:
             arr = arr.T
+        if name in shards:
+            dim, layout, rank, n = shards[name]
+            arr = _local_shard(torch.from_numpy(np.array(arr)), dim, rank, n,
+                               layout).numpy()
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"shape mismatch for {name!r}: model holds "
                              f"{tuple(target.shape)}, state gives "
@@ -94,6 +105,43 @@ def state_from_paddle_tpu(np_state, model):
         out[name] = torch.from_numpy(np.array(arr, order="C")).to(
             device=target.device, dtype=target.dtype)
     return out
+
+
+def _mp_shards(model):
+    """``{state name: (dim, layout, rank, nranks)}`` of the parameters
+    ``spmd.shard_model`` sliced."""
+    return {name: p.mp_shard for name, p in model.named_parameters()
+            if getattr(p, "mp_shard", None) is not None}
+
+
+def _local_shard(*args):
+    from .distributed.spmd import local_shard
+
+    return local_shard(*args)
+
+
+def merged_state_to_paddle_tpu(model, group=None):
+    """:func:`state_to_paddle_tpu` of the whole model from a sharded one:
+    every sliced parameter all-gathered over the mp ``group`` (default: the
+    fleet's) and put back together. Every rank of the group must call it;
+    each gets the full state, as host tensors."""
+    from .distributed import collective, spmd
+    from .distributed.meta_parallel.mp_ops import mp_group
+
+    group = mp_group(group)
+    shards = _mp_shards(model)
+    full = {}
+    for name, t in model.state_dict().items():
+        t = t.detach()
+        if name in shards:
+            dim, layout, _, _ = shards[name]
+            parts = []
+            collective.all_gather(parts, t.contiguous(), group=group)
+            t = spmd.merge_shards(parts, dim, layout)
+        full[name] = t.cpu()
+    linear = _linear_weight_names(model)
+    return {name: t.t() if name in linear else t
+            for name, t in full.items()}
 
 
 def load_paddle_tpu_state(model, np_state):

@@ -94,8 +94,9 @@ def recompute(function, *args, layer=None, use_reentrant=True, policy=None,
     torch's default generators are saved and replayed by the checkpoint,
     except while a CUDA graph captures the step: their state cannot be read
     then, so under capture a recomputed ``function`` must draw no random
-    numbers from them (``GPTBlock`` refuses dropout there). Under
-    ``amp.auto_cast`` the recomputation casts as the forward did."""
+    numbers from them (a ``GPTBlock`` draws its dropout masks from a
+    counter-based hash instead). Under ``amp.auto_cast`` the recomputation
+    casts as the forward did."""
     fn = recompute_policy_fn(policy)
     amp = _amp_snapshot()
     if amp is not None:

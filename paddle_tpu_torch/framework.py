@@ -47,6 +47,31 @@ def _to_saveable(obj):
     return obj
 
 
+def _shard_saveable(obj, rank, world_size):
+    """``rank``'s share of a saveable nest, as the reference's sharded
+    checkpoints hold it: every tensor record's flattened data cut into
+    ``world_size`` ceil-divided chunks (the last ones may be short or
+    empty), this rank's chunk kept with the full shape; other leaves
+    replicated. :func:`_merge_saveable` undoes it bitwise."""
+    if isinstance(obj, dict):
+        if obj.get("__tensor__"):
+            data = np.asarray(obj["data"])
+            flat = data.reshape(-1)
+            cs = -(-flat.size // world_size) if flat.size else 0
+            chunk = flat[rank * cs:(rank + 1) * cs] if cs else flat[:0]
+            return {"__tensor_shard__": True, "shape": list(data.shape),
+                    "rank": int(rank), "world_size": int(world_size),
+                    "data": np.ascontiguousarray(chunk),
+                    "stop_gradient": obj.get("stop_gradient", True),
+                    "param": obj.get("param", False)}
+        return {k: _shard_saveable(v, rank, world_size)
+                for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        t = [_shard_saveable(v, rank, world_size) for v in obj]
+        return t if isinstance(obj, list) else tuple(t)
+    return obj
+
+
 def _merge_saveable(shards):
     """Per-rank saveable nests of a sharded checkpoint (as the reference's
     distributed runs write them: each tensor record cut into flat

@@ -12,9 +12,17 @@ reference's fault tolerance: rolling epoch checkpoints in ``save_dir``
 checkpoint at the next batch boundary after SIGTERM. A ``save_dir``
 written by the reference's ``fit`` resumes here and the other way round.
 
-Not ported: the reference's SPMD and pipeline branches of ``train_batch``
-(the port has no device mesh yet, ROADMAP queue 1 items 6-7) and
-``fit(elastic=...)`` (item 8), which raises.
+With ``fleet.init`` run over more than one process, ``train_batch`` is
+the counterpart of the reference's SPMD branch: the network goes through
+``fleet.distributed_model`` once (sharded over the mp group, its
+gradients averaged over the data-parallel group), each batch through
+``spmd.shard_batch`` (this rank's data-parallel rows), and the loss
+returned is the mean over the data-parallel group, the global batch's, as
+the reference reports it. Build the optimizer before the first batch and
+keep the same order of batches on every rank.
+
+Not ported: the reference's pipeline branch of ``train_batch`` (ROADMAP
+queue 1 item 7) and ``fit(elastic=...)`` (item 8), which raises.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import torch
 
 from .. import convert, framework
 from ..amp import auto_cast
+from ..distributed import collective, fleet, spmd
 from ..incubate.checkpoint import _rng_restore, _rng_snapshot
 from ..io import DataLoader
 from ..jit import TrainStep
@@ -121,6 +130,7 @@ class Model:
         self._train_step = None
         self._n_inputs = None
         self._global_step = 0
+        self._dp_group = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
@@ -181,15 +191,32 @@ class Model:
         labels_l = _listed(labels) if labels is not None else []
         if self._train_step is None:
             self._n_inputs = len(inputs_l)
+            self._distribute()
             self._train_step = TrainStep(self._step, self.network,
                                          self._optimizer)
+        args = [*inputs_l, *labels_l]
+        if self._dp_group is not None:
+            args = [spmd.shard_batch(torch.as_tensor(a)) for a in args]
         with RecordEvent("train_step"):
-            loss = self._train_step(*inputs_l, *labels_l)
+            loss = self._train_step(*args)
         gstep = self._global_step
         self._global_step = gstep + 1
         if _faults.ACTIVE and _faults.fire("nan_loss", step=gstep):
             return [float("nan")]
+        if self._dp_group is not None:
+            loss = loss.detach().clone()
+            collective.all_reduce(loss, collective.ReduceOp.AVG,
+                                  group=self._dp_group)
         return [float(loss.detach())]
+
+    def _distribute(self):
+        """Under ``fleet.init`` over several processes, the network through
+        ``fleet.distributed_model`` (which does it once per model)."""
+        hcg = fleet.get_hybrid_communicate_group()
+        if hcg is None or hcg.nranks <= 1:
+            return
+        fleet.distributed_model(self.network)
+        self._dp_group = hcg.get_data_parallel_group()
 
     def eval_batch(self, inputs, labels=None):
         """``(outputs, {"loss": float or None})`` without gradients."""

@@ -10,9 +10,11 @@ Layout, one directory per step under the caller's base directory::
         MANIFEST-rank00001.json   per-shard integrity record (ranks > 0)
         MANIFEST.json             rank 0's record and the commit marker
 
-The port writes rank 0's files only (it has no distributed layer yet,
-ROADMAP queue 1 item 5); the per-rank files are those of the reference's
-distributed runs, which ``load_resharded`` merges. Write order: the
+Each rank of a distributed run writes its own payload and manifest
+(``CheckpointManager(rank=, world_size=, shard=)``); with ``shard=True``
+a rank's payload holds its flat chunk of every tensor
+(``framework._shard_saveable``, the reference's layout), and
+``load_resharded`` merges every saved rank's payload. Write order: the
 payload through tmp + fsync + rename, then the manifest the same way,
 last. The manifest is the commit marker: a crash at
 any point leaves a valid checkpoint or one that the loaders skip (missing
@@ -45,8 +47,8 @@ see a consistent step boundary) and hands pickling, checksumming and the
 disk writes to one writer thread. Retention keeps the newest
 ``max_to_keep`` committed checkpoints.
 
-Telemetry: ``checkpoint.saves/async_saves/restores/skipped_corrupt/pruned/
-emergency_saves/reshard_loads`` counters,
+Telemetry: ``checkpoint.saves/async_saves/sharded_saves/restores/
+skipped_corrupt/pruned/emergency_saves/reshard_loads`` counters,
 ``checkpoint.save.snapshot/save.write/restore`` timings, and
 ``checkpoint_save``/``checkpoint_restore``/``checkpoint_skip`` explainer
 records.
@@ -73,8 +75,8 @@ import zlib
 import torch
 
 from .. import convert
-from ..framework import (_from_saveable, _merge_saveable, _to_saveable,
-                         atomic_write_bytes)
+from ..framework import (_from_saveable, _merge_saveable, _shard_saveable,
+                         _to_saveable, atomic_write_bytes)
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
@@ -88,8 +90,9 @@ SCHEMA = 1
 _CKPT_RE = re.compile(r"^ckpt-(\d{8})$")
 
 _counters = _registry.scoped_counters("checkpoint", {
-    "saves": 0, "async_saves": 0, "restores": 0, "skipped_corrupt": 0,
-    "pruned": 0, "emergency_saves": 0, "reshard_loads": 0})
+    "saves": 0, "async_saves": 0, "sharded_saves": 0, "restores": 0,
+    "skipped_corrupt": 0, "pruned": 0, "emergency_saves": 0,
+    "reshard_loads": 0})
 
 
 class WorldSizeMismatchError(RuntimeError):
@@ -196,12 +199,22 @@ class CheckpointManager:
         mgr.wait()                     # every queued save is durable
 
     ``state`` is a saveable nest (``framework``); its tensors are copied to
-    host numpy on the calling thread. It writes a single-rank checkpoint
-    (rank 0, world size 1, unsharded)."""
+    host numpy on the calling thread. In a distributed run each rank keeps
+    one manager with its ``rank`` and ``world_size`` (None: the process
+    group's) and writes its own payload and manifest; ``shard=True`` keeps
+    only the rank's flat chunk of every tensor (the reference's layout,
+    merged back by :func:`load_resharded`). Only rank 0 prunes."""
 
-    def __init__(self, dir, max_to_keep=3, async_save=True):
+    def __init__(self, dir, max_to_keep=3, async_save=True, rank=None,
+                 world_size=None, shard=False):
+        from ..distributed import parallel_env
+
         self.dir = str(dir)
         self.max_to_keep = max(1, int(max_to_keep)) if max_to_keep else None
+        self.rank = int(parallel_env.get_rank() if rank is None else rank)
+        self.world_size = int(parallel_env.get_world_size()
+                              if world_size is None else world_size)
+        self.shard = bool(shard) and self.world_size > 1
         self._async = bool(async_save)
         self._q: queue.Queue = queue.Queue(maxsize=2)
         self._writer = None
@@ -221,6 +234,10 @@ class CheckpointManager:
         self._reraise()
         with _registry.time_block("save.snapshot", scope="checkpoint"):
             payload = _to_saveable(state)
+            if self.shard:
+                payload = _shard_saveable(payload, self.rank,
+                                          self.world_size)
+                _counters["sharded_saves"] += 1
             rng = _rng_snapshot(network)
         job = {"step": int(step), "epoch": epoch, "payload": payload,
                "torch_rng": rng, "user": user_meta}
@@ -264,35 +281,36 @@ class CheckpointManager:
         d = _ckpt_dir(self.dir, step)
         os.makedirs(d, exist_ok=True)
         blob = pickle.dumps(job["payload"], protocol=4)
-        payload_path = os.path.join(d, _payload_name(0))
+        payload_path = os.path.join(d, _payload_name(self.rank))
         atomic_write_bytes(blob, payload_path)
         if _faults.ACTIVE:
             # a torn write, after the commit, so that loads meet it
             _faults.fire("truncate_checkpoint", path=payload_path)
         manifest = {
             "schema": SCHEMA, "step": step, "epoch": job["epoch"],
-            "time": time.time(), "rank": 0, "world_size": 1,
-            "sharded": False,
-            "files": {_payload_name(0):
+            "time": time.time(), "rank": self.rank,
+            "world_size": self.world_size, "sharded": self.shard,
+            "files": {_payload_name(self.rank):
                       {"crc32": zlib.crc32(blob), "bytes": len(blob)}},
             "rng": None, "torch_rng": job["torch_rng"], "user": job["user"],
         }
         atomic_write_bytes(json.dumps(manifest, indent=1).encode(),
-                           os.path.join(d, _manifest_name(0)))
+                           os.path.join(d, _manifest_name(self.rank)))
         dt = time.perf_counter() - t0
         _registry.timing("save.write", dt, scope="checkpoint")
         _counters["saves"] += 1
         _explain.record("checkpoint_save", op="save",
                         why=f"step {step} committed in {dt * 1e3:.1f} ms",
                         step=step, dir=d, bytes=len(blob))
-        if self.max_to_keep:
+        if self.rank == 0 and self.max_to_keep:
             self._prune()
 
     # -- load ----------------------------------------------------------------
     def load_latest(self, reshard=False):
         """The newest valid checkpoint as (state, manifest), or (None, None)
         on a fresh directory; see :func:`load_latest`."""
-        return load_latest(self.dir, world_size=1, reshard=reshard)
+        return load_latest(self.dir, rank=self.rank,
+                           world_size=self.world_size, reshard=reshard)
 
     def _prune(self):
         steps = list_steps(self.dir)
@@ -460,9 +478,12 @@ def latest_step(base, rank=0):
 
 
 def save_checkpoint(base, state, step, epoch=None, user_meta=None,
-                    max_to_keep=None):
-    """One synchronous checkpoint commit (atomic, checksummed)."""
-    mgr = CheckpointManager(base, max_to_keep=max_to_keep, async_save=False)
+                    max_to_keep=None, rank=None, world_size=None,
+                    shard=False):
+    """One synchronous checkpoint commit (atomic, checksummed); ``rank``,
+    ``world_size`` and ``shard`` as :class:`CheckpointManager`'s."""
+    mgr = CheckpointManager(base, max_to_keep=max_to_keep, async_save=False,
+                            rank=rank, world_size=world_size, shard=shard)
     return mgr.save(state, step, epoch=epoch, user_meta=user_meta)
 
 

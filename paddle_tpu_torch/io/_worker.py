@@ -1,14 +1,21 @@
-"""DataLoader worker process (counterpart of paddle_tpu/io/_worker.py).
+"""DataLoader worker process (counterpart of the reference's top-level
+``paddle_tpu_worker.py`` and paddle_tpu/io/_worker.py).
 
-Workers are ``forkserver`` children, never ``fork``: CUDA
-does not survive a fork once the parent has initialised it. Nothing here
-touches CUDA: a worker imports torch (importing this module imports the
-package) but allocates nothing on a card, and batches cross the shm ring
-as pickled numpy. The parent hands over the built ring library's path, so
-a worker never builds it.
+Workers are ``forkserver`` children, never ``fork``: CUDA does not survive
+a fork once the parent has initialised it. A worker imports the standard
+library and numpy, and no torch: the parent starts it on
+``runpy.run_path`` of this file (``run_name="__ptt_worker__"``), so no
+package ``__init__`` runs, and this file loads the shm ring's binding by
+its path too. The job (dataset, collate function, batch indices) comes
+pickled with cloudpickle, this file's functions by value; a dataset or a
+collate function that uses torch imports it there, on demand. Nothing
+here touches CUDA; batches cross the ring as pickled numpy. The parent
+hands over the built ring library's path, so a worker never builds it.
 """
 from __future__ import annotations
 
+import importlib.util
+import os
 import pickle
 import sys
 import time
@@ -63,6 +70,16 @@ def _strip(x):
     return x
 
 
+def _shm_ring_cls():
+    """``ShmRing`` from ``shm_ring.py`` beside this file, loaded by path."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "shm_ring.py")
+    spec = importlib.util.spec_from_file_location("_ptt_shm_ring", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.ShmRing
+
+
 def worker_main(ring_name, lib_path, job_blob, worker_id, nw):
     """Produce batches ``worker_id, worker_id + nw, ...`` of the job
     ``(dataset, collate, batches, worker_init_fn)`` into the ring, each
@@ -71,8 +88,7 @@ def worker_main(ring_name, lib_path, job_blob, worker_id, nw):
     waits for a free slot excluded; whether CUDA was initialised here,
     which it must not be); an exception goes to the parent as an ERR frame
     with its traceback."""
-    from .shm_ring import ShmRing
-
+    ShmRing = _shm_ring_cls()
     dataset, collate, batches, worker_init_fn = pickle.loads(job_blob)
     wring = ShmRing(ring_name, create=False, lib_path=lib_path)
     try:
@@ -90,7 +106,8 @@ def worker_main(ring_name, lib_path, job_blob, worker_id, nw):
         torch = sys.modules.get("torch")
         wring.write(pickle.dumps({
             "n_batches": produced, "busy_s": busy,
-            "cuda": bool(torch is not None and torch.cuda.is_initialized())}),
+            "cuda": bool(torch is not None and torch.cuda.is_initialized()),
+            "torch": torch is not None}),
             tag=_DONE_TAG)
     except Exception as e:  # the parent re-raises it
         wring.write(pickle.dumps(
@@ -98,3 +115,7 @@ def worker_main(ring_name, lib_path, job_blob, worker_id, nw):
             tag=_ERR_TAG)
     finally:
         wring.close()
+
+
+if __name__ == "__ptt_worker__":  # a worker, started by runpy.run_path
+    worker_main(*WORKER_ARGS)  # noqa: F821 (given as init_globals)

@@ -12,8 +12,10 @@ back in order by batch index.
 Telemetry (``profiler.registry``): timing ``dataloader.wait`` (how long
 the consumer waited for each batch), timing ``dataloader.worker_busy``
 (each worker's busy seconds, from its DONE frame), counter
-``dataloader.worker_batches`` and ``dataloader.worker_cuda_inits``
-(workers that initialised CUDA: must stay 0); the
+``dataloader.worker_batches``, ``dataloader.worker_cuda_inits``
+(workers that initialised CUDA: must stay 0) and
+``dataloader.worker_torch_imports`` (workers that imported torch: 0 for a
+dataset and collate function of numpy alone); the
 ``dataloader.worker_start`` timing is the seconds from starting the
 workers to the first batch read from the ring.
 """
@@ -25,6 +27,7 @@ import multiprocessing as mp
 import os
 import pickle
 import queue
+import runpy
 import sys
 import threading
 import time
@@ -37,8 +40,12 @@ import torch
 
 from ..profiler import registry as _registry
 from . import _worker
+from . import dataset as _dataset
 from .dataset import BatchSampler, IterableDataset
 from .shm_ring import ShmRing, library
+
+# modules whose objects a job pickles by value (both import numpy alone)
+_BY_VALUE = (_worker, _dataset)
 
 __all__ = ["DataLoader", "default_collate_fn"]
 
@@ -217,23 +224,31 @@ class DataLoader:
     def _start_workers(self, ring_name, lib_path, batches):
         nw = self.num_workers
         ctx = mp.get_context("forkserver")
-        # the fork server imports the worker module (torch with it) once;
-        # every worker then forks from it instead of importing torch again
-        # (seconds per worker). It takes effect when the server starts,
-        # once per process.
-        ctx.set_forkserver_preload([_worker.__name__])
+        # the fork server imports numpy once and every worker forks from
+        # it; neither imports torch (the worker file runs by path). It
+        # takes effect when the server starts, once per process.
+        ctx.set_forkserver_preload(["numpy"])
         atexit.unregister(stop_servers)
         atexit.register(stop_servers)
         collate = (_worker.np_collate
                    if self.collate_fn is default_collate_fn
                    else _worker.UserCollate(self.collate_fn))
-        # by value: a dataset defined in __main__ reaches the workers
-        job_blob = cloudpickle.dumps(
-            (self.dataset, collate, batches, self.worker_init_fn))
-        procs = [ctx.Process(target=_worker.worker_main,
-                             args=(ring_name, str(lib_path), job_blob, w,
-                                   nw), daemon=True)
-                 for w in range(nw)]
+        # by value: a dataset defined in __main__ reaches the workers, and
+        # the worker file's collate functions and this package's datasets
+        # (numpy only) need no package import there
+        for mod in _BY_VALUE:
+            cloudpickle.register_pickle_by_value(mod)
+        try:
+            job_blob = cloudpickle.dumps(
+                (self.dataset, collate, batches, self.worker_init_fn))
+        finally:
+            for mod in _BY_VALUE:
+                cloudpickle.unregister_pickle_by_value(mod)
+        procs = [ctx.Process(
+            target=runpy.run_path, args=(_worker.__file__,),
+            kwargs={"run_name": "__ptt_worker__", "init_globals": {
+                "WORKER_ARGS": (ring_name, str(lib_path), job_blob, w, nw)}},
+            daemon=True) for w in range(nw)]
         # a child must not import the user's __main__ again (the job goes
         # by value; re-running a training script there would be waste or
         # worse): hide it while the children start
@@ -328,6 +343,8 @@ class DataLoader:
             _registry.inc("worker_batches", int(info["n_batches"]),
                           scope="dataloader")
             _registry.inc("worker_cuda_inits", int(info["cuda"]),
+                          scope="dataloader")
+            _registry.inc("worker_torch_imports", int(info["torch"]),
                           scope="dataloader")
             done[0] += 1
         return msg

@@ -199,10 +199,23 @@ class BatchSampler(Sampler):
         return (n + self.batch_size - 1) // self.batch_size
 
 
+def _data_parallel_rank():
+    """``(degree, rank)`` of this process in data parallelism."""
+    from ..distributed import fleet, parallel_env
+
+    hcg = fleet.get_hybrid_communicate_group()
+    if hcg is not None:
+        return (hcg.get_data_parallel_world_size(),
+                hcg.get_data_parallel_rank())
+    return parallel_env.get_world_size(), parallel_env.get_rank()
+
+
 class DistributedBatchSampler(BatchSampler):
     """Shards sample indices across data-parallel ranks: rank ``r`` of
     ``n`` takes every ``n``-th index from ``r``, the list padded by its head
-    to a multiple of ``n``."""
+    to a multiple of ``n``. Without ``num_replicas`` / ``rank`` they are
+    the fleet's data-parallel degree and rank when ``fleet.init`` ran, else
+    the process group's world size and rank (1 and 0 outside one)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -210,10 +223,10 @@ class DistributedBatchSampler(BatchSampler):
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
-        # the port has no process group yet (ROADMAP queue 1 item 6):
-        # without num_replicas / rank it is rank 0 of 1
-        num_replicas = num_replicas or 1
-        rank = rank if rank is not None else 0
+        if num_replicas is None or rank is None:
+            n, r = _data_parallel_rank()
+            num_replicas = n if num_replicas is None else num_replicas
+            rank = r if rank is None else rank
         self.nranks = num_replicas
         self.local_rank = rank
         self.epoch = 0

@@ -27,26 +27,35 @@ _libs: dict = {}
 
 
 def library():
-    """Path of the built library, building it first if needed. A failed
-    compile raises with the compiler's output."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    so = BUILD_DIR / f"shm_ring-{h.hexdigest()[:16]}.so"
+    """Path of the built ring library, building it first if needed."""
+    return build_library(SOURCE, "shm_ring", ("-lrt",))
+
+
+def build_library(source, stem, link=()):
+    """Path of ``source`` built with ``g++`` into the port's ``build/`` as
+    ``<stem>-<hash>.so`` (the hash covers the source and the flags),
+    building it first if needed, under a file lock so that concurrent first
+    uses build it once. A failed compile raises with the compiler's
+    output. (The rendezvous store, ``distributed/store.py``, builds its
+    library here too.)"""
+    h = hashlib.sha256(Path(source).read_bytes())
+    h.update(" ".join((*CXX_FLAGS, *link)).encode())
+    so = BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
     import fcntl
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "shm_ring.lock", "w") as lock:
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
             tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
             res = subprocess.run(
                 [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp),
-                 str(SOURCE), "-lrt"], capture_output=True, text=True)
+                 str(source), *link], capture_output=True, text=True)
             if res.returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"building {SOURCE.name} failed "
+                raise RuntimeError(f"building {Path(source).name} failed "
                                    f"(exit {res.returncode}):\n"
                                    f"{res.stdout}{res.stderr}")
             os.replace(tmp, so)

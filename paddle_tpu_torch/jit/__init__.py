@@ -28,10 +28,16 @@ cannot be captured. The first call of each signature runs under torch's
 sync debug mode ("error"), so such a read raises there, before anything is
 captured (a failed capture would leave the stream unusable for the rest of
 the process): the call raises and names the cause, the step stops at the
-read, and it is never run eagerly in the graph's place. A model with a
-sparse gradient (``nn.Embedding(sparse=True)``) is refused when the step
-is built: a row-wise update needs its row count on the host. Sparse and
-lazy updates run in an eager loop (call ``step_fn``) or on the CPU.
+read, and it is never run eagerly in the graph's place. An
+``nn.Embedding(sparse=True)`` takes the dense gradient path in the step's
+eager call and under its capture (a row-wise update needs its row count
+on the host), and on the CPU alike, as the reference's traced step does;
+where the reference falls back silently, building the step records a
+``kernel_fallback`` event naming the modules. An eager loop (``step_fn``
+called directly) keeps the sparse rows and lazy updates. A step whose
+models communicate through a gloo process group on CUDA tensors is
+refused when it is built: a gloo collective waits on the host, which a
+CUDA graph cannot capture (NCCL, one card per rank, can).
 
 Graphs are kept per signature and share one memory pool. The signature
 also covers the storage of every parameter, buffer, gradient, optimizer
@@ -42,9 +48,9 @@ addresses; an in-place restore (``set_state_dict``, ``load_state_dict``,
 ``mutate_signature`` fault point fires at this check (``mode=aval``
 perturbs a recorded argument shape, so the check captures again;
 ``mode=scalar`` finds nothing pinned and does nothing). Every
-``torch.Generator`` on the card held by a module of the models (the
-attention dropout's) is registered with each graph, so each replay draws
-new masks and the generator's state between calls is its true state.
+``torch.Generator`` on the card held by a module of the models (a GPT's
+dropout stream) is registered with each graph, so each replay draws new
+masks and the generator's state between calls is its true state.
 
 Counters (registry scope ``jit``): ``train_step_captures``,
 ``train_step_replays``, ``train_step_eager``. The kernel wrappers'
@@ -56,9 +62,12 @@ the step runs eagerly every call, the same update code.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
 
@@ -125,20 +134,58 @@ class TrainStep:
             else [optimizers]
         self._device = next(self._models[0].parameters()).device
         if self._device.type == "cuda":
-            sparse = [name or type(mod).__name__ for m in self._models
-                      for name, mod in m.named_modules()
-                      if isinstance(mod, torch.nn.Embedding) and mod.sparse]
-            if sparse:
-                raise ValueError(
-                    f"TrainStep: {sparse} make sparse gradients, whose "
-                    "row-wise update needs its row count on the host and "
-                    "cannot be captured as a CUDA graph; call step_fn in "
-                    "an eager loop, or use a dense Embedding")
+            self._refuse_gloo()
+        named = [(name or type(mod).__name__, mod) for m in self._models
+                 for name, mod in m.named_modules()
+                 if isinstance(mod, torch.nn.Embedding) and mod.sparse]
+        self._sparse = [mod for _, mod in named]
+        if named:
+            _explain.record(
+                "kernel_fallback", op="nn.Embedding(sparse=True)",
+                why="a sparse gradient's row-wise update needs its row count "
+                    "on the host, which a CUDA graph cannot read: TrainStep "
+                    "takes the dense gradient path",
+                modules=[n for n, _ in named])
         self._graphs: dict = {}   # signature -> _Graph
         self._warm: set = set()   # signatures that ran their eager call
         self._storage = None      # the storage the graphs were taken over
         self._pool = None         # the graphs' shared memory pool
         self._side = None
+
+    def _refuse_gloo(self):
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        groups = [g for m in self._models for mod in m.modules()
+                  for g in (getattr(mod, "mp_group", None),
+                            getattr(getattr(mod, "_grad_sync", None),
+                                    "group", None))
+                  if g is not None]
+        if dist.get_world_size() > 1:
+            groups.append(None)  # the default group
+        for g in groups:
+            pg = None if g is None else g.process_group
+            if (g is None or g.nranks > 1) and \
+                    dist.get_backend(pg) == "gloo":
+                raise ValueError(
+                    "TrainStep: the models' process group uses the gloo "
+                    "backend on CUDA tensors; a gloo collective blocks the "
+                    "host and cannot be captured in a CUDA graph, and "
+                    "TrainStep does not run the step eagerly instead. Use "
+                    "NCCL (one card per rank), or call step_fn in an eager "
+                    "loop")
+
+    @contextlib.contextmanager
+    def _dense_embeddings(self):
+        """The sparse embeddings take the dense gradient path meanwhile."""
+        for mod in self._sparse:
+            mod.sparse = False
+        try:
+            yield
+        finally:
+            for mod in self._sparse:
+                mod.sparse = True
 
     @property
     def step_fn(self):
@@ -200,7 +247,8 @@ class TrainStep:
     def __call__(self, *args):
         args = [_as_tensor(a) for a in args]
         if self._device.type != "cuda":
-            return self._eager(args)
+            with self._dense_embeddings():
+                return self._eager(args)
         avals = tuple(_aval(a) for a in args)
         if avals not in self._warm:
             out = self._warm_up(args)
@@ -235,7 +283,7 @@ class TrainStep:
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            with torch.cuda.stream(self._side):
+            with torch.cuda.stream(self._side), self._dense_embeddings():
                 out = self._eager(args)
         except RuntimeError as e:
             if "synchronizing CUDA operation" not in str(e):
@@ -272,7 +320,8 @@ class TrainStep:
             graph.register_generator_state(gen)
         steps = [o._opt_step for o in self._opts]
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool), \
+                    self._dense_embeddings():
                 out = self._checked(lambda: self._fn(*static))
         except Exception as e:
             if "step count" in str(e):

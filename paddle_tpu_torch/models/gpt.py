@@ -19,6 +19,20 @@ lanes) go to the reserved garbage block 0, and attention reads each slot's
 logical view. Unlike the reference, which returns new pools, the pools are
 updated in place (``index_copy_``): on a GPU a copy of every pool per step
 would cost more than the step.
+
+Tensor parallelism: ``fleet.distributed_model`` (``distributed.spmd.
+shard_model``) slices the parameters the model annotates with a
+``sharding_spec`` (``qkv_proj`` and ``fc1`` by output features, the q, k
+and v blocks of ``qkv_proj`` each by whole heads; ``out_proj`` and ``fc2``
+by input features; ``word_embeddings`` by vocabulary rows: the reference's
+``(None, "mp")``, ``("mp", None)`` and ``("mp", None)`` in torch's layout)
+and sets ``mp_group`` on the attention, the MLP and the embeddings, whose
+forwards then run each rank's ``n_head / mp`` heads and ``d_ff / mp``
+columns with the Megatron collectives of ``meta_parallel.mp_ops``. A row
+bias is added once, after the all-reduce. The tied LM head then gives
+vocab-sharded logits, marked with their group, which
+``GPTPretrainingCriterion`` takes through ``_c_softmax_with_cross_entropy``
+without gathering them.
 """
 from __future__ import annotations
 
@@ -30,12 +44,19 @@ import torch.nn.functional as F
 from torch import nn
 from ..device import resolve_device
 from ..distributed.fleet.utils import recompute, recompute_policy_fn
+from ..distributed.meta_parallel.mp_ops import (_c_identity, _c_lookup_table,
+                                                _c_softmax_with_cross_entropy,
+                                                _mp_allreduce)
 from ..nn.moe import MoEMLP, validate_moe_config
 from ..ops.attention import (attention, output_dropout,
                              scaled_dot_product_attention)
+from ..ops.counter_rng import hashed_dropout
 from ..ops.flash_attention import select_flash_kernel
 from ..ops.paged_attention import (paged_attention_route, paged_view,
                                    position_mask)
+
+# the embeddings' dropout site; a block's are 4 * layer + 0, 1, 2
+EMBEDDING_SITE = 3
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -171,36 +192,63 @@ class GPTAttention(nn.Module):
         self.dropout_p = cfg.attn_dropout
         self.kernel = "torch"
         self.generator = None
+        self.mp_group = None
 
-    def forward(self, x, cache=None, paged=None, slot=None):
+    def annotate(self):
+        """The parameters' ``sharding_spec`` (see the module's docstring)."""
+        unit = self.head_dim
+        for p, spec, layout in (
+                (self.qkv_proj.weight, ("mp", None), (3, unit)),
+                (self.qkv_proj.bias, ("mp",), (3, unit)),
+                (self.out_proj.weight, (None, "mp"), (1, unit))):
+            p.sharding_spec, p.shard_layout = spec, layout
+
+    def _project(self, a):
+        """``out_proj``: on the mp form, this rank's heads' partial product,
+        all-reduced, then the bias."""
+        if self.mp_group is None:
+            return self.out_proj(a)
+        return _mp_allreduce(F.linear(a, self.out_proj.weight),
+                             self.mp_group) + self.out_proj.bias
+
+    def forward(self, x, cache=None, paged=None, slot=None, dropout=None):
         """Cache-less causal attention; or, with ``cache=(k_pool, v_pool)``
         and ``paged`` from :meth:`GPTModel.forward`, the paged branch (the
         pools updated in place); or one of the reference's older forms,
         returning ``(out, new cache)``: ``slot=(cache_offsets, seq_lens)``
         with ``cache=(k_buf, v_buf)`` (:meth:`_slot_cache`), or ``cache``
-        alone (:meth:`_concat_cache`)."""
-        B, T, D = x.shape
-        qkv = self.qkv_proj(x).view(B, T, 3, self.n_head, self.head_dim)
-        q, k, v = qkv.unbind(2)
+        alone (:meth:`_concat_cache`). ``dropout``: a function ``(out, p)
+        -> out`` drawing the cache-less output's dropout mask in place of
+        ``generator`` (:class:`GPTModel`'s counter-based masks)."""
+        B, T, _ = x.shape
+        if self.mp_group is not None:
+            x = _c_identity(x, self.mp_group)
+        qkv = self.qkv_proj(x)
+        h = qkv.shape[-1] // (3 * self.head_dim)  # this rank's heads
+        q, k, v = qkv.view(B, T, 3, h, self.head_dim).unbind(2)
         if cache is None:
             out = scaled_dot_product_attention(
-                q, k, v, is_causal=True, dropout_p=self.dropout_p,
+                q, k, v, is_causal=True,
+                dropout_p=0.0 if dropout else self.dropout_p,
                 training=self.training, generator=self.generator,
                 kernel=self.kernel)
-            return self.out_proj(out.reshape(B, T, D))
+            out = out.reshape(B, T, h * self.head_dim)
+            if dropout is not None and self.training:
+                out = dropout(out, self.dropout_p)
+            return self._project(out)
         if paged is None:
             legacy = self._slot_cache if slot is not None \
                 else self._concat_cache
             out, cache = legacy(q, k, v, cache, slot)
-            return self.out_proj(out.reshape(B, T, D)), cache
+            return self._project(out.reshape(B, T, h * self.head_dim)), cache
         block_tables, seq_lens, offsets, write_rows, kernel = paged
         k_pool, v_pool = cache
         Nb, bs = k_pool.shape[0], k_pool.shape[1]
-        shape = (Nb * bs, self.n_head, self.head_dim)
+        shape = (Nb * bs, h, self.head_dim)
         k_pool.view(shape).index_copy_(
-            0, write_rows, k.reshape(B * T, self.n_head, self.head_dim))
+            0, write_rows, k.reshape(B * T, h, self.head_dim))
         v_pool.view(shape).index_copy_(
-            0, write_rows, v.reshape(B * T, self.n_head, self.head_dim))
+            0, write_rows, v.reshape(B * T, h, self.head_dim))
         if kernel is not None:
             out = paged_attention_route(kernel, q, k_pool, v_pool,
                                         block_tables, seq_lens, offsets)
@@ -212,7 +260,7 @@ class GPTAttention(nn.Module):
             out = attention(q, k_view, v_view,
                             mask=position_mask(offsets, seq_lens, T,
                                                k_view.shape[1]))
-        return self.out_proj(out.reshape(B, T, D))
+        return self._project(out.reshape(B, T, h * self.head_dim))
 
     def _masked(self, q, k, v, mask):
         """The older cache forms' attention: the plain masked attention
@@ -263,9 +311,27 @@ class GPTMLP(nn.Module):
         self.fc1 = nn.Linear(cfg.d_model, cfg.d_ff)
         self.fc2 = nn.Linear(cfg.d_ff, cfg.d_model)
         self.dropout = nn.Dropout(cfg.dropout)
+        self.mp_group = None
 
-    def forward(self, x):
-        return self.dropout(self.fc2(F.gelu(self.fc1(x), approximate="tanh")))
+    def annotate(self):
+        for p, spec in ((self.fc1.weight, ("mp", None)),
+                        (self.fc1.bias, ("mp",)),
+                        (self.fc2.weight, (None, "mp"))):
+            p.sharding_spec = spec
+
+    def forward(self, x, dropout=None):
+        """``dropout``: as :meth:`GPTAttention.forward`'s."""
+        g = self.mp_group
+        if g is not None:
+            x = _c_identity(x, g)
+        h = F.gelu(self.fc1(x), approximate="tanh")
+        if g is None:
+            y = self.fc2(h)
+        else:
+            y = _mp_allreduce(F.linear(h, self.fc2.weight), g) + self.fc2.bias
+        if dropout is None or not self.training:
+            return self.dropout(y)
+        return dropout(y, self.dropout.p)
 
 
 class GPTBlock(nn.Module):
@@ -289,74 +355,85 @@ class GPTBlock(nn.Module):
         self.dropout = nn.Dropout(cfg.dropout)
         self.recompute = cfg.use_recompute
         self.recompute_policy = cfg.recompute_policy
+        self.layer_idx = layer_idx
         recompute_policy_fn(cfg.recompute_policy)  # refuses unknown names
 
-    def _forward(self, x, cache=None, paged=None, slot=None, moe_rows=False):
+    def _dropouts(self, mask_key):
+        """The block's three dropout sites (attention output, residual,
+        MLP output) as ``(y, p) -> y`` functions drawing counter-based
+        masks from ``mask_key`` (``(key, batch shard)``, see
+        :class:`GPTModel`), the layer and the site; Nones without a key. On
+        the mp form the attention output is this rank's heads, a block of
+        the columns of all."""
+        if mask_key is None:
+            return None, None, None
+        key, rows = mask_key
+        g = self.attn.mp_group
+        heads = (0, 1) if g is None else (g.rank, g.nranks)
+
+        def site(i, cols=(0, 1)):
+            return lambda y, p: hashed_dropout(
+                y, p, key, 4 * self.layer_idx + i, rows, cols)
+
+        return site(0, heads), site(1), site(2)
+
+    def _forward(self, x, cache=None, paged=None, slot=None, moe_rows=False,
+                 mask_key=None):
         """The block's output; with an older cache form (``cache`` and no
-        ``paged``), ``(output, new cache)``."""
-        a = self.attn(self.ln1(x), cache=cache, paged=paged, slot=slot)
+        ``paged``), ``(output, new cache)``. ``mask_key``: draw the
+        dropout masks from :func:`~paddle_tpu_torch.ops.counter_rng.
+        hashed_dropout` instead of the generators."""
+        attn_drop, res_drop, mlp_drop = self._dropouts(
+            mask_key if self.training else None)
+        a = self.attn(self.ln1(x), cache=cache, paged=paged, slot=slot,
+                      dropout=attn_drop)
         legacy = cache is not None and paged is None
         if legacy:
             a, cache = a
-        x = x + self.dropout(a)
+        x = x + (self.dropout(a) if res_drop is None
+                 else res_drop(a, self.dropout.p))
         h = self.ln2(x)
         if moe_rows and isinstance(self.mlp, MoEMLP):
             # every row its own routing group, as a decode step routes
             # each slot's one row
             y = self.mlp(h.reshape(-1, 1, h.shape[-1])).view(h.shape)
         else:
-            y = self.mlp(h)
+            y = self.mlp(h, dropout=mlp_drop)
         return (x + y, cache) if legacy else x + y
 
-    def forward(self, x, cache=None, paged=None, slot=None, moe_rows=False):
+    def forward(self, x, cache=None, paged=None, slot=None, moe_rows=False,
+                mask_key=None):
         if cache is None and self.recompute and self.training:
-            return self._recomputed(x)
+            return self._recomputed(x, mask_key)
         return self._forward(x, cache=cache, paged=paged, slot=slot,
-                             moe_rows=moe_rows)
+                             moe_rows=moe_rows, mask_key=mask_key)
 
-    def _recomputed(self, x):
+    def _recomputed(self, x, mask_key):
         """The block under :func:`~paddle_tpu_torch.distributed.fleet.utils.
         recompute` with ``recompute_policy``: its activations, less what the
         policy keeps, are dropped after the forward and recomputed in the
-        backward. The checkpoint replays torch's default generators itself;
-        the attention's own generator is rewound here, so the recomputation
-        draws the same dropout masks, and then put back where the forward
-        left it. An MoE MLP's ``aux_loss`` and ``last_stats`` stay the
-        first forward's: the recomputation's are put back.
-
-        Under CUDA-graph capture no generator's state can be read, so a
-        recomputed block with dropout raises there."""
-        dropout = self.attn.dropout_p > 0.0 or any(
-            m.p > 0.0 for m in self.modules() if isinstance(m, nn.Dropout))
-        if dropout and x.is_cuda and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "a recomputed GPTBlock with dropout cannot be captured in a "
-                "CUDA graph: the recomputation must replay the dropout "
-                "masks, and no generator state can be read under capture; "
-                "train with dropout 0, or without use_recompute, under "
-                "jit.TrainStep on the card")
-        gen = self.attn.generator if self.attn.dropout_p > 0.0 else None
-        start = gen.get_state() if gen is not None else None
+        backward. Its dropout masks (``mask_key``, given by
+        :class:`GPTModel` when the model has dropout) are a hash of the
+        key, the layer, the site and the element, so the recomputation
+        makes the forward's masks again without reading any generator's
+        state: eagerly and under a CUDA graph's capture alike. An MoE
+        MLP's ``aux_loss`` and ``last_stats`` stay the first forward's: the
+        recomputation's are put back."""
         moe = self.mlp if isinstance(self.mlp, MoEMLP) else None
         ran = []
 
-        def run(h):
+        def run(h, key):
             if not ran:
                 ran.append(True)
-                return self._forward(h)
-            resume = gen.get_state() if gen is not None else None
+                return self._forward(h, mask_key=key)
             kept = (moe.aux_loss, moe.last_stats) if moe else None
-            if gen is not None:
-                gen.set_state(start)
             try:
-                return self._forward(h)
+                return self._forward(h, mask_key=key)
             finally:
-                if gen is not None:
-                    gen.set_state(resume)
                 if moe:
                     moe.aux_loss, moe.last_stats = kept
 
-        return recompute(run, x, policy=self.recompute_policy)
+        return recompute(run, x, mask_key, policy=self.recompute_policy)
 
 
 class GPTEmbeddings(nn.Module):
@@ -365,13 +442,26 @@ class GPTEmbeddings(nn.Module):
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.d_model)
         self.position_embeddings = nn.Embedding(cfg.seq_len, cfg.d_model)
         self.dropout = nn.Dropout(cfg.dropout)
+        self.mp_group = None
 
-    def forward(self, input_ids, position_ids=None):
+    def annotate(self):
+        self.word_embeddings.weight.sharding_spec = ("mp", None)
+
+    def forward(self, input_ids, position_ids=None, mask_key=None):
+        """``mask_key``: as :meth:`GPTBlock._dropouts`'."""
         if position_ids is None:
             position_ids = torch.arange(
                 input_ids.shape[1], device=input_ids.device).unsqueeze(0)
-        return self.dropout(self.word_embeddings(input_ids)
-                            + self.position_embeddings(position_ids))
+        if self.mp_group is None:
+            tok = self.word_embeddings(input_ids)
+        else:
+            tok = _c_lookup_table(self.word_embeddings.weight, input_ids,
+                                  group=self.mp_group)
+        x = tok + self.position_embeddings(position_ids)
+        if mask_key is None or not self.training:
+            return self.dropout(x)
+        key, rows = mask_key
+        return hashed_dropout(x, self.dropout.p, key, EMBEDDING_SITE, rows)
 
 
 class GPTModel(nn.Module):
@@ -382,10 +472,27 @@ class GPTModel(nn.Module):
     Normal(0, initializer_range) for embeddings, Linear weights, expert
     banks ``w1`` and gate weights, scaled by 1/sqrt(2*n_layer) for the
     residual-output projections (``out_proj``, ``fc2``, ``w2``), zero
-    biases, unit LayerNorm scales — the reference's initializers. The
-    attention dropout draws from the same generator. The dtype cast of a
-    bf16 config covers every weight, the gate's too, as the reference's
-    model cast does.
+    biases, unit LayerNorm scales — the reference's initializers. The dtype
+    cast of a bf16 config covers every weight, the gate's too, as the
+    reference's model cast does.
+
+    Dropout: each training forward (the cache-less one) with a dropout
+    rate above 0 draws one key of two 32-bit words from ``generator``
+    (else torch's default generator on the model's device), and every
+    dropout site of the embeddings and the blocks draws its mask from
+    :func:`~paddle_tpu_torch.ops.counter_rng.hashed_dropout`: a hash of the
+    key, the site and the element's index. A recomputed block thus makes
+    its forward's masks again without reading any generator's state, and
+    a recomputing model trains as the same model without recompute, under
+    ``TrainStep``'s CUDA graph too (a graph draws the key on the card from
+    the registered generator). On the mp form every rank draws the same
+    key (``fleet.distributed_model`` makes the ranks' ``generator`` one)
+    and hashes the index in the whole array: its ``batch_shard``-th block
+    of the batch's rows (``spmd.shard_batch``'s rows), and, for the
+    attention output inside the column-parallel region, its own heads'
+    columns. So the replicated activations get the same mask on every
+    rank, each rank's heads their own, and the masks are those of the one
+    process that holds the whole batch and every head.
 
     ``attn_kernel`` picks the cache-less forward's attention route once
     (:func:`~paddle_tpu_torch.ops.flash_attention.select_flash_kernel`):
@@ -411,7 +518,29 @@ class GPTModel(nn.Module):
         self.to(cfg.torch_dtype)
         for blk in self.blocks:
             blk.attn.kernel = self.attn_kernel
+        self.set_generator(generator)
+        self.batch_shard = 0  # this rank's block of the batch's rows
+        for mod in self.modules():
+            if isinstance(mod, (GPTAttention, GPTMLP, GPTEmbeddings)):
+                mod.annotate()
+
+    def set_generator(self, generator):
+        """The source of the dropout keys (and of a standalone attention
+        call's masks); None: torch's default generator."""
+        self.generator = generator
+        for blk in self.blocks:
             blk.attn.generator = generator
+
+    def _mask_key(self):
+        """This training forward's dropout key, or None without dropout."""
+        if not self.training or (self.cfg.dropout <= 0.0
+                                 and self.cfg.attn_dropout <= 0.0):
+            return None
+        g = self.generator
+        key = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                            generator=g,
+                            device=g.device if g is not None else self.device)
+        return key.to(self.device), self.batch_shard
 
     @torch.no_grad()
     def _init_weights(self, generator):
@@ -460,11 +589,13 @@ class GPTModel(nn.Module):
         slot's one row; by default each batch row is one group."""
         if caches is not None and cache_offsets is None:
             _warn_legacy_cache()
-        x = self.embeddings(input_ids, position_ids)
         if caches is None:
+            mask_key = self._mask_key()
+            x = self.embeddings(input_ids, position_ids, mask_key=mask_key)
             for blk in self.blocks:
-                x = blk(x)
+                x = blk(x, mask_key=mask_key)
             return self.ln_f(x)
+        x = self.embeddings(input_ids, position_ids)
         if block_tables is None:
             if cache_offsets is not None and seq_lens is None:
                 raise ValueError("the slot cache (cache_offsets without "
@@ -506,7 +637,15 @@ class GPTForPretraining(nn.Module):
         self.gpt = model
 
     def lm_logits(self, hidden):
-        return hidden @ self.gpt.embeddings.word_embeddings.weight.t()
+        """``hidden @ word_embeddings.weight.T``; on the mp form, this rank's
+        vocabulary columns, marked ``vocab_parallel_group``."""
+        emb = self.gpt.embeddings
+        w = emb.word_embeddings.weight
+        if emb.mp_group is None:
+            return hidden @ w.t()
+        logits = _c_identity(hidden, emb.mp_group) @ w.t()
+        logits.vocab_parallel_group = emb.mp_group
+        return logits
 
     def forward(self, input_ids, position_ids=None):
         return self.lm_logits(self.gpt(input_ids, position_ids))
@@ -518,11 +657,20 @@ class GPTForPretraining(nn.Module):
 class GPTPretrainingCriterion(nn.Module):
     """Mean next-token cross-entropy: ``-log_softmax(logits)[label]`` in the
     logits' dtype, averaged over every position, or over the positions
-    ``loss_mask`` keeps (its sum clipped at 1), as in the reference."""
+    ``loss_mask`` keeps (its sum clipped at 1), as in the reference.
+    Vocab-sharded logits (marked ``vocab_parallel_group`` by the mp form's
+    LM head) go through ``_c_softmax_with_cross_entropy``, whose float32
+    loss per position is rounded to the logits' dtype."""
 
     def forward(self, logits, labels, loss_mask=None):
-        logp = torch.log_softmax(logits.reshape(-1, logits.shape[-1]), dim=-1)
-        loss = -logp.gather(1, labels.reshape(-1, 1).long()).squeeze(1)
+        group = getattr(logits, "vocab_parallel_group", None)
+        flat = logits.reshape(-1, logits.shape[-1])
+        if group is not None:
+            loss = _c_softmax_with_cross_entropy(
+                flat, labels.reshape(-1), group).to(logits.dtype)
+        else:
+            logp = torch.log_softmax(flat, dim=-1)
+            loss = -logp.gather(1, labels.reshape(-1, 1).long()).squeeze(1)
         if loss_mask is not None:
             m = loss_mask.reshape(-1).to(loss.dtype)
             return (loss * m).sum() / m.sum().clamp(min=1.0)

@@ -92,7 +92,10 @@ class MoEMLP(nn.Module):
         self.b1.zero_()
         self.b2.zero_()
 
-    def forward(self, x):
+    def forward(self, x, dropout=None):
+        """``dropout``: a function ``(y, p) -> y`` drawing the output's
+        mask in place of ``self.dropout``'s generator (a recomputing GPT
+        block's counter-based masks)."""
         dispatch, combine, aux_loss, stats = self.gate(x)
         if torch.is_grad_enabled() or not _capturing(x):
             self.aux_loss, self.last_stats = aux_loss, stats
@@ -106,5 +109,6 @@ class MoEMLP(nn.Module):
             + self.b2[:, None, None]
         y = torch.einsum("gsec,egch->gsh", combine, h)
         if self.dropout is not None:
-            y = self.dropout(y)
+            y = self.dropout(y) if dropout is None or not self.training \
+                else dropout(y, self.dropout.p)
         return y

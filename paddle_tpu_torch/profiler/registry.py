@@ -47,6 +47,17 @@ def inc(name, n=1, scope="misc"):
     d[name] = d.get(name, 0) + n
 
 
+def tally(scope, name, *tensors):
+    """Bump ``<name>.calls`` and ``<name>.bytes`` in ``scope`` (the bytes
+    of ``tensors``): the collective and mp traffic counters."""
+    d = _counter_scopes.get(scope)
+    if d is None:
+        d = scoped_counters(scope)
+    d[name + ".calls"] = d.get(name + ".calls", 0) + 1
+    d[name + ".bytes"] = d.get(name + ".bytes", 0) + sum(
+        t.numel() * t.element_size() for t in tensors)
+
+
 def gauge_set(name, value):
     _gauges[name] = value
 

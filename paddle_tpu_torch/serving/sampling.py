@@ -7,7 +7,7 @@ mix of requests. Sampling is Gumbel-max: ``argmax(logits + gumbel)``.
 
 Randomness enters only through the request key and the request's own
 token index: :func:`gumbel_rows` is counter-based, written in torch integer
-ops, so row b depends on ``(key[b], token_idx[b])`` alone — not on the slot,
+ops (``ops/counter_rng.py``), so row b depends on ``(key[b], token_idx[b])`` alone — not on the slot,
 the batch, or the device (the integer stream is the same on the CPU and
 the GPU, and the float transform runs in float64 before rounding). The
 reference draws its noise from JAX's threefry; the two streams differ, so
@@ -18,31 +18,9 @@ from __future__ import annotations
 
 import torch
 
-_MASK32 = 0xFFFFFFFF
-
-
-def _mul32(a, c):
-    """``a * c mod 2**32`` for int64 tensors ``a`` in [0, 2**32) and a
-    32-bit constant ``c``, split in 16-bit halves so no product overflows."""
-    c_lo, c_hi = c & 0xFFFF, c >> 16
-    a_lo, a_hi = a & 0xFFFF, a >> 16
-    return (a_lo * c_lo + (((a_hi * c_lo + a_lo * c_hi) & 0xFFFF) << 16)) \
-        & _MASK32
-
-
-def _mix32(x):
-    """A 32-bit avalanche mixer (the murmur3 finalizer) on int64 tensors
-    holding values in [0, 2**32)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def _mix_pair(a, b):
-    """Hash two 32-bit words into one."""
-    return _mix32(a ^ _mix32((b + 0x9E3779B9) & _MASK32))
+from ..ops.counter_rng import MASK32 as _MASK32
+from ..ops.counter_rng import mix32 as _mix32
+from ..ops.counter_rng import mix_pair as _mix_pair
 
 
 def request_key(base_key, seed):

@@ -76,7 +76,7 @@ between the draft round and the verify: acceptance collapses, the tokens
 do not change.
 
 Not ported yet: the mesh refusals and ``describe_sharding`` (with the
-sharded serving of ROADMAP queue 1 item 6).
+sharded serving of ROADMAP queue 1 item 6d).
 """
 from __future__ import annotations
 

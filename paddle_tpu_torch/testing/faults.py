@@ -66,13 +66,15 @@ Points and their sites in this package:
     truncate_checkpoint  incubate/checkpoint writer            nth, bytes
     mutate_signature     jit.TrainStep's signature check       nth, mode
     nan_loss             hapi.Model.train_batch                step
+    store_flaky          distributed.store.TCPStore ops        fails, op
+    store_slow           distributed.store.TCPStore ops        delay, op
+    store_partition      distributed.store.TCPStore ops        secs
     ===================  ====================================  ============
 
 The remaining points parse, arm and fire like the reference's, but no site
 in this package fires them yet: ``kill_at_step``, ``rank_preempt`` and
-``step_hang`` (the elastic ``CheckpointHook``),
-``store_flaky``, ``store_slow`` and ``store_partition`` (the rendezvous
-store), ``pod_kill`` and ``router_drop`` (the serving fleet). The ``net_*`` data-plane points of
+``step_hang`` (the elastic ``CheckpointHook``), ``pod_kill`` and
+``router_drop`` (the serving fleet). The ``net_*`` data-plane points of
 the reference's ``testing/netfaults.py`` are not ported: arming one
 raises.
 
@@ -88,7 +90,8 @@ import time
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 
-__all__ = ["configure", "reset", "fire", "spec", "parse_spec", "ACTIVE"]
+__all__ = ["configure", "reset", "fire", "spec", "parse_spec", "store_op",
+           "ACTIVE"]
 
 # the gate every site reads before calling fire(): an unarmed process pays
 # one module attribute load per site
@@ -358,3 +361,12 @@ def _from_env():
 
 
 _from_env()
+
+
+def store_op(op):
+    """The rendezvous store's one fault site per operation: ``store_slow``,
+    then ``store_flaky``, then ``store_partition`` (the reference's
+    ``store_op``)."""
+    fire("store_slow", op=op)
+    fire("store_flaky", op=op)
+    fire("store_partition", op=op)

@@ -606,7 +606,7 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
 
 # ------------------------------------------------- TrainStep's CUDA graph --
 def _train_run(cuda, graph, steps=4, dtype="bfloat16", policy=None,
-               recompute=False, attn_dropout=0.0, sched=True):
+               recompute=False, attn_dropout=0.0, sched=True, dropout=0.0):
     """A small GPT (head_dim 64, seq_len 128: the kernels' shapes) under
     AdamW with master weights, a warm-up-into-cosine schedule stepped
     between calls and a global-norm clip: ``steps`` calls of TrainStep
@@ -619,7 +619,7 @@ def _train_run(cuda, graph, steps=4, dtype="bfloat16", policy=None,
 
     cfg = tgpt.GPTConfig.preset("gpt2-tiny", vocab_size=256, n_head=2,
                                 dtype=dtype, attn_dropout=attn_dropout,
-                                use_recompute=recompute,
+                                dropout=dropout, use_recompute=recompute,
                                 recompute_policy=policy)
     model = tgpt.GPTForPretraining(tgpt.GPTModel(
         cfg, device=cuda, generator=torch.Generator(cuda).manual_seed(0)))
@@ -720,24 +720,26 @@ def test_train_step_recaptures_on_rebinding_and_mutate_signature(cuda):
 
 
 def test_dropout_masks_change_between_replays(cuda):
-    from paddle_tpu_torch.ops import attention
+    # the masks are hashed from a key each replay draws anew from the
+    # model's generator, registered with the graph
+    from paddle_tpu_torch.models import gpt as tgpt
 
     kept = []
-    orig = attention.output_dropout
+    orig = tgpt.hashed_dropout
 
-    def rec(out, p, training, generator=None):
-        res = orig(out, p, training, generator)
-        if torch.cuda.is_current_stream_capturing():
+    def rec(y, p, key, site, *shard):
+        res = orig(y, p, key, site, *shard)
+        if p > 0 and torch.cuda.is_current_stream_capturing():
             kept.append(res)
         return res
 
-    attention.output_dropout = rec
+    tgpt.hashed_dropout = rec
     try:
         losses, model, opt, step = _train_run(cuda, True, steps=2,
                                               attn_dropout=0.25,
                                               dtype="float32")
     finally:
-        attention.output_dropout = orig
+        tgpt.hashed_dropout = orig
     out = kept[0]
     toks = torch.randint(0, 256, (2, 128),
                          generator=torch.Generator().manual_seed(1)).to(cuda)
@@ -783,26 +785,115 @@ def test_train_step_refuses_a_step_that_reads_the_host(cuda):
 
 
 def test_train_step_refuses_a_sparse_embedding_on_the_card(cuda):
+    """Under the graph a sparse embedding takes the dense gradient path,
+    with a recorded fallback (it was refused before the dense path came):
+    losses and parameters equal the same model's with a dense embedding;
+    the eager loop keeps its row-wise update."""
     from paddle_tpu_torch import optimizer as topt
     from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import explainer
 
-    emb = torch.nn.Embedding(16, 8, sparse=True).to(cuda)
-    opt = topt.Adam(0.1, parameters=emb.parameters(), lazy_mode=True)
+    ids = torch.tensor([[1, 3, 3, 0], [5, 1, 2, 3]], device=cuda)
+    runs = []
+    for sparse in (True, False):
+        emb = torch.nn.Embedding(16, 8, sparse=sparse).to(cuda)
+        with torch.no_grad():
+            emb.weight.copy_(torch.arange(128.0, device=cuda).view(16, 8)
+                             / 128)
+        opt = topt.Adam(0.1, parameters=emb.parameters(), lazy_mode=True)
 
-    def step_fn(ids):
-        loss = emb(ids).square().sum()
+        def step_fn(i, emb=emb, opt=opt):
+            loss = emb(i).square().sum()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        n0 = len(explainer.events(kind="kernel_fallback"))
+        train = TrainStep(step_fn, emb, opt)
+        events = explainer.events(kind="kernel_fallback")[n0:]
+        assert len(events) == int(sparse)
+        losses = [train(ids) for _ in range(4)]
+        torch.cuda.synchronize()
+        runs.append((losses, emb.weight.detach().clone()))
+        if sparse:
+            before = emb.weight.detach().clone()
+            step_fn(torch.tensor([1, 3, 3], device=cuda))
+            moved = (emb.weight.detach() != before).any(1)
+            assert moved.nonzero().flatten().tolist() == [1, 3]
+            runs[-1] = (losses, before)
+    (ls, ws), (ld, wd) = runs
+    assert all(torch.equal(a, b) for a, b in zip(ls, ld))
+    assert torch.equal(ws, wd)
+
+
+def test_recomputed_dropout_blocks_in_the_graph_equal_the_eager_loop(cuda):
+    """gpt2-tiny with dropout 0.1 everywhere and use_recompute: the
+    recomputed blocks draw their masks from the counter-based hash, so
+    TrainStep's graph (one capture) equals the eager recompute loop
+    bitwise, and the masks are live (dropout 0 trains otherwise)."""
+    from paddle_tpu_torch.profiler import registry
+
+    runs = []
+    for graph, p in ((True, 0.1), (False, 0.1), (True, 0.0)):
+        registry.reset("jit")
+        losses, model, _, _ = _train_run(cuda, graph, steps=4, dtype="float32",
+                                         recompute=True, dropout=p,
+                                         attn_dropout=p, sched=False)
+        if graph:
+            assert registry.counters("jit")["train_step_captures"] == 1
+        runs.append((losses, [t.detach().clone()
+                              for t in model.parameters()]))
+    (lg, pg), (le, pe), (l0, _) = runs
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    assert all(torch.equal(a, b) for a, b in zip(pg, pe))
+    assert not torch.equal(lg[-1], l0[-1])
+
+
+def _rank_gloo_on_the_card():
+    import torch
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.distributed import collective, get_rank
+    from paddle_tpu_torch.jit import TrainStep
+
+    dev = torch.device("cuda", 0)
+    t = torch.full((4,), float(get_rank() + 1), device=dev)
+    collective.all_reduce(t)
+    lin = torch.nn.Linear(4, 4).to(dev)
+    opt = topt.SGD(0.1, parameters=lin.parameters())
+
+    def step_fn(x):
+        loss = lin(x).sum()
         loss.backward()
         opt.step()
         opt.clear_grad()
         return loss
 
-    with pytest.raises(ValueError, match="sparse gradients"):
-        TrainStep(step_fn, emb, opt)
-    ids = torch.tensor([1, 3, 3], device=cuda)
-    before = emb.weight.detach().clone()
-    step_fn(ids)  # the eager loop takes it: only rows 1 and 3 move
-    moved = (emb.weight.detach() != before).any(1)
-    assert moved.nonzero().flatten().tolist() == [1, 3]
+    try:
+        TrainStep(step_fn, lin, opt)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    staged = collective._counters.get("host_staged.all_reduce", 0)
+    return t.cpu().numpy().tolist(), str(t.device), refused, staged
+
+
+def test_two_gloo_ranks_on_the_card_all_reduce_and_refuse_the_graph(
+        cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo: an all_reduce of CUDA tensors (or
+    its host staging, counted), and TrainStep refusing to capture a step
+    over a gloo process group, naming the backend."""
+    from paddle_tpu_torch.testing.world import World
+
+    world = World(2, tmp_path, timeout=120, device="cuda:0", backend="gloo")
+    try:
+        got = world.run(_rank_gloo_on_the_card)
+    finally:
+        world.close()
+    for values, device, refused, staged in got:
+        assert values == [3.0] * 4 and device == "cuda:0"
+        assert refused is not None and "gloo" in refused
+        assert staged in (0, 1)
 
 
 # ------------------------------------------- Model.fit, AMP, GradScaler --

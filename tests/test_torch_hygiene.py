@@ -114,3 +114,46 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert res.returncode == 2, res.stderr
         assert '"ok"' not in res.stdout
+
+
+def test_init_parallel_env_raises_without_cuda_unless_asked_for_the_cpu(
+        monkeypatch, tmp_path):
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+
+    assert not dist.is_initialized()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kw in ({}, {"backend": "gloo"}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            init_parallel_env(**kw)
+    assert not dist.is_initialized()
+    # asked for the CPU: gloo, in a process of its own
+    code = ("import torch.distributed as dist\n"
+            "from paddle_tpu_torch.distributed import init_parallel_env, "
+            "collective\n"
+            f"init_parallel_env(device='cpu', init_method="
+            f"'file://{tmp_path}/rdzv', timeout=30)\n"
+            "print(dist.get_backend(), dist.get_world_size(), "
+            "collective.get_group(0).nranks)\n"
+            "dist.destroy_process_group()\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), PADDLE_TRAINERS_NUM="1",
+               PADDLE_TRAINER_ID="0")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["gloo", "1", "1"]
+
+
+def test_dataloader_worker_entry_imports_no_torch():
+    # the workers run io/_worker.py by path: it and the ring binding it
+    # loads import the standard library and numpy, nothing of the package
+    code = ("import runpy, sys\n"
+            "g = runpy.run_path('paddle_tpu_torch/io/_worker.py')\n"
+            "ring = g['_shm_ring_cls']()\n"
+            "print(sorted(k for k in sys.modules if k == 'torch' or "
+            "k.startswith(('torch.', 'paddle_tpu'))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"

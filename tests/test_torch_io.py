@@ -302,3 +302,32 @@ def test_port_imports_no_reference_worker_module(module):
     assert not re.search(r"^\s*(import|from)\s+paddle_tpu_worker\b", src,
                          re.MULTILINE)
     assert "make" not in re.findall(r'"(make)"', src)
+
+
+def test_numpy_only_workers_import_no_torch():
+    # the reference's workers import the standard library and numpy
+    # alone; the port's run their file by path, so a dataset and collate
+    # function of numpy (a local class, and the package's TensorDataset)
+    # leave torch out of every worker's sys.modules, while a collate
+    # function returning torch tensors imports it there on demand
+    class Squares:
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            return np.full(3, i * i, np.float32)
+
+    def torch_collate(samples):
+        return torch.stack([torch.as_tensor(s[0]) for s in samples])
+
+    ds = tio.TensorDataset([np.arange(16).reshape(8, 2)])
+    cases = [(Squares(), None, 0), (ds, None, 0), (ds, torch_collate, 2)]
+    for dataset, collate, want in cases:
+        registry.reset("dataloader")
+        got = [b for b in tio.DataLoader(dataset, batch_size=2,
+                                         num_workers=2, collate_fn=collate)]
+        c = registry.counters("dataloader")
+        assert c["worker_batches"] == 4 and c["worker_cuda_inits"] == 0
+        assert c["worker_torch_imports"] == want
+        assert len(got) == 4 and isinstance(got[0], (torch.Tensor, list))
+    np.testing.assert_array_equal(got[1].numpy(), [[4, 5], [6, 7]])

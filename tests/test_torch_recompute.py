@@ -161,9 +161,10 @@ def test_unknown_policies_are_refused():
 
 @pytest.mark.parametrize("policy", ["attn", "dots"])
 def test_dropout_masks_replay_under_a_policy(policy, weights):
-    # the attention's dropout masks come from the model's generator, which
-    # the recomputation rewinds: a kept or recomputed block gives the loss
-    # and grads of the same model run without recompute
+    # the attention's dropout masks hash a key drawn from the model's
+    # generator once a forward, which the recomputation reuses: a kept or
+    # recomputed block gives the loss and grads of the same model run
+    # without recompute
     runs = []
     for over in (dict(), dict(use_recompute=True, recompute_policy=policy)):
         cfg = tgpt.GPTConfig.preset("gpt2-tiny", attn_dropout=0.3, **CFG,
@@ -182,3 +183,66 @@ def test_dropout_masks_replay_under_a_policy(policy, weights):
     assert torch.equal(s0, s1)
     for n in g0:
         torch.testing.assert_close(g1[n], g0[n], atol=1e-6, rtol=1e-6)
+
+
+def test_hashed_dropout_masks_keep_rate_scale_and_repeat():
+    # the GPT's dropout masks: kept values scaled by 1 / (1 - p),
+    # the keep rate 1 - p within 4 standard deviations over 2**18
+    # elements, the same key and site giving the same mask (what the
+    # recomputation relies on) and another site or counter another one
+    from paddle_tpu_torch.ops.counter_rng import hashed_dropout
+
+    x = torch.ones(4, 256, 256)
+    key = torch.tensor([1234, 7])
+    for p in (0.1, 0.5):
+        y = hashed_dropout(x, p, key, 3)
+        kept = y != 0
+        assert torch.equal(y[kept], torch.full_like(y[kept], 1 / (1 - p)))
+        n = x.numel()
+        sd = (p * (1 - p) / n) ** 0.5
+        assert abs(kept.float().mean().item() - (1 - p)) < 4 * sd
+        assert torch.equal(hashed_dropout(x, p, key.clone(), 3), y)
+        assert not torch.equal(hashed_dropout(x, p, key, 4), y)
+        assert not torch.equal(
+            hashed_dropout(x, p, torch.tensor([1234, 8]), 3), y)
+    assert hashed_dropout(x, 0.0, key, 3) is x
+
+
+def test_recomputed_block_draws_one_mask_for_forward_and_recomputation():
+    # the mask each dropout site of a block draws in the forward is the one
+    # it draws again when the backward recomputes the block; the forward
+    # draws one key from the model's generator and nothing more
+    from paddle_tpu_torch.ops import counter_rng
+
+    cfg = tgpt.GPTConfig.preset("gpt2-tiny", **{**CFG, "dropout": 0.1},
+                                attn_dropout=0.1, n_layer=1,
+                                use_recompute=True)
+    tm = tgpt.GPTForPretraining(tgpt.GPTModel(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(4)))
+    twin = torch.Generator()
+    twin.set_state(tm.gpt.generator.get_state())
+    seen = []
+    real = counter_rng.hashed_dropout
+
+    def recording(y, p, key, site, *shard):
+        out = real(y, p, key, site, *shard)
+        if site != tgpt.EMBEDDING_SITE:
+            seen.append((site, (out != 0).clone()))
+        return out
+
+    toks, labels = (torch.from_numpy(a) for a in _batch())
+    orig = tgpt.hashed_dropout
+    tgpt.hashed_dropout = recording
+    try:
+        loss = tgpt.GPTPretrainingCriterion()(tm(toks), labels)
+        n_fwd = len(seen)
+        loss.backward()
+    finally:
+        tgpt.hashed_dropout = orig
+    # the recomputation stops once it has what the backward needs: the
+    # attention and residual masks at least
+    assert n_fwd == 3 and len(seen) >= 5
+    for (s0, m0), (s1, m1) in zip(seen[:3], seen[3:]):
+        assert s0 == s1 and torch.equal(m0, m1)
+    torch.randint(0, 1 << 32, (2,), dtype=torch.int64, generator=twin)
+    assert torch.equal(tm.gpt.generator.get_state(), twin.get_state())

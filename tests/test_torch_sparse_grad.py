@@ -140,3 +140,62 @@ def test_sparse_gradient_densifies_to_the_dense_sum():
                                          torch.ones(IDS.size, D))
     torch.testing.assert_close(g.to_dense(), dense)
     torch.testing.assert_close(g.coalesce().to_dense(), dense)
+
+
+def test_train_step_takes_the_dense_path_as_the_reference_traced_step():
+    # jit.TrainStep trains a sparse embedding through the dense gradient
+    # (what the card's graph must do; the CPU route runs the same code),
+    # as the reference's traced step does, and records the fallback by
+    # module where the reference falls back silently; step_fn called
+    # directly keeps the sparse rows
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profiler import explainer
+
+    w, targets = _data()
+    jemb = paddle.nn.Embedding(V, D, sparse=True)
+    jemb.weight.set_value(w)
+    jopt = paddle.optimizer.SGD(0.1, parameters=jemb.parameters())
+
+    def jstep(ids, tgt):
+        loss = (jemb(ids) * tgt).sum()
+        loss.backward()
+        jopt.step()
+        jopt.clear_grad()
+        return loss
+
+    jtrain = paddle.jit.TrainStep(jstep, jemb, jopt)
+    model = torch.nn.Sequential()
+    model.add_module("tokens", torch.nn.Embedding(V, D, sparse=True))
+    with torch.no_grad():
+        model.tokens.weight.copy_(torch.from_numpy(w))
+    opt = topt.SGD(0.1, parameters=model.parameters())
+
+    def row_update(*args):
+        raise AssertionError("a row-wise update ran under TrainStep")
+
+    grads = []
+
+    def step_fn(ids, tgt):
+        loss = (model.tokens(ids) * tgt).sum()
+        loss.backward()
+        grads.append(model.tokens.weight.grad.is_sparse)
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    n0 = len(explainer.events(kind="kernel_fallback"))
+    train = TrainStep(step_fn, model, opt)
+    ev = explainer.events(kind="kernel_fallback")[n0:]
+    assert [e["op"] for e in ev] == ["nn.Embedding(sparse=True)"]
+    assert ev[0]["modules"] == ["tokens"]
+    opt._apply_one_sparse = row_update
+    for s in range(3):
+        jl = jtrain(paddle.to_tensor(IDS), paddle.to_tensor(targets[s]))
+        tl = train(torch.from_numpy(IDS), torch.from_numpy(targets[s]))
+        np.testing.assert_allclose(float(tl), float(jl.numpy()), **TOL)
+    np.testing.assert_allclose(model.tokens.weight.detach().numpy(),
+                               np.asarray(jemb.weight.numpy()), **TOL)
+    assert grads == [False] * 3 and model.tokens.sparse
+    del opt._apply_one_sparse
+    train.step_fn(torch.from_numpy(IDS), torch.from_numpy(targets[0]))
+    assert grads[-1] is True
