@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero:
              x 1024) launched twice for bitwise-equal outputs, and the
              kernel (with L2 cold), its plain version and one library call
              timed with CUDA events, beside the least time the card could
-             take;
+             take; per shard: K4 on each rank's contiguous 16 of the
+             serving case's 32 heads (phase 13's instance) bitwise equal
+             to the 32-head kernel's output on those heads, and timed;
  4. serving  gpt3-1.3B in bf16 (full width and depth, random weights from a
              seed) behind GenerationServer answers 16 requests; the decode
              step is captured once into a CUDA graph and replayed: one
@@ -240,6 +242,28 @@ Phases, in order; any failure exits non-zero:
              read back whole by this process;
 12c.         init_parallel_env() alone at world 1 in a child process picks
              NCCL and runs one all_reduce and one barrier.
+13. mesh serving  phase 12's world: gpt3-1.3B bf16 (full width and depth,
+             seed 0) behind GenerationServer(mesh=serving_mesh(2),
+             max_batch_size=8) with phase 4's base key; rank 0 serves
+             phase 4's 16 requests, rank 1 follows. Both ranks emit the
+             same tokens; K4 launched decode steps x 24 times at its
+             16-head instance on each rank's card count; the decode
+             bodies uncaptured (gloo) and said so; every pool
+             [None, None, "mp"] at 16 heads a rank; every request's
+             first-token logits within MP_LOGITS_TOL of phase 4's, and a
+             request whose tokens differ from phase 4's differs first
+             where the single card's sampler had a near-tie (its top two
+             scores within 2 x MP_LOGITS_TOL in logit units); the bytes
+             all-reduced and gathered per decode step and rank within 1%
+             of the prediction from the shapes; p50 decode step (host
+             clock) and per-rank peak memory reported;
+13b.         the same world, gpt3-1.3B width at 2 layers in float32 (TF32
+             off) at mp = 2: plain decode and spec decode (a gpt2-small
+             drafter at 2 layers, K = 4, mp-sharded) token-bitwise equal
+             to a single-card engine's; a whole seed-1 state swapped in
+             mid-flight, no request failed, tokens equal to a single-card
+             engine swapped at the same step; a single-card prefill's
+             export imported, continuing token for token.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -253,7 +277,8 @@ one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
 the verify row, phase 7's graph replays for K1-K3, each counted on the
 card by the kernel itself; "launches_by_path" adds the MoE paths' windows
 (9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance) and phase
-10's launches per step by policy.
+10's launches per step by policy. The per-shard row's are phase 13's
+rank 0's (the 16-head instance), with rank 1's beside them.
 
 Before it prints a result it stops the DataLoader's fork server, the
 resource tracker and any worker still running, and fails if any other
@@ -631,7 +656,84 @@ def phase_kernels(dev):
                      "bound_share": bound_ms / min(ms, ms2),
                      "design": DESIGNS["paged_attention"],
                      "library_ms": library_ms})
+    rows.append(paged_shard_row(dev, max_err, max_rel))
     return rows
+
+
+# phase 13's K4 instance: rank r of mp = 2 runs the kernel on its 16 of
+# gpt3-1.3B's 32 heads; held on phase 3's serving-batch decode case
+MP_SHARD = ("paged_attention_mp_shard",
+            "8 slots x 1024 live rows, 16 of 32 heads (one rank of mp = 2)")
+
+
+def paged_shard_row(dev, max_err, max_rel):
+    """K4 per shard: on each rank's contiguous copy of 16 of the 32 heads
+    of ``PAGED_TIMED["paged_attention"]``'s case, the kernel's output must
+    equal the 32-head kernel's on those heads bitwise (each head is
+    computed on its own and the split chunk does not depend on the head
+    count); then rank 0's shard is timed as the other rows are."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    name, shape = MP_SHARD
+    _, T, lens, seed = PAGED_TIMED["paged_attention"]
+    whole = paged_case(dev, torch.bfloat16, T, lens, seed=seed)
+    out = pa.paged_attention(*whole)
+    H = whole[0].shape[2]
+    shards = []
+    for r in range(2):
+        heads = slice(r * H // 2, (r + 1) * H // 2)
+        args = (*(x[:, :, heads].contiguous() for x in whole[:3]),
+                *whole[3:])
+        got = pa.paged_attention(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, out[:, :, heads]):
+            raise AssertionError(
+                f"paged_attention per shard: rank {r}'s 16 heads differ from "
+                f"the 32-head kernel's in "
+                f"{int((got != out[:, :, heads]).sum())} elements")
+        shards.append(args)
+    args = shards[0]
+    q, kp, vp, bt, sl, qo = args
+    err, n_bad, rel = paged_errors(pa.paged_attention(*args), args)
+    check_paged(shape, torch.bfloat16, err, n_bad, rel)
+    row_bytes = 2 * kp[0, 0].numel() * kp.element_size()
+    copies = cold_copies(args, int(torch.minimum(qo + T, sl).sum())
+                         * row_bytes)
+    cold = [lambda a=a: pa.paged_attention(*a) for a in copies]
+    k_view, v_view = pa.paged_view(kp, bt), pa.paged_view(vp, bt)
+    mask = pa.position_mask(qo, sl, T, k_view.shape[1])
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k_view, v_view))
+    lib = torch.nn.functional.scaled_dot_product_attention
+    lib_cold = [lambda a=a: lib(*a[:3], attn_mask=a[3]) for a in
+                cold_copies((qt, kt, vt, mask),
+                            2 * kt.numel() * kt.element_size())]
+    ms = min(device_ms(cold), device_ms(cold))
+    warm_ms = device_ms(lambda: pa.paged_attention(*args))
+    plain_ms = cuda_ms(lambda: pa.paged_attention_ref(*args), iters=10)
+    library_ms = device_ms(lib_cold)
+    del copies, cold, lib_cold
+    bound_ms, bound_by = paged_bound(q, kp, bt, sl, qo)
+    log(f"kernels: paged_attention per shard, bf16 {shape}: equal bitwise "
+        f"to the 32-head kernel's heads on both ranks; kernel {ms:.5f} ms "
+        f"(device time, L2 cold), {warm_ms:.5f} ms L2 warm; plain "
+        f"{plain_ms:.4f} ms, library (sdpa on the gathered 16-head view, "
+        f"L2 cold) {library_ms:.5f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by}), {bound_ms / ms:.1%} of it")
+    return {"name": name, "route": "cuda", "source": PAGED_SOURCE,
+            "replaces": PAGED_REPLACES,
+            "per_shard_of": "paddle_tpu/ops/pallas_ops.py:574",
+            "shape": f"bf16 {shape}", "max_abs_err": max(max_err, err),
+            "tolerance": {str(k)[6:]: v
+                          for k, v in pa.PAGED_PARITY_TOL.items()},
+            "max_rel_err": dict(max_rel, bfloat16=max(max_rel["bfloat16"],
+                                                      rel)),
+            "rel_bound": {str(k)[6:]: v
+                          for k, v in pa.PAGED_PARITY_REL.items()},
+            "per_shard_bitwise": True, "ms": ms, "kernel_ms": ms,
+            "l2": "cold", "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_share": bound_ms / ms,
+            "design": DESIGNS["paged_attention"], "library_ms": library_ms}
 
 
 # ------------------------------------------------------- flash kernels --
@@ -2258,6 +2360,33 @@ class BucketLog:
         return self._orig(L)
 
 
+class PrefillLogits:
+    """Test instrumentation: each prefill's first-token logits
+    (``engine.last_prefill_logits``, float32, the whole vocabulary), kept
+    on the device by prompt, its token, and the prompt each slot was
+    given, where ``engine.prefill`` is called."""
+
+    def __init__(self, engine):
+        self.by_prompt = {}
+        self.tokens = []
+        self.slots = {}
+        self._engine = engine
+        self._orig = engine.prefill
+        engine.prefill = self
+
+    def __call__(self, slot, prompt_ids, **kw):
+        tok = self._orig(slot, prompt_ids, **kw)
+        prompt = tuple(int(t) for t in prompt_ids)
+        self.by_prompt[prompt] = self._engine.last_prefill_logits[0].clone()
+        self.tokens.append(int(tok))
+        self.slots[slot] = prompt
+        return tok
+
+    def of(self, prompts):
+        """The host copies for ``prompts``, in order."""
+        return [self.by_prompt[tuple(p)].cpu() for p in prompts]
+
+
 def serve(srv, reqs, vocab):
     """Serve ``reqs`` after a warm-up: one request whose decode step
     captures the engine's decode graphs, then one single-token request per
@@ -2397,12 +2526,13 @@ def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
     log(f"{what}: {preset} {dtype} n_layer={cfg.n_layer} built in "
         f"{time.perf_counter() - t0:.1f} s; paged kernel "
         f"{eng.paged_kernel!r}")
+    first = PrefillLogits(eng)
+    reqs = serving_requests(cfg.vocab_size, n=n_requests)
     try:
-        handles, wall, counts, result = serve(
-            srv, serving_requests(cfg.vocab_size, n=n_requests),
-            cfg.vocab_size)
+        handles, wall, counts, result = serve(srv, reqs, cfg.vocab_size)
     finally:
         srv.shutdown()
+        del eng.prefill  # the instrumentation goes
     launches = counts["kernels"]
     steps = counts["serving"]["decode_steps"]
     want = steps * cfg.n_layer
@@ -2457,7 +2587,9 @@ def phase_serving(dev, preset="gpt3-1.3B", dtype="bfloat16",
     plain = {"tokens": [h.tokens for h in handles],
              "greedy": [not o.get("temperature") for _, o in
                         serving_requests(cfg.vocab_size, n=n_requests)],
-             "weights_sum": weights_sum(model)}
+             "weights_sum": weights_sum(model),
+             "first_logits": first.of([p for p, _ in reqs]),
+             "base_key": eng._base_key.clone()}
     del srv, eng, model
     free_memory()
     return result, plain
@@ -4274,29 +4406,30 @@ dist.destroy_process_group()
 """
 
 
-def phase_distributed(dev, phase7_losses, setup_kw=None, model_kw=None):
-    """12, 12b, 12c: see the module's docstring. ``setup_kw`` and
-    ``model_kw`` cut the models of 12 and 12b (a rehearsal on the CPU)."""
-    from paddle_tpu_torch.incubate.checkpoint import load_resharded
+def two_ranks(dev, root):
+    """Phases 12 and 13's world: two ranks, children of this script, on
+    the card (``cuda:0``) over gloo; on the CPU in a rehearsal."""
     from paddle_tpu_torch.testing.world import World
+
+    device = "cuda:0" if dev.type == "cuda" else "cpu"
+    return World(2, root, timeout=600, device=device, backend="gloo")
+
+
+def phase_distributed(dev, world, phase7_losses, setup_kw=None,
+                      model_kw=None):
+    """12, 12b, 12c on ``world`` (``two_ranks``): see the module's
+    docstring. ``setup_kw`` and ``model_kw`` cut the models of 12 and 12b
+    (a rehearsal on the CPU)."""
+    from paddle_tpu_torch.incubate.checkpoint import load_resharded
 
     free_memory()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
-    device = "cuda:0" if dev.type == "cuda" else "cpu"
     result = {}
     try:
-        t0 = time.perf_counter()
-        world = World(2, tmp, timeout=600, device=device, backend="gloo")
-        result["world_start_s"] = time.perf_counter() - t0
-        try:
-            ranks = world.run(mp_rank_leg, MP_STEPS, setup_kw or {})
-            small = {kind: world.run(small_rank_leg, dp, mp,
-                                     os.path.join(tmp, "ckpt"),
-                                     model_kw or {})
-                     for kind, (dp, mp) in (("dp2", (2, 1)),
-                                            ("mp2", (1, 2)))}
-        finally:
-            world.close()
+        ranks = world.run(mp_rank_leg, MP_STEPS, setup_kw or {})
+        small = {kind: world.run(small_rank_leg, dp, mp,
+                                 os.path.join(tmp, "ckpt"), model_kw or {})
+                 for kind, (dp, mp) in (("dp2", (2, 1)), ("mp2", (1, 2)))}
         log("distributed: first-step logits against phase 7's model's: "
             + json.dumps([{k: r[k] for k in (
                 "rank", "logits_gap", "contiguous_qkv_gap")} for r in ranks]))
@@ -4360,6 +4493,471 @@ def phase_distributed(dev, phase7_losses, setup_kw=None, model_kw=None):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log("distributed: " + json.dumps(result, default=str))
+    return result
+
+
+# ------------------------------------------ serving on a mesh (13, 13b) --
+MESH_BATCH = 8
+
+
+class MeshStream:
+    """Test instrumentation on one rank of a mesh engine: its prefills
+    (``PrefillLogits``), every decode step's token block, the bytes each
+    decode step moved through the ``collective`` scope's all-reduces and
+    all-gathers, and, for each prompt whose tokens leave ``want``'s (by
+    prompt), the step's logits row at the first position they differ. The
+    follower's engine runs its calls through the same attributes."""
+
+    def __init__(self, engine, want=None):
+        from paddle_tpu_torch.profiler import registry
+
+        self._registry = registry
+        self.engine = engine
+        self.first = PrefillLogits(engine)
+        self.decoded = []
+        self.step_bytes = []
+        self.want = want or {}
+        self.differ = {}  # prompt -> (position, logits row on the device)
+        self._made = {}   # slot -> [prompt, tokens so far]
+        self._decode = engine.decode_step
+        engine.decode_step = self.decode_step
+
+    def _bytes(self):
+        c = self._registry.counters("collective")
+        return {kind: sum(v for k, v in c.items() if k.endswith(".bytes")
+                          and k.split(".")[0] in ops)
+                for kind, ops in (("reduced", ("psum", "all_reduce")),
+                                  ("gathered", ("all_gather",)))}
+
+    def decode_step(self):
+        active = np.nonzero(self.engine._active)[0]
+        b0 = self._bytes()
+        toks = self._decode()
+        b1 = self._bytes()
+        self.step_bytes.append({k: b1[k] - b0[k] for k in b1})
+        self.decoded.append(toks.tolist())
+        for s in active:
+            prompt = self.first.slots[s]
+            made = self._made.get(s)
+            if made is None or made[0] != prompt:
+                made = self._made[s] = [prompt, 1]
+            want, pos = self.want.get(prompt, ()), made[1]
+            if pos < len(want) and prompt not in self.differ and \
+                    int(toks[s]) != want[pos]:
+                self.differ[prompt] = (pos, self.engine.last_logits[s].clone())
+            made[1] += 1
+        return toks
+
+    def restore(self):
+        del self.engine.prefill, self.engine.decode_step
+
+
+def mesh_step_bytes(cfg, batch=MESH_BATCH, mp=2):
+    """The bytes one rank's decode step must all-reduce and gather at mp:
+    per layer the attention's and the MLP's row-parallel partial sums
+    ``[batch, 1, d_model]``, the embedding lookup's, and the logits
+    ``[batch, vocab / mp]`` float32 gathered (the local input of each)."""
+    es = torch.finfo(cfg.torch_dtype).bits // 8
+    reduced = (2 * cfg.n_layer + 1) * batch * cfg.d_model * es
+    return {"reduced": reduced,
+            "gathered": batch * cfg.vocab_size // mp * 4}
+
+
+def mesh_serving_rank(base_key, want, n_requests, preset="gpt3-1.3B",
+                      model_kw=None):
+    """Phase 13 on one rank (a child of this script, gloo on its device):
+    phase 4's model (gpt3-1.3B bf16, seed 0, full width and depth; cut by
+    ``model_kw`` in a rehearsal) behind ``GenerationServer(mesh=
+    serving_mesh(2))`` with phase 4's base key. Rank 0 serves phase 4's
+    mix and shuts down; rank 1 follows. Each rank returns what it
+    computed: the prefill and decode tokens, the bytes each decode step
+    moved, its K4 launches, peak memory, rank 0's answers and, for each
+    request whose tokens leave phase 4's (``want``, by request), its
+    logits at the first position they differ."""
+    from paddle_tpu_torch.distributed import parallel_env, spmd
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationServer
+
+    dev = parallel_env.device()
+    cuda = dev.type == "cuda"  # the CPU only in a rehearsal
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_gpt(dev, 0, preset, dtype="bfloat16", **(model_kw or {}))
+    cfg = model.gpt.cfg
+    mesh = spmd.serving_mesh(2, model=model)
+    srv = GenerationServer(model, max_batch_size=MESH_BATCH, block_size=16,
+                           max_queue_size=64, device=dev, mesh=mesh)
+    eng = srv.engine
+    eng._base_key = base_key.clone()  # phase 4's engine's, on every rank
+    del model
+    build_s = time.perf_counter() - t0
+    reqs = serving_requests(cfg.vocab_size, n=n_requests)
+    stream = MeshStream(eng, {tuple(p): w for (p, _), w in zip(reqs, want)})
+    for scope in ("collective", "serving", "fastpath", "kernels"):
+        registry.reset(scope)
+    if cuda:
+        build_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        pa.reset_device_launches()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = {"rank": mesh.rank, "build_s": build_s,
+           "local_heads": int(eng._kv[0][0].shape[2]),
+           "n_layer": cfg.n_layer}
+    if mesh.rank == 0:
+        t1 = time.perf_counter()
+        try:
+            handles = [srv.submit(p, **o) for p, o in reqs]
+            for h in handles:
+                h.result(timeout=900)
+        finally:
+            srv.shutdown()
+        out["wall_s"] = time.perf_counter() - t1
+        bad = [h.rid for h in handles if h.status != "done"
+               or len(h.tokens) != h.max_new_tokens]
+        if bad:
+            raise AssertionError(f"mesh serving: unfinished requests {bad}")
+        out["tokens"] = [list(h.tokens) for h in handles]
+        out["first_logits"] = stream.first.of([p for p, _ in reqs])
+        out["differ"] = {i: (stream.differ[tuple(p)][0],
+                             stream.differ[tuple(p)][1].cpu())
+                         for i, (p, _) in enumerate(reqs)
+                         if tuple(p) in stream.differ}
+        out["describe"] = eng.describe_sharding()
+        st = eng.stats()
+        out["stats"] = {k: st[k] for k in (
+            "mesh_axes", "paged_kernel", "paged_kernel_sharded",
+            "paged_kernel_reason", "decode_graph", "decode_graph_reason")}
+        out["decode_step_p50_ms"] = registry.timings("serving")[
+            "serving.decode_step"]["p50_ms"]
+    else:
+        out["followed"] = srv.follow()
+    stream.restore()
+    out["events"] = (stream.first.tokens, stream.decoded)
+    steps = len(stream.step_bytes)
+    out["decode_steps"] = steps
+    out["bytes_per_step"] = {k: sum(b[k] for b in stream.step_bytes) / steps
+                             for k in ("reduced", "gathered")}
+    out["serving"] = {k: v for k, v in registry.counters("serving").items()
+                      if v}
+    out["launches"] = ({instance_name(k): v for k, v in
+                        pa.device_launches().items()} if cuda else
+                       {"plain": registry.counters("kernels")[
+                           "paged_attention_ref"]})
+    out["peak_memory_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                             if cuda else None)
+    out["build_peak_memory_gb"] = build_peak if cuda else None
+    return out
+
+
+def decision_gap(logits, temperature, top_k, top_p, gumbel):
+    """The sampler's decision margin in logit units: twice the largest
+    error every logit may carry while ``sample_tokens`` still picks the
+    same token (a logit error of d moves a gap between two logits by up to
+    2d). Greedy: the top two logits' gap. Sampled: the least of the top
+    two scores' gap (filtered, scaled logits plus the Gumbel noise) times
+    the temperature, and, with a nucleus (``top_p < 1``), how far the
+    nucleus is from dropping the chosen token or admitting a token of a
+    higher score: token t's probability mass ranked above it, B_t, moves
+    by a factor of at most exp(2d / T), so t crosses the nucleus' edge
+    ``top_p`` once 2d >= T |ln(B_t / top_p)|."""
+    from paddle_tpu_torch.serving import sampling
+
+    logits = logits.float().reshape(1, -1)
+    dev = logits.device
+    if not temperature:
+        top = logits[0].topk(2).values
+        return float(top[0] - top[1])
+    T = float(temperature)
+    scaled = sampling.filter_top_k(logits / T,
+                                   torch.tensor([int(top_k)], device=dev))
+    kept = sampling.filter_top_p(scaled,
+                                 torch.tensor([float(top_p)], device=dev))
+    scores = (kept + gumbel)[0]
+    top = scores.topk(2)
+    margins = [float(top.values[0] - top.values[1]) * T]
+    if top_p < 1.0:
+        order = scaled[0].argsort(descending=True)
+        probs = torch.softmax(scaled[0][order].double(), -1)
+        above = torch.empty_like(probs)
+        above[order] = torch.cumsum(probs, -1) - probs
+        chosen = int(top.indices[0])
+        if above[chosen] > 0:
+            margins.append(T * float(torch.log(top_p / above[chosen])))
+        rivals = ~torch.isfinite(kept[0]) & (scaled[0] + gumbel[0]
+                                            > top.values[0])
+        if bool(rivals.any()):
+            margins.append(T * float(torch.log(above[rivals].min()
+                                               / top_p)))
+    return min(margins)
+
+
+def near_tie_gaps(dev, reqs, tokens, diffs, base_key, preset="gpt3-1.3B",
+                  model_kw=None):
+    """For each ``(request, position)`` of ``diffs``: the single-card
+    engine's decision margin (``decision_gap``) at that position of the
+    request, on phase 4's weights and base key, and its logits there,
+    taken by prefilling the prompt and ``tokens[request][:position]``."""
+    from paddle_tpu_torch.serving import GenerationEngine, sampling
+
+    eng = GenerationEngine(build_gpt(dev, 0, preset, dtype="bfloat16",
+                                     **(model_kw or {})),
+                           max_batch_size=MESH_BATCH, block_size=16,
+                           device=dev)
+    eng._base_key = base_key.clone()
+    V = eng.vocab_size
+    out = []
+    for i, pos in diffs:
+        prompt, o = reqs[i]
+        eng.prefill(0, list(prompt) + list(tokens[i][:pos]), seed=o["seed"],
+                    max_new_tokens=1)
+        logits = eng.last_prefill_logits[0].clone()
+        eng.release(0)
+        key = torch.as_tensor(eng._request_key(o["seed"])).to(dev)
+        gum = sampling.gumbel_rows(key[None],
+                                   torch.tensor([pos], device=dev), V)
+        out.append((decision_gap(logits, o.get("temperature", 0.0),
+                                 o.get("top_k", 0), o.get("top_p", 1.0),
+                                 gum), logits.cpu()))
+    del eng
+    free_memory()
+    return out
+
+
+def phase_mesh_serving(dev, world, plain, n_requests=16, preset="gpt3-1.3B",
+                       model_kw=None):
+    """13: gpt3-1.3B bf16 served at mp = 2 by two ranks on the card over
+    gloo (``mesh_serving_rank``): both ranks' tokens equal, K4 launched
+    at its 16-head instance decode steps x 24 times on each, every
+    request's first-token logits within ``MP_LOGITS_TOL`` of phase 4's
+    (``plain``), and each request whose tokens differ from phase 4's
+    differing first at a near-tie of the single card's: its decision
+    margin there (``decision_gap``) within 2 x ``MP_LOGITS_TOL``, and the
+    mesh's logits at that position within ``MP_LOGITS_TOL`` of the single
+    card's. The decode step's collective bytes must match
+    ``mesh_step_bytes`` within 1%."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    cfg = GPTConfig.preset(preset, dtype="bfloat16", **(model_kw or {}))
+    ranks = world.run(mesh_serving_rank, plain["base_key"], plain["tokens"],
+                      n_requests, preset, model_kw)
+    r0, r1 = ranks
+    if r0["events"] != r1["events"]:
+        raise AssertionError("mesh serving: the two ranks emitted other "
+                             "tokens")
+    want_heads = cfg.n_head // 2
+    pools = r0["describe"]["kv_pools"]
+    if any(r["local_heads"] != want_heads for r in ranks) or any(
+            p["spec"] != [None, None, "mp"] or p["shape"][2] != cfg.n_head
+            for p in pools) or len(pools) != 2 * cfg.n_layer:
+        raise AssertionError(
+            f"mesh serving: {[r['local_heads'] for r in ranks]} heads a "
+            f"rank (want {want_heads}), pools {pools[:2]}")
+    if not r0["stats"]["paged_kernel_sharded"] or \
+            r0["stats"]["decode_graph"]:
+        raise AssertionError(f"mesh serving: {r0['stats']}")
+    for r in ranks:
+        want = r["decode_steps"] * cfg.n_layer
+        got = r["launches"]
+        name = instance_name(("bfloat16", cfg.d_model // cfg.n_head, 1))
+        if dev.type == "cuda" and got != {name: want} or \
+                dev.type != "cuda" and got["plain"] != want:
+            raise AssertionError(
+                f"mesh serving: rank {r['rank']} counted K4 launches {got}, "
+                f"want {r['decode_steps']} steps x {cfg.n_layer}")
+    predicted = mesh_step_bytes(cfg)
+    for r in ranks:
+        for k, v in predicted.items():
+            if abs(r["bytes_per_step"][k] - v) > 0.01 * v:
+                raise AssertionError(
+                    f"mesh serving: rank {r['rank']} {k} "
+                    f"{r['bytes_per_step'][k]:.0f} bytes per decode step, "
+                    f"predicted {v}")
+    gaps = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(r0["first_logits"], plain["first_logits"])]
+    if max(gaps) > MP_LOGITS_TOL:
+        raise AssertionError(f"mesh serving: first-token logits miss phase "
+                             f"4's by {max(gaps)} > {MP_LOGITS_TOL}")
+    reqs = serving_requests(cfg.vocab_size, n=n_requests)
+    diffs = []
+    for i, (a, b) in enumerate(zip(r0["tokens"], plain["tokens"])):
+        if a != b:
+            diffs.append((i, next(j for j, (x, y) in enumerate(zip(a, b))
+                                  if x != y)))
+    near = near_tie_gaps(dev, reqs, plain["tokens"], diffs,
+                         plain["base_key"], preset, model_kw) if diffs else []
+    firsts = []
+    for (i, j), (gap, single) in zip(diffs, near):
+        pos, mesh_row = r0["differ"][i] if j else (0, r0["first_logits"][i])
+        firsts.append({"request": i, "position": j,
+                       "greedy": not reqs[i][1].get("temperature"),
+                       "single_card_gap": gap,
+                       "logits_gap": float((mesh_row.float() - single.float())
+                                           .abs().max()),
+                       "recorded_at": pos})
+    bad = [f for f in firsts if f["single_card_gap"] > 2 * MP_LOGITS_TOL
+           or f["logits_gap"] > MP_LOGITS_TOL
+           or f["recorded_at"] != f["position"]]
+    if bad:
+        raise AssertionError(
+            f"mesh serving: tokens differ from phase 4's away from a "
+            f"near-tie (decision margin > 2 x {MP_LOGITS_TOL}, or logits "
+            f"apart by more than {MP_LOGITS_TOL} there): {bad}")
+    result = {
+        "requests": n_requests, "matched_whole": n_requests - len(diffs),
+        "first_differences": firsts,
+        "first_logits_gap_max": max(gaps),
+        "first_logits_gap_mean": float(np.mean(gaps)),
+        "decode_steps": r0["decode_steps"],
+        "decode_step_p50_ms": r0["decode_step_p50_ms"],
+        "wall_s": r0["wall_s"],
+        "tokens_per_s": sum(len(t) for t in r0["tokens"]) / r0["wall_s"],
+        "bytes_per_step": {r["rank"]: r["bytes_per_step"] for r in ranks},
+        "bytes_per_step_predicted": predicted,
+        "launches": {r["rank"]: r["launches"] for r in ranks},
+        "local_heads": r0["local_heads"],
+        "peak_memory_gb": {r["rank"]: r["peak_memory_gb"] for r in ranks},
+        "build_peak_memory_gb": {r["rank"]: r["build_peak_memory_gb"]
+                                 for r in ranks},
+        "build_s": {r["rank"]: r["build_s"] for r in ranks},
+        "followed_calls": r1["followed"], "stats": r0["stats"],
+        "serving_counters": r0["serving"]}
+    log("mesh serving: " + json.dumps(result, default=str))
+    return result
+
+
+def mesh_small_rank(reqs, payload, swap_state, swap_after, model_kw):
+    """Phase 13b on one rank: gpt3-1.3B width at 2 layers in float32 (seed
+    0) and a gpt2-small drafter at 2 layers (seed 1), both mp-sharded,
+    behind a spec engine (K = 4) and a plain engine on one serving mesh.
+    Rank 0 drives, step by step: the spec engine over ``reqs``; the plain
+    engine over ``reqs``, then adopting ``payload`` (a single-card
+    prefill's export of ``reqs[0]``), then ``reqs`` again with the whole
+    ``swap_state`` staged after ``swap_after`` steps. Rank 1 follows."""
+    from paddle_tpu_torch.distributed import parallel_env, spmd
+    from paddle_tpu_torch.serving import (ContinuousBatchScheduler,
+                                          DraftVerifyEngine,
+                                          GenerationEngine)
+
+    dev = parallel_env.device()
+    kw, dkw = small_models_kw(model_kw)
+    model = build_gpt(dev, 0, **kw)
+    drafter = build_gpt(dev, 1, **dkw)
+    mesh = spmd.serving_mesh(2, model=model)
+    ekw = dict(max_batch_size=MESH_BATCH, block_size=16, rng_seed=5,
+               device=dev, mesh=mesh)
+    spec = DraftVerifyEngine(model, drafter, draft_k=4, **ekw)
+    plain = GenerationEngine(model, **ekw)
+    if mesh.rank:
+        return {"followed": (spec.follow(), plain.follow()),
+                "stats": spec.stats()["draft_kernel_sharded"]}
+    out = {"draft_kernel_sharded": spec.stats()["draft_kernel_sharded"],
+           "draft_pools": [p["spec"] for p in spec.describe_sharding()[
+               "kv_pools"] if p.get("draft")]}
+    try:
+        out["spec"] = run_sync(ContinuousBatchScheduler(spec), reqs)
+        out["acceptance"] = spec.acceptance_rate()
+        spec.close()
+        out["plain"] = run_sync(ContinuousBatchScheduler(plain), reqs)
+        handles = adopt_all(ContinuousBatchScheduler(plain), reqs[:1],
+                            [payload])
+        out["imported"] = list(handles[0].tokens)
+        out["swap"] = swap_run(plain, reqs, swap_state, swap_after)
+    finally:
+        spec.close()
+        plain.close()
+    return out
+
+
+def small_models_kw(model_kw=None):
+    """Phase 13b's target and drafter configurations (``model_kw`` cuts
+    the target in a rehearsal): the drafter covers the target's positions
+    and vocabulary."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    kw = dict(preset="gpt3-1.3B", n_layer=2, dtype="float32",
+              **(model_kw or {}))
+    cfg = GPTConfig.preset(kw["preset"], **{k: v for k, v in kw.items()
+                                            if k != "preset"})
+    dkw = dict(preset="gpt2-small", n_layer=2, dtype="float32",
+               seq_len=cfg.seq_len, vocab_size=cfg.vocab_size)
+    return kw, dkw
+
+
+def swap_run(engine, reqs, state, swap_after):
+    """``reqs`` through a fresh scheduler on ``engine``, stepped on this
+    thread, with the whole ``state`` staged after ``swap_after`` steps.
+    Returns the tokens and the requests that failed."""
+    from paddle_tpu_torch.serving import (ContinuousBatchScheduler,
+                                          GenerationRequest)
+
+    sched = ContinuousBatchScheduler(engine)
+    handles = [sched.submit(GenerationRequest(p, **o)) for p, o in reqs]
+    steps = 0
+    while sched.has_work():
+        if steps == swap_after:
+            sched.request_swap(state, source="seed 1")
+        sched.step()
+        steps += 1
+    if sched.swap_count != 1:
+        raise AssertionError(f"13b: {sched.swap_count} swaps applied "
+                             f"(error {sched.last_swap_error})")
+    return {"tokens": [list(h.tokens) for h in handles],
+            "failed": [h.rid for h in handles if h.status != "done"]}
+
+
+def phase_mesh_small(dev, world, n_requests=8, max_new_tokens=16,
+                     swap_after=6, model_kw=None):
+    """13b: ``mesh_small_rank`` against single-card engines on the card
+    (TF32 off, the port's default): plain and spec decode at mp = 2 equal
+    a single-card plain engine's tokens; the import continues a
+    single-card prefill's export token for token; the swap to the whole
+    seed-1 state fails no request and equals a single-card engine swapped
+    at the same step."""
+    from paddle_tpu_torch.serving import (ContinuousBatchScheduler,
+                                          GenerationEngine)
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("13b: TF32 is on; float32 parity needs it off")
+    kw, _ = small_models_kw(model_kw)
+    reqs = [(p, dict(o, max_new_tokens=max_new_tokens))
+            for p, o in serving_requests(kw.get("vocab_size", 50304),
+                                         n=n_requests)]
+    ekw = dict(max_batch_size=MESH_BATCH, block_size=16, rng_seed=5,
+               device=dev)
+    single = GenerationEngine(build_gpt(dev, 0, **kw), **ekw)
+    want = run_sync(ContinuousBatchScheduler(single), reqs)
+    prefill_side = GenerationEngine(build_gpt(dev, 0, **kw), **ekw)
+    payloads, _ = export_all(prefill_side, reqs[:1])
+    del prefill_side
+    state1 = reference_state(build_gpt(dev, 1, **kw))
+    swapped = swap_run(GenerationEngine(build_gpt(dev, 0, **kw), **ekw),
+                       reqs, state1, swap_after)
+    del single
+    free_memory()
+    r0, r1 = world.run(mesh_small_rank, reqs, payloads[0], state1,
+                       swap_after, model_kw)
+    checks = {"spec == single plain": r0["spec"] == want,
+              "plain == single plain": r0["plain"] == want,
+              "import == monolithic": r0["imported"] == want[0],
+              "swap == single swapped": r0["swap"]["tokens"]
+              == swapped["tokens"],
+              "swap failed no request": not r0["swap"]["failed"],
+              "drafter sharded": r0["draft_kernel_sharded"] and all(
+                  s == [None, None, "mp"] for s in r0["draft_pools"])}
+    result = {"checks": checks, "acceptance": r0["acceptance"],
+              "followed_calls": r1["followed"], "requests": n_requests,
+              "max_new_tokens": max_new_tokens, "swap_after": swap_after}
+    log("mesh 13b: " + json.dumps(result, default=str))
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(
+            f"13b: {failed}; first differences: spec "
+            f"{first_difference(r0['spec'], want)}, plain "
+            f"{first_difference(r0['plain'], want)}, swap "
+            f"{first_difference(r0['swap']['tokens'], swapped['tokens'])}")
     return result
 
 
@@ -4559,8 +5157,28 @@ def main():
     fitted = timed("11 fit", phase_fit, dev, trained["step_ms"])
     resumed = timed("11b resume", phase_fit_resume, dev)
     fp16 = timed("11c fp16", phase_fp16_scaler, dev)
-    dist = timed("12 distributed", phase_distributed, dev,
-                 trained["losses"][:3])
+    world_dir = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    t0 = time.perf_counter()
+    world = two_ranks(dev, world_dir)
+    world_start_s = time.perf_counter() - t0
+    try:
+        dist = timed("12 distributed", phase_distributed, dev, world,
+                     trained["losses"][:3])
+        dist["world_start_s"] = world_start_s
+        mesh = timed("13 mesh serving", phase_mesh_serving, dev, world,
+                     plain)
+        mesh_small = timed("13b mesh spec, swap, handoff", phase_mesh_small,
+                           dev, world)
+    finally:
+        world.close()
+        shutil.rmtree(world_dir, ignore_errors=True)
+    shard = instance_name(("bfloat16", 64, 1))
+    for row in paged:
+        if row["name"] == MP_SHARD[0]:
+            row["launches"] = mesh["launches"][0][shard]
+            row["launches_by_path"] = {
+                f"mesh serving rank {r} (gloo, uncaptured)": n[shard]
+                for r, n in mesh["launches"].items()}
     for name, row in flash.items():
         row["launches_by_path"] = {
             "training": trained["launches"][name],
@@ -4683,6 +5301,18 @@ def main():
         f"phase 7's {trained['losses'][:3]} (gaps {r0['loss_gaps']}); host "
         f"staged {staged}; 12b parameter gaps {json.dumps(small)}; 12c "
         f"{json.dumps(dist['nccl_world_1'])}")
+    log(f"mesh serving on {smi}: gpt3-1.3B bf16 at mp=2, two ranks on "
+        f"cuda:0 over gloo (uncaptured): {mesh['requests']} requests, "
+        f"{mesh['matched_whole']} token-for-token equal to phase 4's, "
+        f"first differences {json.dumps(mesh['first_differences'])}; "
+        f"first-token logits gap max {mesh['first_logits_gap_max']:.4f}; "
+        f"p50 decode step {mesh['decode_step_p50_ms']:.1f} ms (host clock), "
+        f"{mesh['tokens_per_s']:.1f} tokens/s; bytes per step and rank "
+        f"{json.dumps(mesh['bytes_per_step'])} (predicted "
+        f"{json.dumps(mesh['bytes_per_step_predicted'])}); peak memory "
+        f"{json.dumps(mesh['peak_memory_gb'])} GB; K4 "
+        f"{json.dumps(mesh['launches'])} for {mesh['decode_steps']} steps; "
+        f"13b {json.dumps(mesh_small['checks'])}")
     left = stop_children()
     if left:
         raise AssertionError(f"processes still running at the end: {left}")

@@ -6,6 +6,9 @@ CUDA device"; without a GPU that is an error naming the way out
 """
 from __future__ import annotations
 
+import contextlib
+import gc
+
 import torch
 
 
@@ -33,3 +36,19 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} "
                          "(expected cuda or cpu)")
     return dev
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """Hold Python's cyclic garbage collector off for the block: wrap a
+    CUDA graph's capture in it. Engines and steps sit in reference cycles
+    (a step body bound to its owner), so the collector frees their CUDA
+    graphs whenever it runs; a graph destroyed while another is being
+    captured invalidates that capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()

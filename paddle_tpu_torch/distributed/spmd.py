@@ -25,16 +25,29 @@ projection of a GPT is 3 blocks, q, k and v, split by heads).
 ``enable(mesh)`` / ``disable()`` / ``current_mesh()`` / ``spmd_guard``
 keep the mesh :func:`shard_model` uses by default; ``fleet.init`` enables
 its topology's.
+
+:func:`serving_mesh` is the serving engine's topology: one ``("mp",)``
+axis over every rank of the process group (serving has no data-parallel
+axis), a :class:`ServingMesh` that :func:`shard_model` takes like a hybrid
+group. Besides the mp group its collectives run on, it holds a gloo group
+over the same ranks for host messages: the leader (rank 0) of a mesh
+engine sends each call to its followers there (``serving.mesh``).
 """
 from __future__ import annotations
 
+import datetime
+
 import torch
 
-from . import collective
+from . import collective, parallel_env
 
 __all__ = ["enable", "disable", "enabled", "current_mesh", "spmd_guard",
            "param_pspec", "shard_model", "shard_batch", "local_shard",
-           "merge_shards"]
+           "merge_shards", "serving_mesh", "ServingMesh"]
+
+# how long a follower of a mesh engine waits for its leader's next call
+# (the control group's collective timeout): a server may idle for hours
+CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
 
 _state = {"mesh": None}
 
@@ -105,6 +118,70 @@ def param_pspec(spec, mesh, shape=None):
             continue
         parts.append(s)
     return tuple(parts)
+
+
+class ServingMesh:
+    """A one-axis ``("mp",)`` mesh of ``mp`` ranks (see
+    :func:`serving_mesh`): ``mp_group``, the ``collective.Group`` the
+    tensor-parallel collectives run on, and ``control``, a gloo group over
+    the same ranks for host messages (None for a mesh of one rank)."""
+
+    mesh_dim_names = ("mp",)
+
+    def __init__(self, mp_group, control=None):
+        self.mp_group = mp_group
+        self.control = control
+        self.shape = (mp_group.nranks,)
+
+    def get_model_parallel_group(self):
+        return self.mp_group
+
+    @property
+    def rank(self):
+        """This process's rank on the mesh."""
+        return self.mp_group.rank
+
+
+def serving_mesh(mp=None, *, model=None, n_head=None):
+    """The serving engine's tensor-parallel topology,
+    ``GenerationEngine(model, mesh=serving_mesh(2))``: one ``("mp",)``
+    axis over the ranks of the process group. Serving has no batch axis to
+    shard, so ``mp`` must be the world's size (None: the world); every rank
+    calls this (it makes process groups) and then builds the same engine.
+    Weights are placed by their ``sharding_spec`` (:func:`shard_model`).
+
+    Pass the model (or its ``n_head``) to check up front that mp divides
+    the attention heads: head-sharded decode splits whole heads per
+    rank."""
+    if n_head is None and model is not None:
+        gpt = getattr(model, "gpt", model)
+        heads = sorted({int(blk.attn.n_head) for blk in gpt.blocks})
+        n_head = heads[0] if heads else None
+    world = parallel_env.get_world_size()
+    mp = world if mp is None else int(mp)
+    if n_head is not None and int(n_head) % mp:
+        raise ValueError(
+            f"serving_mesh: mp={mp} does not divide the model's "
+            f"n_head={int(n_head)} — pick an mp that divides the head "
+            "count (head-sharded decode splits whole heads per shard)")
+    if mp < 1 or mp > world:
+        raise ValueError(f"serving_mesh: mp={mp} outside [1, {world}] "
+                         "ranks of the process group")
+    if mp != world:
+        raise ValueError(
+            f"serving_mesh: mp={mp} but the process group has {world} "
+            "ranks; serving has no data-parallel axis, so start one "
+            "process per rank of the mesh")
+    if mp == 1:
+        rank = parallel_env.get_rank()
+        return ServingMesh(collective.Group([rank], 0, None, axis_name="mp"))
+    ranks = list(range(world))
+    group = collective.new_group(ranks)
+    group.axis = "mp"
+    control = collective.new_group(
+        ranks, backend="gloo",
+        timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+    return ServingMesh(group, control)
 
 
 def _mp_group(mesh):

@@ -67,6 +67,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..device import collector_paused
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
@@ -320,7 +321,8 @@ class TrainStep:
             graph.register_generator_state(gen)
         steps = [o._opt_step for o in self._opts]
         try:
-            with torch.cuda.graph(graph, pool=self._pool), \
+            with collector_paused(), \
+                    torch.cuda.graph(graph, pool=self._pool), \
                     self._dense_embeddings():
                 out = self._checked(lambda: self._fn(*static))
         except Exception as e:

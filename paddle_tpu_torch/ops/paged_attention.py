@@ -22,7 +22,8 @@ and produce finite garbage the host discards.
   or its plain version, as the engine chose, and the site of the
   ``kernel_mismatch`` fault point. The two functions above, which parity
   checks use as the oracle, never perturb.
-* :func:`select_paged_kernel` resolves the kernel once per engine.
+* :func:`select_paged_kernel` resolves the kernel once per engine, per
+  shard on a tensor-parallel serving mesh (:func:`paged_sharded`).
 
 Launch counts live in the ``kernels`` registry scope:
 ``paged_attention`` counts kernel launches, ``paged_attention_ref`` calls
@@ -44,6 +45,7 @@ import functools
 
 import torch
 
+from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
 from . import _build
@@ -343,7 +345,30 @@ def launches():
                                       "paged_attention_ref")}
 
 
-def select_paged_kernel(requested=None, *, device, head_dim, dtype):
+def _mesh_mp_degree(mesh):
+    """Size of a mesh's ``"mp"`` axis (1 when absent or ``mesh`` is None):
+    a ``distributed.spmd.ServingMesh``, a torch ``DeviceMesh``, a hybrid
+    group or an ``{axis: degree}`` dict."""
+    if mesh is None:
+        return 1
+    if hasattr(mesh, "get_model_parallel_world_size"):
+        return int(mesh.get_model_parallel_world_size())
+    axes = mesh if isinstance(mesh, dict) else dict(
+        zip(mesh.mesh_dim_names, mesh.shape))
+    return int(axes.get("mp", 1))
+
+
+def paged_sharded(mesh, num_heads):
+    """Whether a model of ``num_heads`` heads serves head-sharded on
+    ``mesh``: its ``"mp"`` axis has more than one rank and divides the
+    heads."""
+    mp = _mesh_mp_degree(mesh)
+    return mp > 1 and num_heads is not None and num_heads % mp == 0
+
+
+def select_paged_kernel(requested=None, *, device, head_dim, dtype,
+                        mesh=None, num_heads=None,
+                        family="paged_attention"):
     """Resolve the decode attention path for one engine build.
 
     ``requested``: None/"auto", "cuda" or "torch". Auto resolves to "cuda"
@@ -351,7 +376,17 @@ def select_paged_kernel(requested=None, *, device, head_dim, dtype):
     is honoured anywhere; "cuda" on the CPU, or a head_dim/dtype the kernel
     does not take on CUDA, raises ``ValueError`` naming the reason — the
     choice is never demoted quietly. Returns ``(kind, reason)`` and bumps
-    ``serving.kernel.<kind>``."""
+    ``serving.kernel.<kind>``.
+
+    A ``mesh`` whose ``"mp"`` axis has more than one rank resolves per
+    shard. The kernel computes every head on its own (one grid row per
+    head, a split chunk that does not depend on the head count), so where
+    ``num_heads`` divides mp each rank runs the same kernel kind over its
+    ``num_heads / mp`` heads and its output is the single-card kernel's on
+    those heads, bit for bit. Where it does not, the engine keeps the
+    model and the pools whole on every rank, each rank runs the
+    single-card step over all heads, and a ``kernel_fallback`` explainer
+    event (``family``) names both numbers; the kind stays."""
     req = (requested or "auto").strip().lower()
     if req not in ("auto", "cuda", "torch"):
         raise ValueError(f"paged_kernel = {requested!r} (expected auto | "
@@ -374,5 +409,20 @@ def select_paged_kernel(requested=None, *, device, head_dim, dtype):
                              f"or bfloat16, the model is {dtype}; ask for "
                              "paged_kernel='torch' explicitly")
         kind, reason = "cuda", f"{req}: cuda device"
+    mp = _mesh_mp_degree(mesh)
+    if mp > 1 and paged_sharded(mesh, num_heads):
+        reason += (f"; per-shard over mesh mp={mp} "
+                   f"(local heads {num_heads // mp})")
+    elif mp > 1:
+        why = (f"model has {num_heads} heads, not divisible by mesh axis "
+               f"mp={mp}: no per-shard kernel; the model and its pools stay "
+               "whole on every rank, each running the single-card step"
+               if num_heads is not None else
+               f"mesh-sharded decode (mp={mp}) needs num_heads to plan the "
+               "per-shard kernel; the model and its pools stay whole on "
+               "every rank")
+        reason += f"; {why}"
+        _explain.record("kernel_fallback", op=family, why=why,
+                        num_heads=num_heads, mp=mp)
     _serving_counters[f"kernel.{kind}"] += 1
     return kind, reason

@@ -1,7 +1,9 @@
 """Serving for the port: paged-KV engine with per-bucket prefill graphs,
 continuous-batching scheduler and threaded server, the prefill→decode KV
-handoff, draft-verify speculative decoding, weight hot-swap and the
-checkpoint follower (counterparts of paddle_tpu/serving/)."""
+handoff, draft-verify speculative decoding, weight hot-swap, the
+checkpoint follower, and tensor-parallel serving on a mesh of processes
+(``mesh``: the leader and its followers) (counterparts of
+paddle_tpu/serving/)."""
 from . import sampling  # noqa: F401
 from .block_pool import BlockPool, PagePoolExhausted, RadixPrefixCache
 from .engine import (FatalEngineError, GenerationEngine, StaleHandoffError,

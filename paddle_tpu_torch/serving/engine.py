@@ -71,6 +71,25 @@ flight recorder. Fault points (``testing.faults``):
 ``slow_decode``, ``pod_slow``, ``replica_kill``, ``decode_error`` before
 a decode step.
 
+Tensor-parallel serving (``mesh=distributed.spmd.serving_mesh(mp)``, one
+process per rank; the reference's ``engine.py:204-229``): where mp divides
+the heads the model is cut to this rank's shard (``spmd.shard_model``),
+each layer's pools hold the rank's ``H / mp`` heads, the paged kernel runs
+on them unchanged (each head's softmax is whole on one rank, so the output
+is the single-card kernel's on those heads, bit for bit), the row-parallel
+layers all-reduce, and the vocabulary blocks of the LM head's logits are
+gathered before sampling, in the decode and prefill bodies, so every rank
+samples the same token. Where mp does not divide the heads, the model and
+the pools stay whole on every rank. A handoff export gathers every rank's
+heads (the payload is a single-card engine's); an import scatters them; a
+swap takes a whole state and slices it (or a shard-shaped one). Rank 0
+drives and the other ranks follow (``serving.mesh``). The step bodies are
+CUDA graphs where the mp group's collectives can be captured (NCCL); over
+gloo they run uncaptured (``stats()["decode_graph"]`` and its reason,
+``serving.uncaptured_steps``). ``describe_sharding()`` gives the pools'
+placement in the reference's schema; gauges ``serving.mesh.mp``,
+``.paged_kernel`` and ``.paged_kernel_sharded``.
+
 Slot lifecycle: free -> (admission: blocks allocated/shared, suffix
 prefill, first token sampled) -> active (each decode step appends one row
 at the slot's own cursor, always inside its own blocks) -> released
@@ -86,14 +105,18 @@ import numpy as np
 import torch
 
 from ..convert import _leaf, _linear_weight_names
-from ..device import resolve_device
-from ..ops.paged_attention import select_paged_kernel
+from ..device import collector_paused, resolve_device
+from ..distributed import collective
+from ..distributed.spmd import ServingMesh, _axes, local_shard, shard_model
+from ..ops.paged_attention import (_mesh_mp_degree, paged_sharded,
+                                   select_paged_kernel)
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..profiler import tracing as _tracing
 from ..testing import faults as _faults
 from . import sampling as _sampling
 from .block_pool import BlockPool, PagePoolExhausted, RadixPrefixCache
+from .mesh import MeshLink, leader_call
 
 _counters = _registry.scoped_counters("serving", {
     "prefills": 0, "decode_steps": 0, "tokens_generated": 0,
@@ -103,7 +126,7 @@ _counters = _registry.scoped_counters("serving", {
     "kv_blocks_hwm": 0, "chunked_prefills": 0, "prefill_chunks": 0,
     "prefill_compiles": 0, "decode_compiles": 0, "weight_swaps": 0,
     "reprimes": 0, "handoff_exports": 0, "handoff_imports": 0,
-    "handoff_stale": 0})
+    "handoff_stale": 0, "uncaptured_steps": 0})
 # the decode fast path: steady steps on the device-resident slot state,
 # rebuilds from the host mirrors at batch boundaries, audits of the two,
 # and demotions after a failed audit (reference engine.py:94-96)
@@ -151,6 +174,27 @@ def _refresh_head(gpt, head_w):
             head_w.copy_(wte)
 
 
+def _gather_vocab(logits, group):
+    """``[rows, vocab]`` logits from each rank's vocabulary block
+    ``[rows, vocab / mp]``: the blocks gathered over the mp ``group`` (rank
+    order is vocabulary order); ``logits`` itself where ``group`` is None
+    (a whole LM head)."""
+    if group is None:
+        return logits
+    return collective.all_gather_axis(logits, group, tiled_dim=-1)
+
+
+def _whole_shape(shape, shard):
+    """The whole parameter's shape of a shard of ``shape`` cut by
+    ``spmd.shard_model`` (``shard``: its ``mp_shard`` record), or
+    ``shape`` itself where nothing was cut."""
+    shape = tuple(shape)
+    if shard is None:
+        return shape
+    dim, _, _, nranks = shard
+    return shape[:dim] + (shape[dim] * nranks,) + shape[dim + 1:]
+
+
 class StepGraph:
     """A step body that works on persistent buffers: captured once into a
     CUDA graph and replayed on a CUDA device, called directly on the CPU.
@@ -171,14 +215,20 @@ class StepGraph:
     (``decode_compiles`` for the decode graphs, ``prefill_compiles`` for
     the prefill buckets'). ``pool`` is a ``torch.cuda.graph_pool_handle()``
     shared with other graphs whose bodies keep nothing they allocate (None:
-    a private pool)."""
+    a private pool).
 
-    def __init__(self, body, device, counter="decode_compiles", pool=None):
+    ``graph=False`` runs the body directly on a CUDA device too (an engine
+    whose steps hold gloo collectives, which a graph cannot capture); each
+    such call counts in ``serving.uncaptured_steps``."""
+
+    def __init__(self, body, device, counter="decode_compiles", pool=None,
+                 graph=True):
         self.body = body
         self._device = device
         self._counter = counter
         self._pool = pool
         self._graph = None
+        self.graphed = device.type == "cuda" and bool(graph)
         self.launches = {}
         self.replays = 0
 
@@ -196,8 +246,9 @@ class StepGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         before = dict(_kernel_counters)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool,
-                              capture_error_mode="thread_local"):
+        with collector_paused(), \
+                torch.cuda.graph(graph, pool=self._pool,
+                                 capture_error_mode="thread_local"):
             self.body()
         self.launches = {k: v - before.get(k, 0)
                          for k, v in _kernel_counters.items()
@@ -208,8 +259,10 @@ class StepGraph:
         _counters[self._counter] += 1
 
     def __call__(self):
-        if self._device.type != "cuda":
+        if not self.graphed:
             self.body()
+            if self._device.type == "cuda":
+                _counters["uncaptured_steps"] += 1
             return
         self._graph.replay()
         self.replays += 1
@@ -225,8 +278,9 @@ class _PrefillBucket:
     the paged forward of ``gpt`` over the bucket through the masked
     gather path into the pools ``kv``, the pick of row ``end - 1 -
     start``, the float32 LM head ``head_w`` and the first sample (token
-    index 0). With ``head_w=None`` the body only writes K/V (the spec
-    drafter's prefill, the reference's ``_draft_prefill_pure``).
+    index 0), its float32 logits kept in ``logits`` (the whole
+    vocabulary: on a mesh, the ranks' blocks gathered). With ``head_w=None`` the body only writes K/V (the
+    spec drafter's prefill, the reference's ``_draft_prefill_pure``).
     ``counter`` is the ``serving`` counter of its captures."""
 
     def __init__(self, engine, L, pool, gpt, kv, head_w,
@@ -237,6 +291,7 @@ class _PrefillBucket:
             return torch.zeros(shape, dtype=dtype, device=dev)
 
         self._gpt, self._kv, self._head_w = gpt, kv, head_w
+        self._vocab_group = engine._vocab_group
         self.ids = buf((1, L), torch.int64)
         self.positions = buf((1, L), torch.int64)
         self.offset = buf(1, torch.int32)
@@ -249,7 +304,10 @@ class _PrefillBucket:
         self.row = buf(1, torch.int64)
         self.token_idx = buf(1, torch.int64)
         self.token = buf(1, torch.int32)
-        self.graph = StepGraph(self.body, dev, counter=counter, pool=pool)
+        self.logits = None if head_w is None else buf(
+            (1, engine.vocab_size), torch.float32)
+        self.graph = StepGraph(self.body, dev, counter=counter, pool=pool,
+                               graph=engine._graphs)
 
     def load(self, ids, positions, start, end, bt_row, key, temperature,
              top_k, top_p):
@@ -270,10 +328,12 @@ class _PrefillBucket:
                 block_tables=self.table)
             if self._head_w is None:
                 return
-            logits = hidden[0].index_select(0, self.row).float() \
-                @ self._head_w.t()
+            logits = _gather_vocab(hidden[0].index_select(0, self.row)
+                                   .float() @ self._head_w.t(),
+                                   self._vocab_group)
             gum = _sampling.gumbel_rows(self.key, self.token_idx,
                                         logits.shape[-1])
+            self.logits.copy_(logits)
             self.token.copy_(_sampling.sample_tokens(
                 logits, self.temperature, self.top_k, self.top_p, gum))
 
@@ -298,11 +358,25 @@ class GenerationEngine:
     the model must already live on the engine's device. ``rng_seed`` pins
     the sampling base key (None draws it from torch's default generator).
     ``paged_kernel``: None/"auto", "cuda" or "torch" (see
-    ``select_paged_kernel``)."""
+    ``select_paged_kernel``).
+
+    ``mesh``: a ``distributed.spmd.serving_mesh`` of ``mp`` ranks, one
+    process each; every rank builds the engine with the same arguments
+    (see ``serving.mesh``: rank 0 drives it, the others ``follow()``).
+    Where mp divides the heads, the model is cut to this rank's shard
+    (``spmd.shard_model``: its heads, its MLP columns, its vocabulary
+    block), the pools hold its ``n_head / mp`` heads, the decode and
+    verify steps run the paged kernel on them, and the vocabulary-sharded
+    logits are gathered before sampling, so every rank samples the same
+    token. Otherwise the model and the pools stay whole on every rank.
+    The step bodies are captured into CUDA graphs where the mp group's
+    collectives can be (NCCL); over gloo they run uncaptured
+    (``stats()["decode_graph"]``)."""
 
     def __init__(self, model, max_batch_size=4, buckets=None,
                  max_seq_len=None, rng_seed=None, block_size=16,
-                 num_blocks=None, paged_kernel=None, device=None):
+                 num_blocks=None, paged_kernel=None, device=None,
+                 mesh=None):
         gpt = getattr(model, "gpt", model)
         if not hasattr(gpt, "blocks") or not hasattr(gpt, "embeddings"):
             raise TypeError(
@@ -317,6 +391,7 @@ class GenerationEngine:
         self._model = model
         self._gpt = gpt
         cfg = gpt.cfg
+        self.vocab_size = int(cfg.vocab_size)
         self.max_seq_len = int(max_seq_len or cfg.seq_len)
         if self.max_seq_len > cfg.seq_len:
             raise ValueError(
@@ -347,6 +422,19 @@ class GenerationEngine:
         self.prefix_cache = RadixPrefixCache(self.pool, self.block_size)
 
         model.eval()
+        # the tensor-parallel mesh: this rank's shard of the model where mp
+        # divides the heads (every parameter annotated "mp" sliced in
+        # place), else the whole model on every rank
+        self._mesh = self._check_mesh(mesh)
+        self._mp = _mesh_mp_degree(mesh)
+        n_head = gpt.blocks[0].attn.n_head
+        self._sharded = paged_sharded(mesh, n_head)
+        if self._sharded:
+            shard_model(model, mesh)
+        self._link = MeshLink(mesh) if self._mp > 1 else None
+        # the group the LM head's vocabulary blocks are gathered over (None:
+        # the head is whole)
+        self._vocab_group = gpt.embeddings.mp_group
         # the weights a swap replaces, by the decoder's own names (the
         # reference's names), and which of them are Linear weights: those
         # the reference stores [in, out]
@@ -362,17 +450,22 @@ class GenerationEngine:
         attn = gpt.blocks[0].attn
         self._paged_kernel, self._paged_kernel_reason = select_paged_kernel(
             paged_kernel, device=self.device, head_dim=attn.head_dim,
-            dtype=self._dtype)
+            dtype=self._dtype, mesh=mesh, num_heads=n_head)
         _explain.record("serving_paged_kernel", op="GenerationEngine",
                         why=self._paged_kernel_reason,
                         paged_kernel=self._paged_kernel)
+        # the step bodies' route, decided here once: a CUDA graph per body,
+        # unless a step holds collectives a graph cannot capture (gloo)
+        self._graphs, self._graph_reason = self._graph_route(self._sharded)
+        if mesh is not None:
+            _registry.gauge_set("serving.mesh.mp", self._mp)
+            _registry.gauge_set("serving.mesh.paged_kernel",
+                                self._paged_kernel)
+            _registry.gauge_set("serving.mesh.paged_kernel_sharded",
+                                int(self._sharded))
 
         Nb, bs = self.pool.num_blocks, self.block_size
-        self._kv = [
-            tuple(torch.zeros((Nb, bs, blk.attn.n_head, blk.attn.head_dim),
-                              dtype=self._dtype, device=self.device)
-                  for _ in range(2))
-            for blk in gpt.blocks]
+        self._kv = self._make_pools(gpt, Nb, bs, self._dtype)
 
         # host-side slot state, uploaded into each decode step
         B = self.max_batch_size
@@ -413,6 +506,9 @@ class GenerationEngine:
             self._base_key = torch.tensor([s & _MASK32, (s >> 32) & _MASK32],
                                           dtype=torch.int64)
         self._seed_counter = itertools.count()
+        if self._link is not None:  # the leader's key is every rank's
+            self._base_key = self._link.agree(
+                type(self).__name__, self._signature(), self._base_key)
 
         # the decode fast path: device copies of the slot state above, the
         # step's static outputs, and the step body on them
@@ -428,9 +524,10 @@ class GenerationEngine:
         self._d_tables = torch.zeros((B, self.blocks_per_slot),
                                      dtype=torch.int32, device=dev)
         self._d_toks = torch.zeros(B, dtype=torch.int32, device=dev)
-        self._d_logits = torch.zeros((B, self._head_w.shape[0]),
+        self._d_logits = torch.zeros((B, self.vocab_size),
                                      dtype=torch.float32, device=dev)
-        self._decode_graph = StepGraph(self._decode_body, dev)
+        self._decode_graph = StepGraph(self._decode_body, dev,
+                                       graph=self._graphs)
         # False after a batch boundary: the next step rebuilds the device
         # state from the host mirrors
         self._fast = False
@@ -439,6 +536,78 @@ class GenerationEngine:
         # float32 [max_batch, vocab] logits of the latest decode step: the
         # step's static output buffer, valid until the next step
         self.last_logits = None
+        # float32 [1, vocab] logits of the latest prefill's first sample:
+        # its bucket's static buffer, valid until that bucket runs again
+        self.last_prefill_logits = None
+
+    # -------------------------------------------------------------- mesh --
+    @staticmethod
+    def _check_mesh(mesh):
+        """A mesh whose only axis of more than one rank is "mp", built by
+        ``spmd.serving_mesh`` when it has one."""
+        if mesh is None:
+            return None
+        extra = {a: int(d) for a, d in _axes(mesh).items()
+                 if a != "mp" and int(d) > 1}
+        if extra:
+            raise ValueError(
+                f"a serving mesh has one axis, 'mp'; got extra axes {extra} "
+                "(build it with distributed.spmd.serving_mesh)")
+        if _mesh_mp_degree(mesh) > 1 and not isinstance(mesh, ServingMesh):
+            raise TypeError(
+                f"mesh {mesh!r}: build the serving mesh with "
+                "distributed.spmd.serving_mesh (it carries the group the "
+                "leader's calls reach the followers on)")
+        return mesh
+
+    def _graph_route(self, collectives):
+        """``(capture the step bodies, why)`` for steps that do or do not
+        hold the mesh's collectives."""
+        if self.device.type != "cuda":
+            return False, "cpu: the step bodies run directly"
+        if collectives:
+            backend = self._mesh.mp_group.backend
+            if backend != "nccl":
+                return False, (f"{backend} collectives cannot be captured")
+        return True, "cuda graphs"
+
+    def _make_pools(self, gpt, Nb, bs, dtype):
+        """One ``(k, v)`` pool pair per layer, ``[Nb, bs, heads, Dh]`` at
+        the heads this rank's shard of each layer holds."""
+        return [tuple(torch.zeros((Nb, bs, self._local_heads(blk),
+                                   blk.attn.head_dim),
+                                  dtype=dtype, device=self.device)
+                      for _ in range(2))
+                for blk in gpt.blocks]
+
+    @staticmethod
+    def _local_heads(blk):
+        return blk.attn.qkv_proj.weight.shape[0] // (3 * blk.attn.head_dim)
+
+    def _signature(self):
+        """What every rank of a mesh must build alike."""
+        cfg = self._gpt.cfg
+        return (type(self).__name__, self.max_batch_size, self.buckets,
+                self.max_seq_len, self.block_size, self.pool.num_blocks,
+                str(self._dtype),
+                sorted((k, repr(v)) for k, v in vars(cfg).items()),
+                self._paged_kernel)
+
+    def follow(self):
+        """A follower's loop (ranks other than 0 of a mesh): run the
+        leader's calls, in its order, until it closes. Returns the number
+        of calls run."""
+        if self._link is None:
+            raise RuntimeError("follow() is for the followers of an engine "
+                               "on a serving mesh of more than one rank")
+        return self._link.follow(self)
+
+    def close(self):
+        """Leader of a mesh engine: release the followers (their
+        ``follow()`` returns); the engine takes no further calls. A no-op
+        elsewhere."""
+        if self._link is not None:
+            self._link.close()
 
     # ------------------------------------------------------------- slots --
     def free_slots(self):
@@ -448,6 +617,7 @@ class GenerationEngine:
     def active_slots(self):
         return [i for i in range(self.max_batch_size) if self._active[i]]
 
+    @leader_call
     def release(self, slot):
         """Evict a finished request: drop the slot's pool references and
         zero its table row. Shared prefix blocks stay alive through the
@@ -471,6 +641,7 @@ class GenerationEngine:
     def slot_len(self, slot):
         return int(self._cur_lens[slot])
 
+    @leader_call
     def reset(self):
         for i in range(self.max_batch_size):
             self.release(i)
@@ -541,7 +712,7 @@ class GenerationEngine:
             raise ValueError(
                 f"prompt length {len(prompt)} leaves no room to generate "
                 f"(max_seq_len={self.max_seq_len})")
-        vocab = self._head_w.shape[0]
+        vocab = self.vocab_size
         if prompt.min() < 0 or prompt.max() >= vocab:
             raise ValueError(f"prompt token ids must lie in [0, {vocab})")
         return prompt
@@ -610,7 +781,7 @@ class GenerationEngine:
             key = np.zeros(2, np.int64)
         pb.load(ids, positions[None], start, end, bt_row, key, temperature,
                 top_k, top_p)
-        if self.device.type == "cuda" and not pb.graph.captured:
+        if pb.graph.graphed and not pb.graph.captured:
             pb.graph.capture()
             _explain.record(
                 "serving_prefill_compile", op="serving.prefill", role=role,
@@ -628,6 +799,7 @@ class GenerationEngine:
         with _registry.time_block("prefill", scope="serving"):
             self._run_prefill(pb, window, end, start, bt_row, key,
                               temperature, top_k, top_p)
+            self.last_prefill_logits = pb.logits
             return int(pb.token.item())
 
     def _reserve_extra(self, slot, prompt, max_new_tokens):
@@ -680,6 +852,7 @@ class GenerationEngine:
             seed = next(self._seed_counter)
         return _sampling.request_key(self._base_key, seed).numpy()
 
+    @leader_call
     def prefill(self, slot, prompt_ids, temperature=0.0, top_k=0,
                 top_p=1.0, seed=None, max_new_tokens=None):
         """Admit a prompt into ``slot``: share its longest cached block
@@ -702,6 +875,7 @@ class GenerationEngine:
         return tok
 
     # -------------------------------------------------- chunked prefill --
+    @leader_call
     def begin_prefill(self, slot, prompt_ids, temperature=0.0, top_k=0,
                       top_p=1.0, seed=None, max_new_tokens=None,
                       chunk_tokens=None):
@@ -728,6 +902,7 @@ class GenerationEngine:
         _counters["chunked_prefills"] += 1
         return -(-(len(prompt) - P) // chunk)
 
+    @leader_call
     def prefill_chunk(self, slot):
         """Process the next chunk of a :meth:`begin_prefill` admission.
         Returns None while chunks remain; the final chunk samples the first
@@ -760,6 +935,7 @@ class GenerationEngine:
         return tok
 
     # --------------------------------------------- prefill→decode handoff --
+    @leader_call
     def export_request_kv(self, slot):
         """An active slot's paged-KV state for a handoff (disaggregated
         serving), as the reference's payload dict: the slot's blocks of
@@ -769,7 +945,9 @@ class GenerationEngine:
         token, token index, request key, sampling knobs), the weight
         generation and the trace id. ``import_request_kv`` on an engine
         with the same model and block geometry continues the stream token
-        for token: sampling depends only on (request key, token index)."""
+        for token: sampling depends only on (request key, token index).
+        On a mesh every rank's heads are gathered, so the payload holds
+        whole heads, as a single-card engine's does."""
         if not self._active[slot]:
             raise RuntimeError(f"slot {slot} is not active; nothing to "
                                "export")
@@ -780,7 +958,11 @@ class GenerationEngine:
         # one gather on the device and one copy to the host
         kv = torch.stack([torch.stack((k.index_select(0, idx),
                                        v.index_select(0, idx)))
-                          for k, v in self._kv]).cpu()
+                          for k, v in self._kv])
+        if self._sharded:  # [L, 2, n, bs, heads, Dh]: heads in rank order
+            kv = collective.all_gather_axis(kv, self._mesh.mp_group,
+                                            tiled_dim=4)
+        kv = kv.cpu()
         _counters["handoff_exports"] += 1
         if t0:
             _tracing.add_span(trace, "kv_export", t0, _tracing.clock(),
@@ -814,11 +996,16 @@ class GenerationEngine:
     def _kv_blocks(self, a):
         """One layer's handed-off blocks on this engine's device in the
         pool's dtype: a host tensor as it is, an array (a reference
-        payload) through numpy."""
+        payload) through numpy; on a head-sharded mesh, this rank's
+        heads."""
         if not isinstance(a, torch.Tensor):
             a = torch.from_numpy(np.require(_leaf(a), requirements="CW"))
+        if self._sharded:
+            h = self._kv[0][0].shape[2]
+            a = a.narrow(2, self._mesh.rank * h, h).contiguous()
         return a.to(device=self.device, dtype=self._dtype)
 
+    @leader_call
     def import_request_kv(self, slot, payload, prompt_ids=None):
         """Adopt a slot exported by :meth:`export_request_kv`: check the
         payload (weight generation, then block size, block count, layer
@@ -854,7 +1041,10 @@ class GenerationEngine:
                 f"{len(self._kv)}: a different model")
         for li, (kb, vb) in enumerate(zip(payload["kv_k"],
                                           payload["kv_v"])):
-            want = (n,) + tuple(self._kv[li][0].shape[1:])
+            k = self._kv[li][0]  # whole heads: every rank's
+            want = (n, self.block_size,
+                    k.shape[2] * (self._mp if self._sharded else 1),
+                    k.shape[3])
             for got in (tuple(np.shape(kb)), tuple(np.shape(vb))):
                 if got != want:
                     raise ValueError(f"handoff layer {li} blocks {got} != "
@@ -893,7 +1083,7 @@ class GenerationEngine:
         _counters["tokens_generated"] += 1  # the adopted first token
         if t0:
             nbytes = sum(int(np.prod(np.shape(a))) for a in
-                         payload["kv_k"] + payload["kv_v"]) \
+                         list(payload["kv_k"]) + list(payload["kv_v"])) \
                 * self._kv[0][0].element_size()
             _tracing.add_span(trace, "kv_import", t0, _tracing.clock(),
                               meta={"bytes": nbytes})
@@ -917,7 +1107,8 @@ class GenerationEngine:
                 cache_offsets=positions, seq_lens=lens + 1,
                 block_tables=self._d_tables,
                 paged_kernel=self._paged_kernel)
-            logits = hidden[:, 0].float() @ self._head_w.t()
+            logits = _gather_vocab(hidden[:, 0].float() @ self._head_w.t(),
+                                   self._vocab_group)
             gum = _sampling.gumbel_rows(self._d_keys, self._d_gen,
                                         logits.shape[-1])
             toks = _sampling.sample_tokens(logits, self._d_temps,
@@ -949,8 +1140,7 @@ class GenerationEngine:
         bodies for real during warm-up, so it starts from an idle state:
         every slot inactive on the garbage block. (A spec engine's plain
         ``decode_step`` after its rounds finds its own graph uncaptured.)"""
-        capture = self.device.type == "cuda" and \
-            not all(g.captured for g in graphs)
+        capture = self._graphs and not all(g.captured for g in graphs)
         if capture:
             self._fast = False
         if self._fast and self._decode_since_audit + 1 >= self._audit_every:
@@ -994,6 +1184,7 @@ class GenerationEngine:
                       "decode_error"):
             _faults.fire(point)
 
+    @leader_call
     def decode_step(self):
         """One continuous-batching iteration over all slots; returns the
         int32 ``[max_batch]`` token block (junk on inactive lanes) and
@@ -1005,7 +1196,7 @@ class GenerationEngine:
         n_active = int(active.sum())
         if n_active == 0:
             raise RuntimeError("decode_step with no active slots")
-        if _faults.ACTIVE:
+        if _faults.ACTIVE and self._link is None:
             self._fire_decode_faults()
         with _registry.time_block("decode_step", scope="serving"):
             self._prepare_fast((self._decode_graph,))
@@ -1067,7 +1258,12 @@ class GenerationEngine:
         they cross to the device as they are and are transposed there,
         which is much faster than on the host. Square Linear weights
         cannot be told apart by shape, so the layout is never guessed
-        from it."""
+        from it.
+
+        On a mesh a parameter sliced to this rank's shard takes the whole
+        weight, sliced here as ``spmd.shard_model`` slices it (a checkpoint
+        need not know the layout), or a value already of the shard's
+        shape; any other shape is refused."""
         torch_values = {isinstance(resolved[n], torch.Tensor) for n in names}
         if len(torch_values) > 1:
             raise WeightSwapError(
@@ -1093,10 +1289,18 @@ class GenerationEngine:
                 t = torch.from_numpy(np.ascontiguousarray(a))
             flip = n in linear and not port_layout
             shape = tuple(t.shape)[::-1] if flip else tuple(t.shape)
-            if shape != tuple(cur.shape):
+            shard = getattr(cur, "mp_shard", None)
+            whole = _whole_shape(cur.shape, shard)
+            if shape != tuple(cur.shape) and shape == whole:
+                dim, layout, rank, nranks = shard
+                t = local_shard(t, t.dim() - 1 - dim if flip else dim, rank,
+                                nranks, layout)
+            elif shape != tuple(cur.shape):
                 raise WeightSwapError(
                     f"shape mismatch for {n!r}: engine holds "
-                    f"{tuple(cur.shape)}, swap offers {shape}"
+                    f"{tuple(cur.shape)}"
+                    + (f" (its shard of {whole})" if shard else "")
+                    + f", swap offers {shape}"
                     + (" after the [in, out] -> [out, in] transpose"
                        if flip else "") + " — this is a different model")
             checked.append((t, flip))
@@ -1113,6 +1317,7 @@ class GenerationEngine:
             for n, t in zip(names, staged):
                 bound[n].copy_(t)
 
+    @leader_call
     def swap_weights(self, state, source=None):
         """Replace every weight between two steps, all or nothing. Call it
         on the engine's driving thread (``scheduler.request_swap`` and
@@ -1135,7 +1340,7 @@ class GenerationEngine:
         resolved = self._resolve_swap_state(state)
         staged = self._stage_swap(resolved, self._names, self._state,
                                   self._linear)
-        if _faults.ACTIVE:
+        if _faults.ACTIVE and self._link is None:
             _faults.fire("kill_during_swap")
         t1 = time.perf_counter()
         self._commit_swap(self._names, self._state, staged)
@@ -1164,6 +1369,7 @@ class GenerationEngine:
             weights=len(staged), source=source,
             generation=self._weight_gen)
 
+    @leader_call
     def reprime(self):
         """Transient-fault recovery: drop the captured decode graph, so the
         next step captures it anew (``serving.decode_compiles`` + 1 on the
@@ -1174,7 +1380,8 @@ class GenerationEngine:
         mid-step may have left cached blocks in an unknown state. The
         prefill graphs and the weight generation stay: no weight
         changed."""
-        self._decode_graph = StepGraph(self._decode_body, self.device)
+        self._decode_graph = StepGraph(self._decode_body, self.device,
+                                       graph=self._graphs)
         self._fast = False
         self.prefix_cache.new_generation()
         self._note_pool()
@@ -1199,14 +1406,53 @@ class GenerationEngine:
         return hits / total if total else 0.0
 
     def stats(self):
-        return {**_registry.counters("serving"),
+        out = {**_registry.counters("serving"),
+               "paged_kernel": self._paged_kernel,
+               "paged_kernel_reason": self._paged_kernel_reason,
+               "decode_graph": self._graphs,
+               "decode_graph_reason": self._graph_reason,
+               "mean_occupancy": self.mean_occupancy(),
+               "prefix_hit_rate": self.prefix_hit_rate(),
+               "kv_blocks_total": self.pool.usable_blocks,
+               "kv_blocks_in_use": self.pool.in_use(),
+               "kv_blocks_free": self.pool.free_count(),
+               "prefix_cache_nodes": len(self.prefix_cache),
+               "weight_generation": self._weight_gen,
+               "prefix_generation": self.prefix_cache.generation}
+        if self._mesh is not None:
+            out["mesh_axes"] = {"mp": self._mp}
+            out["paged_kernel_sharded"] = self._sharded
+        return out
+
+    def _pool_records(self, kv, sharded, **extra):
+        """``describe_sharding``'s records of the pools ``kv``: shape and
+        bytes of the pool across the mesh, its partition spec."""
+        out = []
+        for i, (k, v) in enumerate(kv):
+            for name, a in (("k", k), ("v", v)):
+                heads = a.shape[2] * (self._mp if sharded else 1)
+                shape = [int(a.shape[0]), int(a.shape[1]), int(heads),
+                         int(a.shape[3])]
+                spec = None
+                if self._mesh is not None:
+                    spec = [None, None, "mp"] if sharded else []
+                out.append({
+                    "layer": i, "pool": name, **extra, "shape": shape,
+                    "dtype": str(a.dtype).removeprefix("torch."),
+                    "bytes": int(np.prod(shape)) * a.element_size(),
+                    "spec": spec})
+        return out
+
+    def describe_sharding(self):
+        """JSON-able placement of the engine's hot buffers, in the
+        reference's schema (``tools/sharding_lint.py``'s ``lint_engine``
+        reads it): the mesh's axes, the paged kernel, whether it runs per
+        shard, and one record per per-layer KV pool with its shape and
+        bytes across the mesh and its partition spec (``[None, None,
+        "mp"]``: head-sharded; ``[]``: whole on every rank; None: no
+        mesh)."""
+        return {"mesh": None if self._mesh is None
+                else {"axes": {"mp": self._mp}},
                 "paged_kernel": self._paged_kernel,
-                "paged_kernel_reason": self._paged_kernel_reason,
-                "mean_occupancy": self.mean_occupancy(),
-                "prefix_hit_rate": self.prefix_hit_rate(),
-                "kv_blocks_total": self.pool.usable_blocks,
-                "kv_blocks_in_use": self.pool.in_use(),
-                "kv_blocks_free": self.pool.free_count(),
-                "prefix_cache_nodes": len(self.prefix_cache),
-                "weight_generation": self._weight_gen,
-                "prefix_generation": self.prefix_cache.generation}
+                "paged_kernel_sharded": self._sharded,
+                "kv_pools": self._pool_records(self._kv, self._sharded)}

@@ -24,6 +24,12 @@ that the worker applies between two decode steps (or while idle), and
 ``watch_checkpoints(dir)`` tails a training checkpoint directory
 (``incubate.checkpoint``) and stages a swap whenever a newer valid
 checkpoint commits (``CheckpointFollower``).
+
+On a tensor-parallel mesh (``mesh=distributed.spmd.serving_mesh(mp)``),
+every rank builds the same server. Rank 0 answers: its scheduler and
+worker run as they do on one card, and its engine sends each call to the
+other ranks (``serving.mesh``), which run ``follow()``: it returns when
+rank 0's ``shutdown()`` has finished. ``submit`` on another rank raises.
 """
 from __future__ import annotations
 
@@ -110,6 +116,9 @@ class GenerationServer:
     device and raises without one. ``draft_model`` (with ``draft_k``)
     serves through a ``DraftVerifyEngine``.
 
+    ``mesh``: a ``distributed.spmd.serving_mesh``, passed to the engine
+    (see the module's docstring for the ranks' roles).
+
     ``fail_fast_on_fatal``: on a ``FatalEngineError`` the worker stops
     driving the engine and, when True, fails every pending request; a
     supervisor sets it False to take the requests over instead
@@ -122,7 +131,7 @@ class GenerationServer:
                  idle_wait_s=0.005, fail_fast_on_fatal=True, block_size=16,
                  num_blocks=None, prefill_chunk_tokens=None,
                  paged_kernel=None, device=None, draft_model=None,
-                 draft_k=4):
+                 draft_k=4, mesh=None):
         if engine is None:
             if model is None:
                 raise ValueError("GenerationServer needs a model or an "
@@ -130,7 +139,7 @@ class GenerationServer:
             ekw = dict(max_batch_size=max_batch_size, buckets=buckets,
                        max_seq_len=max_seq_len, block_size=block_size,
                        num_blocks=num_blocks, paged_kernel=paged_kernel,
-                       device=device)
+                       device=device, mesh=mesh)
             if draft_model is not None:
                 # speculative decoding: the drafter proposes draft_k tokens
                 # per iteration and the target verifies them in one forward
@@ -156,7 +165,20 @@ class GenerationServer:
         self.last_swap_step = -1
 
     # ----------------------------------------------------------- control --
+    @property
+    def _follower(self):
+        link = getattr(self.engine, "_link", None)
+        return link is not None and not link.leader
+
+    def follow(self):
+        """A rank other than 0 of a mesh: run rank 0's engine calls until
+        its ``shutdown()`` ends them. Returns the number of calls run."""
+        return self.engine.follow()
+
     def start(self):
+        if self._follower:
+            raise RuntimeError("this rank follows the mesh: rank 0 runs the "
+                               "server (call follow() here)")
         if self._thread is not None and self._thread.is_alive():
             return self
         if self._stop.is_set() or self._draining.is_set():
@@ -219,11 +241,15 @@ class GenerationServer:
 
     # ------------------------------------------------- train→serve loop --
     def swap_weights(self, state, source=None):
-        """Stage a drain-free weight hot-swap: thread-safe, returns at once.
+        """Stage a drain-free weight hot-swap: thread-safe, returns at once
+        (on a mesh: on rank 0, with the whole state).
         The worker applies it between two decode steps; in-flight requests
         keep their KV cache and finish on the new weights. A refused swap
         counts in ``serving.swap_failures`` (``serving_swap_failed``
         explainer record) and the old weights keep serving."""
+        if self._follower:
+            raise RuntimeError("swap_weights: this rank follows the mesh; "
+                               "rank 0 takes the swap")
         self.scheduler.request_swap(state, source=source)
         with self._work:
             self._work.notify()
@@ -285,19 +311,24 @@ class GenerationServer:
             # only after the worker has exited: cancelling releases engine
             # slots, which must not race a decode step in flight
             self.scheduler.cancel_pending()
+        if ok and not self._follower:
+            self.engine.close()  # a mesh's followers return
         return ok
 
     # ---------------------------------------------------------- frontend --
     def submit(self, prompt_ids, **options):
         """Enqueue a generation job; returns its ``GenerationRequest``.
         Raises ``QueueFullError`` under backpressure and ``RuntimeError``
-        once shutdown has begun."""
+        once shutdown has begun, or on a rank that follows a mesh."""
         return self.submit_request(GenerationRequest(prompt_ids, **options))
 
     def submit_request(self, request):
         """Enqueue an existing ``GenerationRequest`` handle, e.g. one that
         carries a prefill engine's ``kv_payload`` (disaggregated serving:
         this server adopts the handed-off KV instead of prefilling)."""
+        if self._follower:
+            raise RuntimeError("submit: this rank follows the mesh; submit "
+                               "to rank 0, which answers")
         if self._draining.is_set() or self._stop.is_set():
             raise RuntimeError("server is shutting down; not accepting "
                                "requests")

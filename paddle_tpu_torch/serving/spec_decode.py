@@ -75,25 +75,38 @@ Fault points: the engine's decode points before a round, and
 between the draft round and the verify: acceptance collapses, the tokens
 do not change.
 
-Not ported yet: the mesh refusals and ``describe_sharding`` (with the
-sharded serving of ROADMAP queue 1 item 6d).
+Tensor-parallel serving: on a ``distributed.spmd.serving_mesh`` the
+target is head-sharded as in ``GenerationEngine`` and the verify runs the
+paged kernel's 8-row instance on each rank's heads. The drafter takes its
+mp form too where its own heads divide mp (its pools hold its local heads,
+its logits are gathered before its proposals are sampled), and stays
+whole on every rank otherwise; its kernel resolves separately (family
+``paged_attention.draft``), with the ``serving.mesh.draft_kernel`` and
+``.draft_kernel_sharded`` gauges, and ``describe_sharding`` lists its
+pools (``"draft": true``). A mesh with an axis other than ``"mp"`` of
+more than one rank is refused before anything is built: a
+``spec_mesh_refused`` counter and explainer event name the axes (spec
+decode has no batch or pipeline dimension to map them to). The leader
+decides ``draft_garbage`` and sends it with the round (``serving.mesh``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..ops.paged_attention import MAX_SPAN, select_paged_kernel
+from ..convert import _linear_weight_names
+from ..distributed.spmd import _axes, shard_model
+from ..ops.paged_attention import MAX_SPAN, paged_sharded, select_paged_kernel
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..profiler import tracing as _tracing
 from ..testing import faults as _faults
 from . import sampling as _sampling
 from .block_pool import BlockPool
-from ..convert import _linear_weight_names
-from .engine import (GenerationEngine, StepGraph, _PrefillBucket,
-                     _refresh_head)
+from .engine import (GenerationEngine, StepGraph, _gather_vocab,
+                     _PrefillBucket, _refresh_head)
 from .engine import _counters as _serving_counters
+from .mesh import leader_call
 
 __all__ = ["DraftVerifyEngine"]
 
@@ -101,10 +114,19 @@ _counters = _registry.scoped_counters("serving", {
     "spec_rounds": 0, "spec_slot_rounds": 0, "spec_proposed": 0,
     "spec_accepted": 0, "spec_emitted": 0, "draft_prefills": 0,
     "draft_kv_blocks_hwm": 0, "draft_swaps": 0,
-    "draft_prefill_compiles": 0})
+    "draft_prefill_compiles": 0, "spec_mesh_refused": 0})
 # weight generations whose acceptance keeps its own gauge; older ones fold
 # into one ".historic" rollup, so frequent swaps add no registry keys
 SPEC_ACCEPT_KEEP_GENERATIONS = 4
+
+
+def _refuse_mesh(reason, why, **detail):
+    """A structured mesh refusal: a ``spec_mesh_refused`` counter and
+    explainer event naming the reason, then ``ValueError``."""
+    _counters["spec_mesh_refused"] += 1
+    _explain.record("spec_mesh_refused", op="DraftVerifyEngine",
+                    reason=reason, why=why, **detail)
+    raise ValueError(why)
 
 
 class DraftVerifyEngine(GenerationEngine):
@@ -127,6 +149,17 @@ class DraftVerifyEngine(GenerationEngine):
                 f"draft_k must be in [1, {MAX_SPAN - 1}] (the verify span of "
                 f"draft_k + 1 rows goes through the paged kernel, which "
                 f"takes at most {MAX_SPAN}); got {draft_k}")
+        mesh = kw.get("mesh")
+        if mesh is not None:
+            extra = {a: int(d) for a, d in _axes(mesh).items()
+                     if a != "mp" and int(d) > 1}
+            if extra:
+                _refuse_mesh(
+                    "non_mp_axes",
+                    "DraftVerifyEngine supports only the one-axis "
+                    f"('mp',) serving mesh; got extra axes {extra} — "
+                    "spec decode has no batch or pipeline dimension to "
+                    "map them to", axes=extra)
         super().__init__(model, **kw)
         dgpt = getattr(draft_model, "gpt", draft_model)
         if not hasattr(dgpt, "blocks") or not hasattr(dgpt, "embeddings"):
@@ -146,6 +179,13 @@ class DraftVerifyEngine(GenerationEngine):
                 f"the drafter lives on {dgpt.device} but the engine runs on "
                 f"{self.device}")
         draft_model.eval()
+        # the drafter's mp form where its own heads divide mp, else whole
+        # on every rank
+        dheads = dgpt.blocks[0].attn.n_head
+        self._draft_sharded = paged_sharded(mesh, dheads)
+        if self._draft_sharded:
+            shard_model(draft_model, mesh)
+        self._draft_vocab_group = dgpt.embeddings.mp_group
         self._draft_model = draft_model
         self._dgpt = dgpt
         dwte = dgpt.embeddings.word_embeddings.weight
@@ -159,21 +199,28 @@ class DraftVerifyEngine(GenerationEngine):
         # head_dim and dtype, with the same requested policy
         self._draft_kernel, self._draft_kernel_reason = select_paged_kernel(
             kw.get("paged_kernel"), device=self.device,
-            head_dim=dgpt.blocks[0].attn.head_dim, dtype=self._ddtype)
+            head_dim=dgpt.blocks[0].attn.head_dim, dtype=self._ddtype,
+            mesh=mesh, num_heads=dheads, family="paged_attention.draft")
         _explain.record("serving_paged_kernel", op="DraftVerifyEngine",
                         why=self._draft_kernel_reason,
                         paged_kernel=self._draft_kernel, role="draft")
+        if mesh is not None:
+            _registry.gauge_set("serving.mesh.draft_kernel",
+                                self._draft_kernel)
+            _registry.gauge_set("serving.mesh.draft_kernel_sharded",
+                                int(self._draft_sharded))
+        if self._draft_sharded and not self._sharded:
+            # the drafter's steps hold collectives the target's do not
+            self._graphs, self._graph_reason = self._graph_route(True)
+            self._decode_graph = StepGraph(self._decode_body, self.device,
+                                           graph=self._graphs)
 
         B, M = self.max_batch_size, self.blocks_per_slot
         if draft_num_blocks is None:
             draft_num_blocks = 1 + B * M
         self.draft_pool = BlockPool(draft_num_blocks, name="draft")
         Nb, bs = self.draft_pool.num_blocks, self.block_size
-        self._dkv = [
-            tuple(torch.zeros((Nb, bs, blk.attn.n_head, blk.attn.head_dim),
-                              dtype=self._ddtype, device=self.device)
-                  for _ in range(2))
-            for blk in dgpt.blocks]
+        self._dkv = self._make_pools(dgpt, Nb, bs, self._ddtype)
         self._draft_tables = np.zeros((B, M), np.int32)
         self._draft_blocks = [[] for _ in range(B)]
         # prompt rows the drafter's KV holds per slot (it has no prefix
@@ -198,10 +245,17 @@ class DraftVerifyEngine(GenerationEngine):
         # [B, K+1], then accepts and emitted
         self._d_round = torch.zeros((B, self.draft_k + 3), dtype=torch.int32,
                                     device=dev)
-        self._draft_graph = StepGraph(self._draft_body, dev)
-        self._verify_graph = StepGraph(self._verify_body, dev)
+        self._draft_graph = StepGraph(self._draft_body, dev,
+                                      graph=self._graphs)
+        self._verify_graph = StepGraph(self._verify_body, dev,
+                                       graph=self._graphs)
         # bucket length -> the drafter's prefill bucket (K/V only)
         self._draft_buckets: dict = {}
+        if self._link is not None:
+            self._link.agree("the drafter", (
+                self.draft_k, self.draft_pool.num_blocks, str(self._ddtype),
+                sorted((k, repr(v)) for k, v in vars(dgpt.cfg).items())),
+                None)
 
     # ------------------------------------------------------- step bodies --
     def _draft_body(self):
@@ -222,7 +276,9 @@ class DraftVerifyEngine(GenerationEngine):
                     paged_kernel=self._draft_kernel)
                 if j == self.draft_k:
                     break
-                logits = hidden[:, 0].float() @ self._dhead_w.t()
+                logits = _gather_vocab(
+                    hidden[:, 0].float() @ self._dhead_w.t(),
+                    self._draft_vocab_group)
                 gum = _sampling.gumbel_rows(self._d_keys, self._d_gen + j,
                                             logits.shape[-1])
                 toks = _sampling.sample_tokens(logits, self._d_temps,
@@ -249,8 +305,9 @@ class DraftVerifyEngine(GenerationEngine):
                 block_tables=self._d_tables,
                 paged_kernel=self._paged_kernel, moe_rows=True)
             B = ids.shape[0]
-            logits = hidden.float().reshape(B * (K + 1), -1) \
-                @ self._head_w.t()
+            logits = _gather_vocab(
+                hidden.float().reshape(B * (K + 1), -1) @ self._head_w.t(),
+                self._vocab_group)
             rep = lambda t: t.repeat_interleave(K + 1, dim=0)  # noqa: E731
             idxs = (self._d_gen.unsqueeze(1) + offs).reshape(-1)
             gum = _sampling.gumbel_rows(rep(self._d_keys), idxs,
@@ -298,6 +355,7 @@ class DraftVerifyEngine(GenerationEngine):
             return False
         return self.blocks_per_slot <= self.draft_pool.free_count()
 
+    @leader_call
     def import_request_kv(self, slot, payload, prompt_ids=None):
         """Adopt a handoff: the target's KV verbatim
         (``GenerationEngine.import_request_kv``), then the drafter's
@@ -393,6 +451,7 @@ class DraftVerifyEngine(GenerationEngine):
         self._draft_tables[slot] = 0
         self._draft_ingested[slot] = 0
 
+    @leader_call
     def release(self, slot):
         self._drop_draft(slot)
         self._slot_tokens[slot] = []
@@ -405,6 +464,7 @@ class DraftVerifyEngine(GenerationEngine):
             self._slot_tokens[b].append(int(toks[b]))
 
     # ------------------------------------------------------- weight swap --
+    @leader_call
     def swap_weights(self, state, source=None, draft_state=None):
         """Target hot-swap, optionally with the drafter in the same commit.
 
@@ -465,14 +525,18 @@ class DraftVerifyEngine(GenerationEngine):
                 self._draft_ingest(
                     slot, hist, min(self._draft_ingested[slot] + maxw, end))
 
+    @leader_call
     def reprime(self):
         """Transient-fault recovery: drop the draft-round and verify graphs
         with the plain decode graph (see ``GenerationEngine.reprime``)."""
         super().reprime()
-        self._draft_graph = StepGraph(self._draft_body, self.device)
-        self._verify_graph = StepGraph(self._verify_body, self.device)
+        self._draft_graph = StepGraph(self._draft_body, self.device,
+                                      graph=self._graphs)
+        self._verify_graph = StepGraph(self._verify_body, self.device,
+                                       graph=self._graphs)
 
     # ------------------------------------------------------------ decode --
+    @leader_call
     def decode_step_spec(self):
         """One speculative iteration over all slots: the draft round, the
         verify, exact acceptance. Returns per-slot lists of emitted tokens
@@ -482,14 +546,18 @@ class DraftVerifyEngine(GenerationEngine):
         n_active = int(active.sum())
         if n_active == 0:
             raise RuntimeError("decode_step_spec with no active slots")
-        if _faults.ACTIVE:
+        if _faults.ACTIVE and self._link is None:
             self._fire_decode_faults()
         K = self.draft_k
         rt0 = _tracing.clock() if _tracing.enabled() else 0.0
         with _registry.time_block("decode_step", scope="serving"):
             self._prepare_fast((self._draft_graph, self._verify_graph))
             self._draft_graph()
-            if _faults.ACTIVE and _faults.fire("draft_garbage"):
+            if self._link is not None:  # the leader's decision
+                garbage = self._link.faults.get("draft_garbage", False)
+            else:
+                garbage = _faults.ACTIVE and _faults.fire("draft_garbage")
+            if garbage:
                 # a worst-case-wrong drafter: every proposal replaced by a
                 # constant; the verify must reject them without changing a
                 # token (the drafter's own KV rows are overwritten by the
@@ -570,12 +638,27 @@ class DraftVerifyEngine(GenerationEngine):
         r = _counters["spec_slot_rounds"]
         return _counters["spec_emitted"] / r if r else 0.0
 
+    def describe_sharding(self):
+        """``GenerationEngine.describe_sharding`` with the drafter's pools
+        (``"draft": true``) and kernel."""
+        desc = super().describe_sharding()
+        desc["kv_pools"] += [
+            dict(rec, pool=f"draft_{rec['pool']}")
+            for rec in self._pool_records(self._dkv, self._draft_sharded,
+                                          draft=True)]
+        desc["draft_paged_kernel"] = self._draft_kernel
+        desc["draft_kernel_sharded"] = self._draft_sharded
+        return desc
+
     def stats(self):
-        return {**super().stats(),
-                "draft_paged_kernel": self._draft_kernel,
-                "draft_paged_kernel_reason": self._draft_kernel_reason,
-                "draft_k": self.draft_k,
-                "acceptance_rate": self.acceptance_rate(),
-                "accepted_len_mean": self.accepted_len_mean(),
-                "draft_kv_blocks_total": self.draft_pool.usable_blocks,
-                "draft_kv_blocks_in_use": self.draft_pool.in_use()}
+        out = {**super().stats(),
+               "draft_paged_kernel": self._draft_kernel,
+               "draft_paged_kernel_reason": self._draft_kernel_reason,
+               "draft_k": self.draft_k,
+               "acceptance_rate": self.acceptance_rate(),
+               "accepted_len_mean": self.accepted_len_mean(),
+               "draft_kv_blocks_total": self.draft_pool.usable_blocks,
+               "draft_kv_blocks_in_use": self.draft_pool.in_use()}
+        if self._mesh is not None:
+            out["draft_kernel_sharded"] = self._draft_sharded
+        return out

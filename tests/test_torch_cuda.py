@@ -896,6 +896,106 @@ def test_two_gloo_ranks_on_the_card_all_reduce_and_refuse_the_graph(
         assert staged in (0, 1)
 
 
+# -------------------------------------------- serving on a mesh (mp = 2) --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 5])
+def test_paged_kernel_per_shard_equals_the_whole_kernels_heads(cuda, dtype,
+                                                               T):
+    """K4 on rank r's contiguous heads of a head-sharded pool: bitwise the
+    whole kernel's output on those heads (each head is computed on its
+    own; the split chunk does not depend on the head count)."""
+    g = torch.Generator().manual_seed(T)
+    B, H, Dh, bs, M = 4, 8, 64, 16, 40
+    Nb = 1 + B * M
+    q = torch.randn(B, T, H, Dh, generator=g).to(cuda, dtype)
+    kp = torch.randn(Nb, bs, H, Dh, generator=g).to(cuda, dtype)
+    vp = torch.randn(Nb, bs, H, Dh, generator=g).to(cuda, dtype)
+    bt = (torch.randperm(Nb - 1, generator=g) + 1).view(B, M).to(
+        cuda, torch.int32)
+    sl = torch.tensor([600, 9, 257, 33], dtype=torch.int32, device=cuda)
+    qo = (sl - T).clamp(min=0)
+    whole = pa.paged_attention(q, kp, vp, bt, sl, qo)
+    for r in range(2):
+        heads = slice(r * H // 2, (r + 1) * H // 2)
+        part = pa.paged_attention(
+            *(x[:, :, heads].contiguous() for x in (q, kp, vp)), bt, sl, qo)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, :, heads])
+
+
+def _rank_mesh_decode(prompts):
+    import torch
+    from paddle_tpu_torch.distributed import spmd
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine
+
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+
+    dev = torch.device("cuda", 0)
+    cfg = GPTConfig(vocab_size=512, n_layer=2, n_head=4, d_model=256,
+                    seq_len=256, initializer_range=0.2)
+    model = GPTForPretraining(GPTModel(
+        cfg, device=dev, generator=torch.Generator(dev).manual_seed(0)))
+    mesh = spmd.serving_mesh(2)
+    c0 = dict(registry.counters("serving"))
+    eng = GenerationEngine(model, max_batch_size=2, rng_seed=3,
+                           block_size=16, device=dev, mesh=mesh)
+    if mesh.rank:
+        eng.follow()
+        out = None
+    else:
+        try:
+            out = []
+            for i, p in enumerate(prompts):
+                toks = [eng.prefill(0, p, seed=i, temperature=0.8 * i)]
+                while len(toks) < 12:
+                    toks.append(int(eng.decode_step()[0]))
+                eng.release(0)
+                out.append(toks)
+        finally:
+            eng.close()
+    c1 = registry.counters("serving")
+    st = eng.stats()
+    return out, st["decode_graph"], st["decode_graph_reason"], {
+        k: c1[k] - c0.get(k, 0) for k in ("decode_compiles",
+                                          "prefill_compiles",
+                                          "uncaptured_steps")}
+
+
+def test_mp2_decode_over_gloo_on_the_card_equals_one_engine(cuda, tmp_path):
+    """Two ranks on cuda:0 over gloo serve a 2-layer float32 model at mp =
+    2, greedy and sampled: rank 0's tokens equal one engine's on the
+    card, bitwise. The gloo route is decided at build and reported: no
+    graph is captured, every step body runs uncaptured and is counted."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch.testing.world import World
+
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (20, 37)]
+    single = GenerationEngine(_tiny_gpt(cuda, 2, 0), max_batch_size=2,
+                              rng_seed=3, block_size=16, device=cuda)
+    want = []
+    for i, p in enumerate(prompts):
+        toks = [single.prefill(0, p, seed=i, temperature=0.8 * i)]
+        while len(toks) < 12:
+            toks.append(int(single.decode_step()[0]))
+        single.release(0)
+        want.append(toks)
+    world = World(2, tmp_path, timeout=120, device="cuda:0", backend="gloo")
+    try:
+        got = world.run(_rank_mesh_decode, prompts)
+    finally:
+        world.close()
+    assert got[0][0] == want
+    for _, graph, why, moved in got:
+        assert graph is False and "gloo" in why
+        assert moved["decode_compiles"] == moved["prefill_compiles"] == 0
+        assert moved["uncaptured_steps"] == 2 * 11 + 2  # decodes, prefills
+
+
 # ------------------------------------------- Model.fit, AMP, GradScaler --
 def test_fit_under_o1_runs_the_bf16_kernels_through_one_graph(cuda):
     """hapi.Model.fit on a float32 model under O1, fed by a DataLoader with
