@@ -119,7 +119,10 @@ Phases, in order; any failure exits non-zero:
              inputs at the step's shape and at bf16 H=128, T=2048, the
              outputs bitwise equal (K1, K2 and K3); then each timed at the
              step's shape beside its plain version, one library call and
-             its bound;
+             its bound; and the encoder path's non-causal instances
+             (bf16 at 16 x 12 heads x 512, float32 at 16 x 12 x 128, head
+             dim 64) held to their plain versions and timed the same way,
+             SDPA with is_causal=False beside them;
  7. training gpt3-1.3B in bf16 (full width and depth, random weights from
              a seed) trains through TrainStep + AdamW with master weights,
              batch 4 x 2048, on one batch: 3 steps of the same step_fn in
@@ -264,6 +267,32 @@ Phases, in order; any failure exits non-zero:
              mid-flight, no request failed, tokens equal to a single-card
              engine swapped at the same step; a single-card prefill's
              export imported, continuing token for token.
+14. bert     bert-base pretraining as tools/model_bench.py:73-107 runs it
+             (BertForPretraining, BertPretrainingCriterion(30522),
+             AdamW(1e-4), dropout 0.1, one batch of 16 x 128 random ids
+             that are the MLM labels too, no padding mask), float32,
+             through TrainStep's CUDA graph, 10 steps: the loss finite and
+             falling, one capture, K1, K2 and K3 launched 12 times a step
+             on the card's count, all on the float32 instance and
+             non-causal, no plain attention; p50 step, tokens/s, MFU
+             (against 67 TFLOP/s float32) and peak memory. Run after 11c
+             and before the distributed phases, on the one card;
+14b.         the same in bf16 (bf16 parameters, float32 master weights) at
+             16 x 512, the preset's full 512 positions: the Hopper
+             instances of K1-K3, non-causal;
+14c. bert parity  bert-base width at 2 layers, dropout 0, float32 and
+             bf16: the kernel route against the plain route (MLM logits,
+             loss, every gradient) within FLASH_PARITY_TOL; a padded batch
+             takes the plain route with a kernel_fallback per layer naming
+             the mask and no K1-K3 launch on the card;
+             memory_efficient_attention with no bias, LowerTriangularMask
+             and a tensor bias against its plain version, and a
+             FusedTransformerEncoderLayer forward and backward against its
+             plain route;
+14d. ernie   ErnieForSequenceClassification(ernie_3p0_medium(), 3) in eval
+             mode, bf16, 16 x 128: 6 K1 launches a forward and no K2 or
+             K3 on the card's count, the logits within FLASH_PARITY_TOL of
+             the plain route's; p50 forward and samples/s.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -274,7 +303,8 @@ from device memory and not from L2; "warm_ms" is K4 on one copy.
 Every K4 row's "launches" is what the card counted for the row's instance
 over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
 one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
-the verify row, phase 7's graph replays for K1-K3, each counted on the
+the verify row, phase 7's graph replays for K1-K3 (phases 14 and 14b's
+for their non-causal float32 and bf16 rows), each counted on the
 card by the kernel itself; "launches_by_path" adds the MoE paths' windows
 (9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance) and phase
 10's launches per step by policy. The per-shard row's are phase 13's
@@ -290,6 +320,7 @@ the repository beside it, it prints no result and exits 2.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 import gc
 import json
@@ -313,6 +344,15 @@ REPO = Path(__file__).resolve().parent
 # operand type (a card set to a lower power limit runs slower under load)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# the encoder path's non-causal instances at bert-base's shapes (phases
+# 14 and 14b): B x 12 heads x head_dim 64, bf16 at the preset's full 512
+# positions, float32 at the reference benchmark's 128
+NONCAUSAL_SHAPES = {torch.bfloat16: (16, 512, 12, 64),
+                    torch.float32: (16, 128, 12, 64)}
+# the rate each instance's operations are held to: bf16 on the tensor
+# cores (dense), float32 on the FMA units (TF32 stays off)
+PEAK_NAMES = {torch.bfloat16: "989 TFLOP/s bf16 tensor cores, dense",
+              torch.float32: "67 TFLOP/s float32 FMA (TF32 off)"}
 # the MoE layout of phases 9-9c: GShard's top-2 in every other FFN
 # (Lepikhin et al. 2020, arXiv:2006.16668 section 2), with the reference's
 # defaults for k and the capacity factor
@@ -868,6 +908,67 @@ def flash_repeat_check(dev, B, T, N, H, seed=11):
                 f"same inputs differ in {int((a != b).sum())} elements")
 
 
+def flash_timings(q, k, v, do, causal):
+    """K1, K2 and K3 on these inputs timed beside their plain versions, one
+    library call and their bounds: ``{kernel: {"ms", "kernel_ms",
+    "eager_ms", "plain_ms", "bound_ms", "bound_by", "bound_rate",
+    "bound_share", "library_ms", "library_call"}}``. The kernel's "ms" is
+    the lower of two device-time readings. The library yardstick is SDPA
+    in its own ``[B, N, T, H]`` layout: its forward for K1, its whole
+    backward (dq, dk and dv together, eagerly through autograd: at 0.2-0.6
+    ms the host's share of one call is small) for K2 and K3."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    F = torch.nn.functional
+    B, T, N, H = q.shape
+    out, lse = fa.flash_fwd(q, k, v, causal)
+    delta = fa.flash_delta(out, do)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                      lambda: fa.flash_fwd_ref(q, k, v, causal)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+            lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal)),
+    }
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_()
+                       for x in (q, k, v, do))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    library = {
+        "flash_fwd": device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal), calls=10, replays=2),
+        "bwd": cuda_ms(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot.detach(), retain_graph=True),
+            iters=20)}
+    tag = f"{str(q.dtype)[6:]} B*N={B * N} T={T} H={H} " + (
+        "causal" if causal else "non-causal")
+    rows = {}
+    for name, (kern, plain) in calls.items():
+        ms = device_ms(kern, calls=10, replays=2)
+        eager_ms = cuda_ms(kern, iters=20)
+        plain_ms = cuda_ms(plain, iters=3)
+        ms2 = device_ms(kern, calls=10, replays=2)
+        bound_ms, bound_by = flash_bound(name, q, causal)
+        lib_ms = library.get(name, library["bwd"])
+        log(f"kernels (training): {name} {tag}: kernel {ms:.4f} / "
+            f"{ms2:.4f} ms (device time, CUDA graph), {eager_ms:.4f} ms "
+            f"called eagerly; plain {plain_ms:.4f} ms, library "
+            f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{PEAK_NAMES[q.dtype]})")
+        rows[name] = {
+            "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_rate": PEAK_NAMES[q.dtype],
+            "bound_share": bound_ms / min(ms, ms2), "library_ms": lib_ms,
+            "library_call": f"scaled_dot_product_attention(is_causal="
+            f"{causal}) " + ("forward" if name == "flash_fwd"
+                             else "backward (dq, dk and dv together)")}
+    return rows
+
+
 def phase_flash_kernels(dev):
     from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -895,7 +996,6 @@ def phase_flash_kernels(dev):
     # the training step's shape, on the unbind views of a fused projection:
     # held to the plain versions, then timed
     B, T, N, H = STEP_SHAPE
-    F = torch.nn.functional
     q, k, v, do = flash_case(dev, torch.bfloat16, B, T, N, H, seed=9,
                              strided=True)
     res = flash_case_errors(q, k, v, do, True)
@@ -917,44 +1017,8 @@ def phase_flash_kernels(dev):
     log(f"kernels (training): K1-K3 repeat bitwise on the same inputs, bf16 "
         f"causal, [B, T, N, H] in {REPEAT_SHAPES}")
 
-    out, lse = fa.flash_fwd(q, k, v, True)
-    delta = fa.flash_delta(out, do)
-    calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, True),
-                      lambda: fa.flash_fwd_ref(q, k, v, True)),
-        "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True),
-            lambda: fa.flash_bwd_dq_ref(q, k, v, do, lse, delta, True)),
-        "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True),
-            lambda: fa.flash_bwd_dkv_ref(q, k, v, do, lse, delta, True)),
-    }
-    # the library yardstick: SDPA in its own [B, N, T, H] layout, forward
-    # for K1, its whole backward for K2 + K3 together
-    qt, kt, vt, dot = (x.transpose(1, 2).contiguous().requires_grad_()
-                       for x in (q, k, v, do))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    # (the backward through autograd, eagerly: at 0.6 ms the host's share
-    # of one call is small)
-    library = {
-        "flash_fwd": device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True), calls=10, replays=2),
-        "bwd": cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot.detach(), retain_graph=True),
-            iters=20)}
     rows = {}
-    for name, (kern, plain) in calls.items():
-        ms = device_ms(kern, calls=10, replays=2)
-        eager_ms = cuda_ms(kern, iters=20)
-        plain_ms = cuda_ms(plain, iters=3)
-        ms2 = device_ms(kern, calls=10, replays=2)
-        bound_ms, bound_by = flash_bound(name, q, causal=True)
-        lib_ms = library.get(name, library["bwd"])
-        log(f"kernels (training): {name} bf16 B*N={B * N} T={T} H={H} "
-            f"causal: kernel {ms:.4f} / {ms2:.4f} ms (device time, CUDA "
-            f"graph), {eager_ms:.4f} ms called eagerly; plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+    for name, row in flash_timings(q, k, v, do, True).items():
         rows[name] = {
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_KERNELS[name][0], "max_abs_err": max_err[name],
@@ -963,14 +1027,42 @@ def phase_flash_kernels(dev):
             "max_rel_err": {d: r[name] for d, r in max_rel.items()},
             "rel_bound": {str(d)[6:]: t
                           for d, t in fa.FLASH_PARITY_REL.items()},
-            "ms": min(ms, ms2), "kernel_ms": min(ms, ms2),
-            "eager_ms": eager_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_share": bound_ms / min(ms, ms2), "design": DESIGNS[name],
-            "library_ms": lib_ms,
-            "library_call": "scaled_dot_product_attention(is_causal=True) "
-            + ("forward" if name == "flash_fwd"
-               else "backward (dq, dk and dv together)")}
+            **row, "design": DESIGNS[name]}
+    for dtype, shape in NONCAUSAL_SHAPES.items():
+        rows.update(noncausal_rows(dev, dtype, shape))
+    return rows
+
+
+def noncausal_rows(dev, dtype, shape):
+    """K1-K3's non-causal instances at ``shape`` ([B, T, N, H] of q, on
+    the unbind views of a fused projection, as the encoder's projections
+    hand them over): each held to its plain version (FLASH_PARITY_TOL,
+    FLASH_PARITY_REL), then timed (``flash_timings``). Rows named
+    ``<kernel>_noncausal_<dtype>``."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    B, T, N, H = shape
+    tag = str(dtype)[6:]
+    q, k, v, do = flash_case(dev, dtype, B, T, N, H, seed=13, strided=True)
+    res = flash_case_errors(q, k, v, do, False)
+    check_flash_case(res, dtype, f"{tag} non-causal B*N={B * N} T={T} "
+                     f"H={H}")
+    rows = {}
+    for name, row in flash_timings(q, k, v, do, False).items():
+        errs = [e for o, (e, _, _) in res.items() if o.split()[0] == name]
+        rels = [r for o, (_, _, r) in res.items()
+                if o.split()[0] == name and r is not None]
+        log(f"kernels (training): {name} {tag} non-causal against its plain "
+            f"version: max |err| {max(errs):.3e}, relative "
+            f"{max(rels):.3e}")
+        row_name = f"{name}_noncausal_{tag}"
+        rows[row_name] = {
+            "name": row_name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_KERNELS[name][0], "max_abs_err": max(errs),
+            "tolerance": list(fa.FLASH_PARITY_TOL[dtype]),
+            "max_rel_err": max(rels), "rel_bound": fa.FLASH_PARITY_REL[dtype],
+            "shape": [B, T, N, H], "causal": False, **row,
+            "design": DESIGNS[name]}
     return rows
 
 
@@ -4181,6 +4273,391 @@ def phase_legacy_cache(dev, preset="gpt3-1.3B", n_layer=2, n_tokens=16):
     return {"tokens": n_tokens, "equal": True}
 
 
+# ------------------------------------------------ encoder models (14-14d) --
+def bert_flops_per_token(cfg, seq_len, training=True, lm_head=True):
+    """Model FLOPs per token, in ``GPTConfig.flops_per_token``'s accounting:
+    2 per weight of every matmul a token passes through (each layer's q, k,
+    v, out and FFN; with ``lm_head`` the head's transform and the tied
+    decoder; the pooler and the NSP or classifier head act on one token of
+    a sequence and are left out), 4 * d * T per layer for the scores and
+    the values (non-causal: every pair), and 3 forwards for a training
+    step."""
+    d, L = cfg.hidden_size, cfg.num_hidden_layers
+    weights = L * (4 * d * d + 2 * d * cfg.intermediate_size)
+    if lm_head:
+        weights += d * d + cfg.vocab_size * d
+    fwd = 2 * weights + 4 * L * d * seq_len
+    return 3 * fwd if training else fwd
+
+
+def bert_model(dev, dtype="float32", seed=0, dropout=True, attn_kernel=None,
+               **cfg_over):
+    """``BertForPretraining(bert_base(...))`` (random weights from ``seed``,
+    the preset's dropout of 0.1 unless ``dropout`` is False), cast to
+    ``dtype``. Returns ``(cfg, model)``."""
+    from paddle_tpu_torch.models.bert import BertForPretraining, bert_base
+
+    if not dropout:
+        cfg_over.update(hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    bert = bert_base(device=dev, attn_kernel=attn_kernel,
+                     generator=torch.Generator(device=dev).manual_seed(seed),
+                     **cfg_over)
+    model = BertForPretraining(bert)
+    if dtype == "bfloat16":
+        model.to(torch.bfloat16)
+    return bert.cfg, model
+
+
+def bert_batch(dev, vocab, batch, seq_len, seed=0):
+    """The reference benchmark's batch (``tools/model_bench.py:92-96``):
+    random ids from a seeded numpy generator, which are the MLM labels too,
+    and NSP labels of 0."""
+    ids = np.random.default_rng(seed).integers(0, vocab, (batch, seq_len))
+    return (torch.from_numpy(ids).to(dev),
+            torch.zeros(batch, 1, dtype=torch.int64, device=dev))
+
+
+def fallbacks_since(seq):
+    from paddle_tpu_torch.profiler import explainer
+
+    return [e for e in explainer.events(kind="kernel_fallback")
+            if e["seq"] > seq]
+
+
+def last_event_seq():
+    from paddle_tpu_torch.profiler import explainer
+
+    evs = explainer.events()
+    return evs[-1]["seq"] if evs else 0
+
+
+def bert_training_setup(dev, dtype="float32", batch=16, seq_len=128,
+                        seed=0):
+    """Phase 14's step: ``bert_model`` in ``dtype`` (bf16: bf16 parameters,
+    float32 master weights), ``BertPretrainingCriterion``, ``AdamW(1e-4)``
+    under ``TrainStep`` and ``bert_batch``. Returns ``(cfg, model, opt,
+    train, ids, nsp)``; ``train(ids, nsp)`` is one step (eager, then
+    capture, then replays), ``train.step_fn(ids, nsp)`` the same step
+    run eagerly."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.bert import BertPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg, model = bert_model(dev, dtype, seed=seed)
+    opt = AdamW(learning_rate=1e-4, multi_precision=dtype == "bfloat16",
+                parameters=model.parameters())
+    crit = BertPretrainingCriterion(cfg.vocab_size)
+    ids, nsp = bert_batch(dev, cfg.vocab_size, batch, seq_len, seed=seed)
+
+    def step_fn(ids, nsp):
+        scores, rel = model(ids)
+        loss = crit(scores, rel, ids, nsp)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return cfg, model, opt, TrainStep(step_fn, model, opt), ids, nsp
+
+
+def phase_bert_pretraining(dev, dtype="float32", batch=16, seq_len=128,
+                           steps=10):
+    """14 / 14b: bert-base pretraining as the reference benchmarks it
+    (``tools/model_bench.py:73-107``: ``BertForPretraining(bert_base())``,
+    ``BertPretrainingCriterion(30522)``, ``AdamW(1e-4)``, one fixed batch,
+    dropout 0.1, no padding mask) through ``TrainStep``'s CUDA graph in
+    ``dtype`` (bf16: bf16 parameters, float32 master weights): ``steps``
+    calls (eager, capture and replay, then timed replays). Checks: the
+    loss finite and falling; one capture; K1, K2 and K3 launched once per
+    layer per step on the card's count over the timed replays, all on the
+    ``dtype`` instance, non-causal; no plain attention and no
+    ``kernel_fallback``. Reports the p50 step (host clock, each step
+    synchronised), tokens/s, MFU against ``dtype``'s peak and peak
+    memory."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    t0 = time.perf_counter()
+    cfg, model, opt, train, ids, nsp = bert_training_setup(
+        dev, dtype, batch, seq_len)
+    bf16 = dtype == "bfloat16"
+    build_s = time.perf_counter() - t0
+    registry.reset("jit")
+    seq0 = last_event_seq()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(train(ids, nsp)) for _ in range(2)]
+    torch.cuda.synchronize()
+    registry.reset("kernels")
+    fa.reset_device_launches()
+    step_s = []
+    for _ in range(steps - 2):
+        t1 = time.perf_counter()
+        losses.append(float(train(ids, nsp)))
+        step_s.append(time.perf_counter() - t1)
+    counts = fa.device_launches()
+    py = fa.launches()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    jit = dict(registry.counters("jit"))
+    L, n = cfg.num_hidden_layers, steps - 2
+    other = "float32" if bf16 else "bfloat16"
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"bert {dtype}: losses {losses} are not finite "
+                             "and falling")
+    if model.bert.attn_kernel != "cuda":
+        raise AssertionError(f"bert {dtype}: route "
+                             f"{model.bert.attn_kernel!r} on the card")
+    if jit["train_step_captures"] != 1 or jit["train_step_eager"] != 1:
+        raise AssertionError(f"bert {dtype}: TrainStep counters {jit}")
+    for name in FLASH_KERNELS:
+        if counts["by_dtype"][dtype][name] != n * L or \
+                counts["by_dtype"][other][name]:
+            raise AssertionError(
+                f"bert {dtype}: the card counted {counts['by_dtype']} "
+                f"launches over {n} replays, want {n} x {L} {name} on the "
+                f"{dtype} instance and none on {other}")
+    fb = fallbacks_since(seq0)
+    if any(py.values()) or fb:
+        raise AssertionError(f"bert {dtype}: replays moved the Python "
+                             f"counters {py} or fell back: {fb[-2:]}")
+    p50 = sorted(step_s)[math.ceil(len(step_s) / 2) - 1]
+    tokens = batch * seq_len
+    flops = bert_flops_per_token(cfg, seq_len) * tokens
+    peak = PEAK_FLOPS[torch.bfloat16 if bf16 else torch.float32]
+    result = {"dtype": dtype, "batch": batch, "seq_len": seq_len,
+              "n_layer": L, "steps": steps, "build_s": build_s,
+              "step_p50_ms": p50 * 1e3,
+              "step_ms": [round(s * 1e3, 3) for s in step_s],
+              "tokens_per_s": tokens / p50, "mfu": flops / p50 / peak,
+              "mfu_peak": PEAK_NAMES[torch.bfloat16 if bf16
+                                     else torch.float32],
+              "flops_per_step": flops, "losses": losses,
+              "peak_memory_gb": peak_gb, "train_step": jit,
+              "launches": {k: counts["by_dtype"][dtype][k]
+                           for k in FLASH_KERNELS}}
+    log(f"bert pretraining ({dtype}): " + json.dumps(result))
+    del train, opt, model
+    free_memory()
+    return result
+
+
+# bf16 gradients of the kernel route against the plain route, relative in
+# norm per parameter: phase 8's bound for two layers (the routes round P
+# and dS, and the scores and probabilities, to bf16 in different places)
+BF16_GRAD_REL = 5e-2
+
+
+def phase_bert_parity(dev, n_layer=2, batch=4, seq_len=256):
+    """14c at bert-base width and ``n_layer`` layers, dropout 0: for float32
+    and bf16, one model on the kernel route and its copy on the plain
+    route: the MLM logits and the loss within FLASH_PARITY_TOL, every
+    gradient too in float32 and, in bf16, within ``BF16_GRAD_REL`` of the
+    plain route's in norm. Then, on the kernel route in float32, a padded batch
+    (a 2-D mask): the plain route taken, one ``kernel_fallback`` per layer
+    naming the mask, K1-K3 not launched on the card's count;
+    ``memory_efficient_attention`` with no bias, ``LowerTriangularMask``
+    and a tensor bias against its plain version (output and gradients);
+    a ``FusedTransformerEncoderLayer`` forward and backward against its
+    plain route."""
+    from paddle_tpu_torch.incubate import nn as inc
+    from paddle_tpu_torch.models.bert import BertPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    report = {}
+    for dtype in ("float32", "bfloat16"):
+        tol = fa.FLASH_PARITY_TOL[getattr(torch, dtype)]
+        models = [bert_model(dev, dtype, seed=1, dropout=False,
+                             attn_kernel=k, num_hidden_layers=n_layer)
+                  for k in ("cuda", "torch")]
+        cfg = models[0][0]
+        crit = BertPretrainingCriterion(cfg.vocab_size)
+        ids, nsp = bert_batch(dev, cfg.vocab_size, batch, seq_len, seed=1)
+        registry.reset("kernels")
+        outs = []
+        for _, m in models:
+            scores, rel = m(ids)
+            loss = crit(scores, rel, ids, nsp)
+            loss.backward()
+            outs.append((scores.detach(), loss.detach()))
+        err = {"logits": check_close(outs[0][0], outs[1][0], tol,
+                                     f"bert parity {dtype} logits"),
+               "loss": check_close(outs[0][1], outs[1][1], tol,
+                                   f"bert parity {dtype} loss"),
+               "grad": 0.0}
+        plain = dict(models[1][1].named_parameters())
+        for name, p in models[0][1].named_parameters():
+            want = plain[name].grad
+            # k_proj's bias has no gradient in exact arithmetic (softmax
+            # ignores a shift shared by every key): both routes give
+            # rounding noise there, held elementwise
+            if dtype == "float32" or name.endswith("k_proj.bias"):
+                err["grad"] = max(err["grad"], check_close(
+                    p.grad, want, tol, f"bert parity {dtype} grad {name}"))
+                continue
+            # bf16: a weight's gradient sums the whole batch's rounded
+            # terms, so it is held in norm (phase 8's bound)
+            g = p.grad.float()
+            rel = float((g - want.float()).norm() / want.float().norm())
+            if not torch.isfinite(g).all() or not rel <= BF16_GRAD_REL:
+                raise AssertionError(f"bert parity bf16 grad {name}: "
+                                     f"relative error {rel:.3e} in norm "
+                                     f"(bound {BF16_GRAD_REL})")
+            err["grad"] = max(err["grad"], rel)
+        counts = fa.launches()
+        if counts["flash_fwd"] != n_layer or \
+                counts["flash_bwd_dkv"] != n_layer or \
+                counts["flash_attention_ref"] != n_layer:
+            raise AssertionError(f"bert parity {dtype}: routes not taken: "
+                                 f"{counts}")
+        report[dtype] = err
+        del models, outs
+        free_memory()
+
+    # a padded batch on the kernel route: the plain route, recorded
+    cfg, model = bert_model(dev, "float32", seed=1, dropout=False,
+                            num_hidden_layers=n_layer)
+    ids, nsp = bert_batch(dev, cfg.vocab_size, batch, seq_len, seed=2)
+    mask = torch.ones_like(ids)
+    mask[:, seq_len // 2:] = 0
+    torch.cuda.synchronize()
+    registry.reset("kernels")
+    fa.reset_device_launches()
+    seq0 = last_event_seq()
+    scores, rel = model(ids, attention_mask=mask)
+    BertPretrainingCriterion(cfg.vocab_size)(scores, rel, ids,
+                                             nsp).backward()
+    torch.cuda.synchronize()
+    fb = fallbacks_since(seq0)
+    dev_counts = flash_device_counts()
+    if any(dev_counts.values()) or \
+            fa.launches()["flash_attention_ref"] != n_layer or \
+            len(fb) != n_layer or \
+            not all("attn_mask" in e["why"] for e in fb):
+        raise AssertionError(f"bert parity: a padded batch launched "
+                             f"{dev_counts} on the card, fell back "
+                             f"{fb[-2:]} ({len(fb)})")
+    report["padding_mask_fallback"] = fb[0]["why"]
+    del model, scores, rel
+    free_memory()
+
+    # memory_efficient_attention and the fused encoder layer
+    B, T, N, H = batch, seq_len, cfg.num_attention_heads, 64
+    q, k, v, do = flash_case(dev, torch.float32, B, T, N, H, seed=3,
+                             strided=True)
+    bias = torch.randn(B, N, T, T, generator=torch.Generator(
+        device="cpu").manual_seed(4)).to(dev)
+    tol = fa.FLASH_PARITY_TOL[torch.float32]
+    mea = {}
+    for kind, attn_bias, mask, causal, launches in (
+            ("none", None, None, False, 1),
+            ("causal", inc.LowerTriangularMask(), None, True, 1),
+            ("tensor", bias, bias, False, 0)):
+        ins = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        ref_ins = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        registry.reset("kernels")
+        out = inc.memory_efficient_attention(*ins, attn_bias=attn_bias)
+        want = fa.flash_attention(*ref_ins, mask=mask, causal=causal,
+                                  kernel="torch")
+        out.backward(do)
+        want.backward(do)
+        got_k1 = fa.launches()["flash_fwd"]
+        if got_k1 != launches:
+            raise AssertionError(f"memory_efficient_attention {kind}: K1 "
+                                 f"launched {got_k1} times, want {launches}")
+        mea[kind] = max(check_close(a, b, tol, f"mea {kind} {what}")
+                        for a, b, what in (
+                            (out, want, "out"),
+                            *((g.grad, w.grad, f"grad {i}") for i, (g, w)
+                              in enumerate(zip(ins, ref_ins)))))
+    report["memory_efficient_attention"] = mea
+    layer = inc.FusedTransformerEncoderLayer(
+        cfg.hidden_size, N, cfg.intermediate_size, 0.0,
+        activation="gelu").to(dev)
+    plain = copy.deepcopy(layer)
+    plain.fused_attn.kernel = "torch"
+    x = torch.randn(B, T, cfg.hidden_size, generator=torch.Generator(
+        device="cpu").manual_seed(5)).to(dev)
+    registry.reset("kernels")
+    outs = []
+    for m in (layer, plain):
+        xi = x.clone().requires_grad_()
+        y = m(xi)
+        y.backward(torch.ones_like(y))
+        outs.append((y.detach(), xi.grad))
+    if fa.launches()["flash_fwd"] != 1 or \
+            fa.launches()["flash_bwd_dkv"] != 1:
+        raise AssertionError(f"fused layer: routes not taken "
+                             f"{fa.launches()}")
+    fused = max(check_close(outs[0][0], outs[1][0], tol, "fused out"),
+                check_close(outs[0][1], outs[1][1], tol, "fused dx"))
+    pgrads = dict(plain.named_parameters())
+    for name, p in layer.named_parameters():
+        if p.grad is not None:
+            fused = max(fused, check_close(p.grad, pgrads[name].grad, tol,
+                                           f"fused grad {name}"))
+    report["fused_encoder_layer"] = fused
+    log(f"bert parity: kernel vs plain route at bert-base width, {n_layer} "
+        f"layers, batch {batch} x {seq_len}, max |err| "
+        + json.dumps(report) + f" (FLASH_PARITY_TOL {fa.FLASH_PARITY_TOL})")
+    free_memory()
+    return report
+
+
+def phase_ernie_inference(dev, batch=16, seq_len=128, iters=20):
+    """14d: ``ErnieForSequenceClassification(ernie_3p0_medium(), 3)`` in
+    eval mode, bf16, batch ``batch`` x ``seq_len``: each forward launches
+    K1 once per layer (6) and never K2 or K3 on the card's count; the
+    logits within FLASH_PARITY_TOL of the same model on the plain route.
+    Reports the p50 forward (host clock, synchronised) and samples/s."""
+    from paddle_tpu_torch.models.ernie import (
+        ErnieForSequenceClassification, ernie_3p0_medium)
+    from paddle_tpu_torch.nn.layer.transformer import MultiHeadAttention
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    ernie = ernie_3p0_medium(
+        device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+    model = ErnieForSequenceClassification(ernie, 3).to(torch.bfloat16)
+    model.eval()
+    cfg = ernie.cfg
+    ids, _ = bert_batch(dev, cfg.vocab_size, batch, seq_len, seed=3)
+    with torch.no_grad():
+        model(ids)  # warm-up
+        torch.cuda.synchronize()
+        fa.reset_device_launches()
+        fwd_s = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            logits = model(ids)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+        counts = flash_device_counts()
+        L = cfg.num_hidden_layers
+        if counts != {"flash_fwd": iters * L, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}:
+            raise AssertionError(f"ernie: the card counted {counts} over "
+                                 f"{iters} forwards, want K1 {iters} x {L}")
+        for mod in model.modules():
+            if isinstance(mod, MultiHeadAttention):
+                mod.kernel = "torch"
+        plain = model(ids)
+    tol = fa.FLASH_PARITY_TOL[torch.bfloat16]
+    err = check_close(logits, plain, tol, "ernie logits kernel vs plain")
+    p50 = sorted(fwd_s)[math.ceil(iters / 2) - 1]
+    flops = bert_flops_per_token(cfg, seq_len, training=False,
+                                 lm_head=False) * batch * seq_len
+    result = {"batch": batch, "seq_len": seq_len, "n_layer": L,
+              "forward_p50_ms": p50 * 1e3, "samples_per_s": batch / p50,
+              "mfu": flops / p50 / PEAK_FLOPS[torch.bfloat16],
+              "launches_per_forward": counts["flash_fwd"] / iters,
+              "max_abs_err": err, "tolerance": list(tol)}
+    log("ernie inference (bf16): " + json.dumps(result))
+    del model, ernie
+    free_memory()
+    return result
+
+
 # ------------------------------------------------------------------ main --
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
                     r"_kernel(?:_sm90)?)I(\w*?)E+v")
@@ -5140,7 +5617,8 @@ def main():
     flash = timed("6 kernels (training)", phase_flash_kernels, dev)
     trained, model = timed("7 training", phase_training, dev)
     for name, row in flash.items():
-        row["launches"] = trained["launches"][name]
+        if name in FLASH_KERNELS:
+            row["launches"] = trained["launches"][name]
     followed = timed("7b train -> serve", phase_train_to_serve, dev, model,
                      step=trained["trained_steps"])
     del model
@@ -5157,6 +5635,25 @@ def main():
     fitted = timed("11 fit", phase_fit, dev, trained["step_ms"])
     resumed = timed("11b resume", phase_fit_resume, dev)
     fp16 = timed("11c fp16", phase_fp16_scaler, dev)
+    bert = timed("14 bert float32", phase_bert_pretraining, dev)
+    bert_bf16 = timed("14b bert bf16", phase_bert_pretraining, dev,
+                      "bfloat16", seq_len=512)
+    bert_parity = timed("14c bert parity", phase_bert_parity, dev)
+    ernie = timed("14d ernie inference", phase_ernie_inference, dev)
+    runs = {"bfloat16": ("14b", bert_bf16), "float32": ("14", bert)}
+    for name, row in flash.items():  # the encoder path's instances
+        if "_noncausal_" not in name:
+            continue
+        kern, dtype = name.split("_noncausal_")
+        phase, run = runs[dtype]
+        row["launches"] = run["launches"][kern]
+        row["launches_by_path"] = {
+            f"bert pretraining {dtype} (phase {phase}, "
+            f"{run['steps'] - 2} replays)": run["launches"][kern]}
+        if kern == "flash_fwd" and dtype == "bfloat16":
+            row["launches_by_path"]["ernie inference (phase 14d, per "
+                                    "forward)"] = \
+                ernie["launches_per_forward"]
     world_dir = tempfile.mkdtemp(prefix="chip_smoke_world_")
     t0 = time.perf_counter()
     world = two_ranks(dev, world_dir)
@@ -5180,6 +5677,8 @@ def main():
                 f"mesh serving rank {r} (gloo, uncaptured)": n[shard]
                 for r, n in mesh["launches"].items()}
     for name, row in flash.items():
+        if name not in FLASH_KERNELS:
+            continue
         row["launches_by_path"] = {
             "training": trained["launches"][name],
             "fit (bf16 instance)": fitted["launches"][name],
@@ -5288,6 +5787,19 @@ def main():
         f"{resumed['nan_loss_losses']}; fp16 losses {fp16['losses']}, "
         f"scales {fp16['scales']}, fallback \"{fp16['fallback_why']}\", "
         f"inf step {json.dumps(fp16['inf_step'])}")
+    for run in (bert, bert_bf16):
+        log(f"bert pretraining on {smi}: bert-base {run['dtype']} batch "
+            f"{run['batch']} x {run['seq_len']} through TrainStep's graph: "
+            f"p50 step {run['step_p50_ms']:.2f} ms, "
+            f"{run['tokens_per_s']:.0f} tokens/s, MFU {run['mfu']:.4f} "
+            f"({run['mfu_peak']}), peak memory "
+            f"{run['peak_memory_gb']:.2f} GB; losses {run['losses'][0]:.4f}"
+            f" -> {run['losses'][-1]:.4f}; K1-K3 {run['launches']}")
+    log(f"ernie inference on {smi}: ernie-3.0-medium bf16 batch "
+        f"{ernie['batch']} x {ernie['seq_len']}: p50 forward "
+        f"{ernie['forward_p50_ms']:.2f} ms, {ernie['samples_per_s']:.0f} "
+        f"samples/s, K1 {ernie['launches_per_forward']:.0f} per forward; "
+        f"bert parity {json.dumps(bert_parity)}")
     r0 = dist["ranks"][0]
     peak = max(r["peak_memory_gb"] for r in dist["ranks"])
     staged = {k: v for k, v in r0["collective"].items() if "staged" in k}

@@ -10,10 +10,16 @@ give a port model's and optimizer's state in the reference's names and
 layout (what ``incubate.checkpoint`` writes).
 
 Name mapping: the reference's layer names are the port's module names, so
-names map one to one; a ``gpt.`` prefix (the reference's
-``GPTForPretraining`` saves its trunk under it) is accepted either way.
-Layout: the reference's Linear stores its weight ``[in, out]``, torch's
-``[out, in]``, so every 2-D weight of a Linear is transposed.
+names map one to one (GPT, BERT, ERNIE, the transformer and fused layers);
+a wrapper's trunk prefix (``gpt.``, ``bert.``, ``ernie.``: the reference's
+``GPTForPretraining``, ``BertForPretraining`` and
+``ErnieForSequenceClassification`` save their trunk under it) is accepted
+either way. Layout: the reference's Linear stores its weight ``[in, out]``,
+torch's ``[out, in]``, so every 2-D weight of a Linear is transposed; a
+fused layer's packed ``qkv_proj`` is one Linear whose output columns are
+``[3, heads, head_dim]`` in both packages, so the transpose is all it
+takes. A tied weight (BERT's LM head shares the word embeddings') is one
+parameter listed once, under the embeddings' name, in both packages.
 
 A model sharded for tensor parallelism (``fleet.distributed_model``:
 parameters carrying ``mp_shard``) takes a full reference state as this
@@ -47,6 +53,23 @@ def _leaf(v):
     return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
 
 
+# the trunk prefixes of the reference's model wrappers
+_TRUNK_PREFIXES = ("gpt.", "bert.", "ernie.")
+
+
+def _own_name(name, own):
+    """``name`` as ``own`` (a state dict's keys) spells it: with a trunk
+    prefix added or removed where only that form exists."""
+    if name in own:
+        return name
+    for prefix in _TRUNK_PREFIXES:
+        if name.startswith(prefix) and name[len(prefix):] in own:
+            return name[len(prefix):]
+        if prefix + name in own:
+            return prefix + name
+    return name
+
+
 def _linear_weight_names(model):
     return {f"{name}.weight" for name, mod in model.named_modules()
             if isinstance(mod, nn.Linear)}
@@ -56,12 +79,13 @@ def state_from_paddle_tpu(np_state, model):
     """``{name: tensor}`` for ``model`` from a reference state.
 
     ``np_state``: a dict of name -> array (or a path to a
-    ``paddle_tpu.framework.save`` pickle of one). Names may carry the
-    reference wrapper's ``gpt.`` prefix where ``model`` has none, or lack it
-    where ``model`` (a ``GPTForPretraining``) has it. Linear weights are
-    transposed to ``[out, in]`` and every array is cast to the dtype and
-    moved to the device of the parameter it fills. Raises ``KeyError`` for
-    a missing or an extra name and ``ValueError`` for a shape mismatch."""
+    ``paddle_tpu.framework.save`` pickle of one). Names may carry a
+    reference wrapper's trunk prefix (``gpt.``, ``bert.``, ``ernie.``)
+    where ``model`` has none, or lack it where ``model`` has it. Linear
+    weights are transposed to ``[out, in]`` and every array is cast to the
+    dtype and moved to the device of the parameter it fills. Raises
+    ``KeyError`` for a missing or an extra name and ``ValueError`` for a
+    shape mismatch."""
     if isinstance(np_state, (str, os.PathLike)):
         # only for checkpoints written by paddle_tpu.framework.save:
         # unpickling runs code, so never point this at foreign files
@@ -73,12 +97,7 @@ def state_from_paddle_tpu(np_state, model):
     own = dict(model.state_dict())
     src = {}
     for name, value in np_state.items():
-        if name not in own and name.startswith("gpt.") \
-                and name[len("gpt."):] in own:
-            name = name[len("gpt."):]
-        elif name not in own and "gpt." + name in own:
-            name = "gpt." + name
-        src[name] = value
+        src[_own_name(name, own)] = value
     missing = sorted(set(own) - set(src))
     extra = sorted(set(src) - set(own))
     if missing or extra:

@@ -1,5 +1,6 @@
 """Incubating modules of the port (counterpart of paddle_tpu/incubate/):
-the checkpoint engine."""
-from . import checkpoint  # noqa: F401
+the checkpoint engine, and ``incubate.nn``'s fused transformer layers and
+``memory_efficient_attention``."""
+from . import checkpoint, nn  # noqa: F401
 
-__all__ = ["checkpoint"]
+__all__ = ["checkpoint", "nn"]

@@ -50,7 +50,7 @@ from ..distributed.meta_parallel.mp_ops import (_c_identity, _c_lookup_table,
 from ..nn.moe import MoEMLP, validate_moe_config
 from ..ops.attention import (attention, output_dropout,
                              scaled_dot_product_attention)
-from ..ops.counter_rng import hashed_dropout
+from ..ops.counter_rng import hashed_dropout, new_key
 from ..ops.flash_attention import select_flash_kernel
 from ..ops.paged_attention import (paged_attention_route, paged_view,
                                    position_mask)
@@ -536,11 +536,7 @@ class GPTModel(nn.Module):
         if not self.training or (self.cfg.dropout <= 0.0
                                  and self.cfg.attn_dropout <= 0.0):
             return None
-        g = self.generator
-        key = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
-                            generator=g,
-                            device=g.device if g is not None else self.device)
-        return key.to(self.device), self.batch_shard
+        return new_key(self.device, self.generator), self.batch_shard
 
     @torch.no_grad()
     def _init_weights(self, generator):

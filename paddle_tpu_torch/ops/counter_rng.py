@@ -3,9 +3,11 @@ key and its index, so the same key gives the same bits on any device, in
 any order, in a replayed CUDA graph, and in a recomputation, without
 reading or advancing a generator's state.
 
-:func:`hashed_dropout` draws a dropout keep-mask this way; the GPT's
-training forwards use it (``models/gpt.py``), and ``serving/sampling.py``
-draws its Gumbel noise from the same mixer.
+:func:`hashed_dropout` draws a dropout keep-mask this way from a key of
+:func:`new_key`; the GPT's training forwards (``models/gpt.py``) and the
+Paddle-API ``Dropout`` layers (``nn/layer/common.py``: BERT, ERNIE) use
+it, and ``serving/sampling.py`` draws its Gumbel noise from the same
+mixer.
 """
 from __future__ import annotations
 
@@ -36,6 +38,14 @@ def mix32(x):
 def mix_pair(a, b):
     """Hash two 32-bit words into one."""
     return mix32(a ^ mix32((b + 0x9E3779B9) & MASK32))
+
+
+def new_key(device, generator=None):
+    """A dropout key: two 32-bit words as int64 on ``device``, drawn from
+    ``generator`` (None: torch's default generator of ``device``)."""
+    gdev = generator.device if generator is not None else device
+    return torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
+                         generator=generator, device=gdev).to(device)
 
 
 def hashed_dropout(x, p, key, site, row_shard=0, col_shard=(0, 1)):

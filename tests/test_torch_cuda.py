@@ -1088,3 +1088,102 @@ def test_float16_attention_takes_the_plain_route_and_says_why(cuda):
         assert fa.flash_attention(q, q, q, causal=True,
                                   kernel="cuda").dtype == torch.bfloat16
     assert fa.device_launches()["by_dtype"]["bfloat16"]["flash_fwd"] == 1
+
+
+# ------------------------------------------------------ the encoder path --
+def _bert_tiny(cuda, kernel=None, dropout=0.0, seed=0):
+    """bert_tiny (head_dim 64) with vocab 256 and its pretraining heads."""
+    from paddle_tpu_torch.models import bert as tbert
+
+    return tbert.BertForPretraining(tbert.bert_tiny(
+        device=cuda, attn_kernel=kernel, vocab_size=256,
+        hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
+        generator=torch.Generator(cuda).manual_seed(seed)))
+
+
+def _bert_batch(cuda, B=2, T=128):
+    g = torch.Generator().manual_seed(1)
+    ids = torch.randint(0, 256, (B, T), generator=g).to(cuda)
+    return ids, torch.zeros(B, 1, dtype=torch.int64, device=cuda)
+
+
+def test_bert_kernel_route_matches_its_plain_route(cuda):
+    # float32: the non-causal K1-K3 against plain attention, through two
+    # layers into the logits, the loss and every gradient
+    from paddle_tpu_torch.models import bert as tbert
+
+    tol = dict(zip(("atol", "rtol"), fa.FLASH_PARITY_TOL[torch.float32]))
+    models = [_bert_tiny(cuda, k) for k in ("cuda", "torch")]
+    ids, nsp = _bert_batch(cuda)
+    crit = tbert.BertPretrainingCriterion(256)
+    fa.reset_device_launches()
+    outs = []
+    for m in models:
+        scores, rel = m(ids)
+        loss = crit(scores, rel, ids, nsp)
+        loss.backward()
+        outs.append((scores.detach(), loss.detach()))
+    counts = fa.device_launches()["by_dtype"]["float32"]
+    assert counts == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    torch.testing.assert_close(outs[0][0], outs[1][0], **tol)
+    torch.testing.assert_close(outs[0][1], outs[1][1], **tol)
+    plain = dict(models[1].named_parameters())
+    for name, p in models[0].named_parameters():
+        torch.testing.assert_close(p.grad, plain[name].grad, **tol,
+                                   msg=name)
+
+
+def test_bert_padding_mask_takes_the_plain_route_and_says_why(cuda):
+    from paddle_tpu_torch.profiler import explainer
+
+    model = _bert_tiny(cuda)
+    ids, _ = _bert_batch(cuda)
+    mask = torch.ones_like(ids)
+    mask[1, 100:] = 0
+    torch.cuda.synchronize()
+    fa.reset_device_launches()
+    seq0 = explainer.events()[-1]["seq"] if explainer.events() else 0
+    model(ids, attention_mask=mask)[0].sum().backward()
+    why = [e for e in explainer.events(kind="kernel_fallback")
+           if e["seq"] > seq0]
+    assert len(why) == 2 and all("attn_mask" in e["why"] for e in why)
+    counts = fa.device_launches()
+    assert counts["flash_fwd"] == counts["flash_bwd_dq"] == \
+        counts["flash_bwd_dkv"] == 0
+
+
+def test_bert_train_step_with_dropout_equals_the_eager_loop(cuda):
+    # the dropout key is drawn on the card from the model's generator,
+    # registered with the graph: replays draw the eager loop's keys
+    from paddle_tpu_torch import optimizer as topt
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import bert as tbert
+    from paddle_tpu_torch.profiler import registry
+
+    ids, nsp = _bert_batch(cuda)
+    crit = tbert.BertPretrainingCriterion(256)
+    runs = []
+    for graph in (True, False):
+        model = _bert_tiny(cuda, dropout=0.1)
+        opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+
+        def step_fn(ids, nsp, model=model, opt=opt):
+            scores, rel = model(ids)
+            loss = crit(scores, rel, ids, nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        registry.reset("jit")
+        step = TrainStep(step_fn, model, opt) if graph else step_fn
+        losses = [step(ids, nsp).detach() for _ in range(4)]
+        torch.cuda.synchronize()
+        if graph:
+            assert registry.counters("jit")["train_step_captures"] == 1
+        runs.append((losses, model))
+    (lg, mg), (le, me) = runs
+    assert all(torch.equal(a, b) for a, b in zip(lg, le))
+    assert len(set(float(x) for x in lg)) == 4
+    assert all(torch.equal(a, b) for a, b in zip(mg.parameters(),
+                                                 me.parameters()))

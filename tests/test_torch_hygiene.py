@@ -90,6 +90,20 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         flash_attention(q, q, q, causal=True, kernel="cuda")
 
 
+def test_encoder_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.models import (BertConfig, BertForPretraining,
+                                         BertModel, bert_base, bert_tiny,
+                                         ernie_3p0_medium, ernie_tiny)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (bert_tiny, ernie_tiny, bert_base, ernie_3p0_medium,
+                  lambda: BertModel(BertConfig.preset("bert-tiny"))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            build()
+    model = BertForPretraining(bert_tiny(device="cpu", vocab_size=64))
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
 def test_kernel_choice_never_demotes_quietly():
     from paddle_tpu_torch.ops.paged_attention import select_paged_kernel
 

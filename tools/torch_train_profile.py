@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where a GPT pretraining step of paddle_tpu_torch spends its time, through
-``TrainStep``'s CUDA graph and as the same step run eagerly.
+"""Where a GPT (or BERT) pretraining step of paddle_tpu_torch spends its
+time, through ``TrainStep``'s CUDA graph and as the same step run eagerly.
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_train_profile.py [--preset gpt3-1.3B] [--batch 4]
-        [--seq-len 2048] [--steps 2] [--route both|graph|eager|fit|all]
+        [--seq-len 2048] [--steps 2]
+        [--route both|graph|eager|fit|all|bert|bert-bf16]
         [--trace train_trace.json]
 
 Builds the training step of ``chip_smoke.py`` phase 7 through its
@@ -15,8 +16,12 @@ batch). The "fit" route is phase 11's step instead: ``hapi.Model
 .train_batch`` on the preset with float32 parameters under O1 (built by
 ``chip_smoke.fit_model``), its batch handed over as CPU tensors as the
 DataLoader hands it; "all" runs eager, graph and fit, one model at a
-time. Per route: 3 warm-up steps (for a graph: the eager call, the
-capture and a replay), 5 steps timed on the host clock, then ``--steps``
+time. "bert" and "bert-bf16" are ``chip_smoke.py`` phases 14 and 14b's
+step through the graph (``bert_training_setup``: bert-base float32 at
+16 x 128, bf16 at 16 x 512; ``--preset``, ``--batch`` and ``--seq-len``
+do not apply), run one after the other for "bert-both". Per route: 3
+warm-up steps (for a graph: the eager call, the capture and a replay), 5
+steps timed on the host clock, then ``--steps``
 more traced with ``torch.profiler``. Prints the card (nvidia-smi name and
 power limit), and per route the step time, the device-busy share of the
 traced window (union of kernel intervals over wall time), the kernels
@@ -139,7 +144,8 @@ def main():
     ap.add_argument("--seq-len", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--route", default="both",
-                    choices=("both", "graph", "eager", "fit", "all"))
+                    choices=("both", "graph", "eager", "fit", "all", "bert",
+                             "bert-bf16", "bert-both"))
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace of the window here")
     args = ap.parse_args()
@@ -147,13 +153,15 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import fit_model, free_memory, training_setup
+    from chip_smoke import (bert_training_setup, fit_model, free_memory,
+                            training_setup)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
-    order = {"both": ["eager", "graph"], "all": ["eager", "graph", "fit"]}
+    order = {"both": ["eager", "graph"], "all": ["eager", "graph", "fit"],
+             "bert-both": ["bert", "bert-bf16"]}
     order = order.get(args.route, [args.route])
 
     def bf16_routes():
@@ -174,17 +182,34 @@ def main():
                              generator=torch.Generator().manual_seed(0))
         return lambda: model.train_batch([toks[:, :-1]], toks[:, 1:])
 
+    def bert_route(dtype, seq_len):
+        """Phase 14's (float32) or 14b's (bf16) step, one model at a time."""
+        routes.clear()
+        free_memory()
+        _, _, _, train, ids, nsp = bert_training_setup(dev, dtype,
+                                                       seq_len=seq_len)
+        routes["bert_model"] = train
+        return lambda: train(ids, nsp)
+
+    shapes = {"bert": ("float32", "bert-base float32, batch 16 x 128"),
+              "bert-bf16": ("bfloat16", "bert-base bf16, batch 16 x 512")}
     print(f"card: {smi}")
     out = {"card": smi, "preset": args.preset, "batch": args.batch,
            "seq_len": args.seq_len}
     prof = None
     for route in order:
-        step = fit_route() if route == "fit" else routes[route]
+        if route in shapes:
+            step = bert_route(shapes[route][0],
+                              128 if route == "bert" else 512)
+            what = shapes[route][1]
+        else:
+            step = fit_route() if route == "fit" else routes[route]
+            kind = "float32 under O1" if route == "fit" else "bf16"
+            what = (f"{args.preset} {kind}, batch {args.batch} x "
+                    f"{args.seq_len}")
         res, prof = profile(step, args.steps)
         out[route] = res
-        kind = "float32 under O1" if route == "fit" else "bf16"
-        print(f"{args.preset} {kind}, batch {args.batch} x {args.seq_len}, "
-              f"{route}: step {res['step_ms']:.1f} ms (host clock, 5 "
+        print(f"{what}, {route}: step {res['step_ms']:.1f} ms (host clock, 5 "
               f"steps), device {res['device_ms_per_step']:.1f} ms, busy "
               f"{res['device_busy_share']:.1%}, "
               f"{res['kernels_per_step']:.0f} kernels / step, "
