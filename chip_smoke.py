@@ -349,10 +349,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # positions, float32 at the reference benchmark's 128
 NONCAUSAL_SHAPES = {torch.bfloat16: (16, 512, 12, 64),
                     torch.float32: (16, 128, 12, 64)}
-# the rate each instance's operations are held to: bf16 on the tensor
-# cores (dense), float32 on the FMA units (TF32 stays off)
+# the rate the flash kernels' operations are held to: bf16 on the tensor
+# cores (dense); float32 as split TF32, three TF32 products per float32
+# product on the tensor cores (dense), the least time float32-accurate work
+# can take on the card. PEAK_FLOPS keeps 67 TFLOP/s for float32: phase
+# 14's MFU reads it, and its GEMMs run on the FMA units (TF32 stays off).
+FLASH_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_NAMES = {torch.bfloat16: "989 TFLOP/s bf16 tensor cores, dense",
-              torch.float32: "67 TFLOP/s float32 FMA (TF32 off)"}
+              torch.float32: "3 TF32 products at 495 TFLOP/s, dense "
+                             "(split TF32)"}
 # the MoE layout of phases 9-9c: GShard's top-2 in every other FFN
 # (Lepikhin et al. 2020, arXiv:2006.16668 section 2), with the reference's
 # defaults for k and the capacity factor
@@ -367,36 +372,57 @@ FLASH_KERNELS = {
     "flash_bwd_dq": ("paddle_tpu/ops/pallas_ops.py:137", 3),  # K2
     "flash_bwd_dkv": ("paddle_tpu/ops/pallas_ops.py:172", 4),  # K3
 }
-_WMMA = ("WMMA m16n16k16 through shared memory, accumulators in shared "
-         "memory, 128 threads, 64-row tiles")
+_WMMA = ("(b) WMMA m16n16k16 (bf16) or float32 FMA through shared memory, "
+         "accumulators in shared memory, 128 threads, 64-row tiles")
+_TF32 = ("(c) split TF32 (x = hi + lo; lo.hi + hi.lo + hi.hi) on mma.sync "
+         "m16n8k8, 128 threads of 16 rows per warp, accumulators in "
+         "registers, a 2-stage cp.async ring, rows padded to H+4 floats; ")
 DESIGNS = {
     "paged_attention": "split-KV (flash-decoding): grid (head, slot, split "
                        "of 256 keys), 16-byte loads double-buffered in "
                        "registers, online softmax in registers, float32 "
                        "partials per split in a workspace sized from shapes; "
                        "a combine kernel merges the splits in index order",
-    "flash_fwd": "bf16 at H=64/128: warp-specialised, TMA producer "
+    "flash_fwd": "(a) bf16 at H=64/128: warp-specialised, TMA producer "
                  "(setmaxnreg 40/232) into a 3-stage (H=64) or 2-stage "
                  "(H=128) mbarrier ring of 128-key K/V tiles, two consumer "
                  "warpgroups of 64 query rows on wgmma with register "
-                 "accumulators; float32 and bf16 at H=96/256: " + _WMMA,
-    "flash_bwd_dq": "bf16 at H=64/128: warp-specialised, TMA producer "
+                 "accumulators; float32 at H=64/128: " + _TF32 + "64 query "
+                 "rows, Q split once into hi/lo tiles, 32-key K/V tiles, "
+                 "P the register A operand of O += P V in a permuted key "
+                 "order, 3 blocks per SM at H=64; float32 and bf16 at "
+                 "H=96/256: " + _WMMA,
+    "flash_bwd_dq": "(a) bf16 at H=64/128: warp-specialised, TMA producer "
                     "(setmaxnreg 40/232) into a 4-stage (H=64) or 3-stage "
                     "(H=128) mbarrier ring of 64-key K/V tiles, Q/dO/lse/"
                     "delta resident, two consumer warpgroups of 64 query "
                     "rows: S and dP on wgmma, dS as the register A operand "
-                    "of dQ += dS K, dQ in registers; float32 and bf16 at "
-                    "H=96/256: " + _WMMA,
-    "flash_bwd_dkv": "bf16 at H=64/128: warp-specialised, TMA producer "
-                     "(setmaxnreg 24/232) into a 3-stage mbarrier ring of "
-                     "Q/dO/lse/delta tiles, 64 keys resident per block, one "
-                     "consumer warpgroup on wgmma with register "
-                     "accumulators, 2 blocks per SM; float32 and bf16 at "
-                     "H=96/256: " + _WMMA,
+                    "of dQ += dS K, dQ in registers; float32 at every H "
+                    "and bf16 at H=96/256: " + _WMMA,
+    "flash_bwd_dkv": "(a) bf16 at H=64/128: warp-specialised, TMA "
+                     "producer (setmaxnreg 24/232) into a 3-stage mbarrier "
+                     "ring of Q/dO/lse/delta tiles, 64 keys resident per "
+                     "block, one consumer warpgroup on wgmma with register "
+                     "accumulators, 2 blocks per SM; float32 at H=64/128: "
+                     + _TF32 + "64 keys with K and V split once into "
+                     "resident hi/lo tiles, 32-row Q/dO/lse/delta tiles, "
+                     "P^T and dS^T the register A operands of dV += P^T dO "
+                     "and dK += dS^T Q, 2 blocks per SM at H=64; float32 "
+                     "and bf16 at H=96/256: " + _WMMA,
 }
 
 
 PHASE_SECONDS = {}
+
+
+def instance_design(name, dtype, H):
+    """The design, "a", "b" or "c" (``csrc/flash_attention.cu``'s header),
+    that kernel ``name`` launches at ``dtype`` and head_dim ``H``."""
+    if H not in (64, 128):
+        return "b"
+    if dtype == torch.bfloat16:
+        return "a"
+    return "b" if name == "flash_bwd_dq" else "c"
 
 
 def timed(name, fn, *args, **kwargs):
@@ -859,9 +885,9 @@ def check_flash_case(res, dtype, what):
 def flash_bound(name, q, causal):
     """Least time (ms) for the card to run kernel ``name`` on ``q``'s shape:
     its tensor-core products over the score pairs the mask keeps, against
-    the peak for the operand type, or its inputs read once and outputs
-    written once, against the data-sheet bandwidth. Returns (ms, "bytes" |
-    "operations")."""
+    ``FLASH_FLOPS`` for the operand type (float32: three TF32 products
+    each), or its inputs read once and outputs written once, against the
+    data-sheet bandwidth. Returns (ms, "bytes" | "operations")."""
     B, T, N, H = q.shape
     es = q.element_size()
     pairs = T * (T + 1) // 2 if causal else T * T
@@ -871,29 +897,34 @@ def flash_bound(name, q, causal):
               "flash_bwd_dq": 5 * tile + 2 * rows,     # q k v do lse delta
               "flash_bwd_dkv": 6 * tile + 2 * rows}[name]
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = ops / FLASH_FLOPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-# shapes of the run-to-run check: the training step's, and bf16 at H=128
-REPEAT_SHAPES = (STEP_SHAPE, (2, 2048, 8, 128))
+# cases of the run-to-run check, (dtype, causal, [B, T, N, H]): bf16 causal
+# at the training step's shape and at H=128; float32 non-causal at phase
+# 14's shape and causal at T=2048 (the split-TF32 instances)
+REPEAT_CASES = ((torch.bfloat16, True, STEP_SHAPE),
+                (torch.bfloat16, True, (2, 2048, 8, 128)),
+                (torch.float32, False, NONCAUSAL_SHAPES[torch.float32]),
+                (torch.float32, True, (1, 2048, 2, 64)))
 
 
-def flash_repeat_check(dev, B, T, N, H, seed=11):
-    """Launch K1, K2 and K3 twice each on the same bf16 causal inputs (unbind
-    views) and raise unless both launches give bitwise-equal outputs: a
-    ring stage read after the producer overwrote it shows up as a
-    run-to-run difference that a tolerance could hide. The kernels sum in
-    a fixed order and use no atomics, so equal inputs give equal bits."""
+def flash_repeat_check(dev, dtype, causal, B, T, N, H, seed=11):
+    """Launch K1, K2 and K3 twice each on the same inputs (unbind views) and
+    raise unless both launches give bitwise-equal outputs: a ring stage
+    read after the producer overwrote it shows up as a run-to-run
+    difference that a tolerance could hide. The kernels sum in a fixed
+    order and use no atomics, so equal inputs give equal bits."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
-    q, k, v, do = flash_case(dev, torch.bfloat16, B, T, N, H, seed,
-                             strided=True)
-    fwd = [fa.flash_fwd(q, k, v, True) for _ in range(2)]
+    q, k, v, do = flash_case(dev, dtype, B, T, N, H, seed, strided=True)
+    fwd = [fa.flash_fwd(q, k, v, causal) for _ in range(2)]
     lse = fwd[0][1]
     delta = fa.flash_delta(fwd[0][0], do)
-    dq = [fa.flash_bwd_dq(q, k, v, do, lse, delta, True) for _ in range(2)]
-    dkv = [fa.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+    dq = [fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+          for _ in range(2)]
+    dkv = [fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
            for _ in range(2)]
     torch.cuda.synchronize()
     pairs = {"flash_fwd out": (fwd[0][0], fwd[1][0]),
@@ -904,8 +935,9 @@ def flash_repeat_check(dev, B, T, N, H, seed=11):
     for name, (a, b) in pairs.items():
         if not torch.equal(a, b):
             raise AssertionError(
-                f"{name} bf16 B*N={B * N} T={T} H={H}: two launches on the "
-                f"same inputs differ in {int((a != b).sum())} elements")
+                f"{name} {str(dtype)[6:]} causal={causal} B*N={B * N} "
+                f"T={T} H={H}: two launches on the same inputs differ in "
+                f"{int((a != b).sum())} elements")
 
 
 def flash_timings(q, k, v, do, causal):
@@ -914,9 +946,10 @@ def flash_timings(q, k, v, do, causal):
     "eager_ms", "plain_ms", "bound_ms", "bound_by", "bound_rate",
     "bound_share", "library_ms", "library_call"}}``. The kernel's "ms" is
     the lower of two device-time readings. The library yardstick is SDPA
-    in its own ``[B, N, T, H]`` layout: its forward for K1, its whole
-    backward (dq, dk and dv together, eagerly through autograd: at 0.2-0.6
-    ms the host's share of one call is small) for K2 and K3."""
+    in its own ``[B, N, T, H]`` layout: its forward for K1 (``device_ms``),
+    its whole backward (dq, dk and dv together) for K2 and K3, as device
+    time: the kernels of eager calls through autograd, summed by
+    torch.profiler (``profiled_ms``)."""
     from paddle_tpu_torch.ops import flash_attention as fa
 
     F = torch.nn.functional
@@ -939,9 +972,9 @@ def flash_timings(q, k, v, do, causal):
     library = {
         "flash_fwd": device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), calls=10, replays=2),
-        "bwd": cuda_ms(lambda: torch.autograd.grad(
+        "bwd": profiled_ms(lambda: torch.autograd.grad(
             lib_out, (qt, kt, vt), dot.detach(), retain_graph=True),
-            iters=20)}
+            calls=10)}
     tag = f"{str(q.dtype)[6:]} B*N={B * N} T={T} H={H} " + (
         "causal" if causal else "non-causal")
     rows = {}
@@ -965,8 +998,30 @@ def flash_timings(q, k, v, do, causal):
             "bound_share": bound_ms / min(ms, ms2), "library_ms": lib_ms,
             "library_call": f"scaled_dot_product_attention(is_causal="
             f"{causal}) " + ("forward" if name == "flash_fwd"
-                             else "backward (dq, dk and dv together)")}
+                             else "backward (dq, dk and dv together, "
+                             "torch.profiler's kernel sum)")}
     return rows
+
+
+def profiled_ms(fn, calls=10):
+    """Mean device milliseconds per call of ``fn``: the durations of the
+    kernels (and copies) that torch.profiler records on the card over
+    ``calls`` eager calls, summed, so the host's gaps between them do not
+    count. For a call that launches many kernels and cannot be captured in
+    a graph as it stands (autograd's backward). Raises if the profiler saw
+    no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us > 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / calls
 
 
 def phase_flash_kernels(dev):
@@ -1012,10 +1067,11 @@ def phase_flash_kernels(dev):
         + ", ".join(f"{k} {e:.3e} / {r:.3e}" for k, (e, _, r)
                     in res.items() if r is not None))
 
-    for shape in REPEAT_SHAPES:
-        flash_repeat_check(dev, *shape)
-    log(f"kernels (training): K1-K3 repeat bitwise on the same inputs, bf16 "
-        f"causal, [B, T, N, H] in {REPEAT_SHAPES}")
+    for dtype, causal, shape in REPEAT_CASES:
+        flash_repeat_check(dev, dtype, causal, *shape)
+    log("kernels (training): K1-K3 repeat bitwise on the same inputs, "
+        "(dtype, causal, [B, T, N, H]) in " + ", ".join(
+            f"({str(d)[6:]}, {c}, {list(s)})" for d, c, s in REPEAT_CASES))
 
     rows = {}
     for name, row in flash_timings(q, k, v, do, True).items():
@@ -1027,7 +1083,9 @@ def phase_flash_kernels(dev):
             "max_rel_err": {d: r[name] for d, r in max_rel.items()},
             "rel_bound": {str(d)[6:]: t
                           for d, t in fa.FLASH_PARITY_REL.items()},
-            **row, "design": DESIGNS[name]}
+            **row, "design": DESIGNS[name],
+            "instance_design": instance_design(name, torch.bfloat16,
+                                               STEP_SHAPE[3])}
     for dtype, shape in NONCAUSAL_SHAPES.items():
         rows.update(noncausal_rows(dev, dtype, shape))
     return rows
@@ -1062,7 +1120,8 @@ def noncausal_rows(dev, dtype, shape):
             "tolerance": list(fa.FLASH_PARITY_TOL[dtype]),
             "max_rel_err": max(rels), "rel_bound": fa.FLASH_PARITY_REL[dtype],
             "shape": [B, T, N, H], "causal": False, **row,
-            "design": DESIGNS[name]}
+            "design": DESIGNS[name],
+            "instance_design": instance_design(name, dtype, H)}
     return rows
 
 
@@ -4430,12 +4489,17 @@ def phase_bert_pretraining(dev, dtype="float32", batch=16, seq_len=128,
               "step_p50_ms": p50 * 1e3,
               "step_ms": [round(s * 1e3, 3) for s in step_s],
               "tokens_per_s": tokens / p50, "mfu": flops / p50 / peak,
-              "mfu_peak": PEAK_NAMES[torch.bfloat16 if bf16
-                                     else torch.float32],
+              "mfu_peak": PEAK_NAMES[torch.bfloat16] if bf16
+              else "67 TFLOP/s float32 FMA (TF32 off)",
               "flops_per_step": flops, "losses": losses,
               "peak_memory_gb": peak_gb, "train_step": jit,
               "launches": {k: counts["by_dtype"][dtype][k]
-                           for k in FLASH_KERNELS}}
+                           for k in FLASH_KERNELS},
+              "designs": {k: instance_design(k, torch.bfloat16 if bf16
+                                             else torch.float32,
+                                             cfg.hidden_size
+                                             // cfg.num_attention_heads)
+                          for k in FLASH_KERNELS}}
     log(f"bert pretraining ({dtype}): " + json.dumps(result))
     del train, opt, model
     free_memory()
@@ -4660,7 +4724,7 @@ def phase_ernie_inference(dev, batch=16, seq_len=128, iters=20):
 
 # ------------------------------------------------------------------ main --
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
-                    r"_kernel(?:_sm90)?)I(\w*?)E+v")
+                    r"_kernel(?:_sm90|_tf32)?)I(\w*?)E+v")
 _TYPES = {"13__nv_bfloat16": "bf16", "f": "float32"}
 
 
@@ -5497,7 +5561,8 @@ def flash_instances(lib_path):
     ``registers`` is the count at launch (the Hopper design's warpgroups
     then move to their setmaxnreg budgets); ``smem_bytes`` is the dynamic
     shared memory its launch requests, which ptxas does not see. The
-    Hopper design's kernels take H alone: they are bf16 only."""
+    Hopper design's kernels take H alone (they are bf16 only), and so do
+    the split-TF32 design's (float32 only)."""
     lib = ctypes.CDLL(str(lib_path))
     lib.flash_attention_smem.restype = ctypes.c_int
     kinds = {"flash_fwd": 0, "flash_bwd_dq": 1, "flash_bwd_dkv": 2}
@@ -5505,7 +5570,8 @@ def flash_instances(lib_path):
     for r in ptxas_instances(lib_path):
         if r["kernel"].split("_kernel")[0] not in kinds:
             continue
-        dtype, H = ("bf16", *r["args"])[-2:]
+        only = "float32" if r["kernel"].endswith("_tf32") else "bf16"
+        dtype, H = (only, *r["args"])[-2:]
         out.append({"kernel": r["kernel"], "dtype": dtype, "H": int(H),
                     "registers": r["registers"],
                     "spill_stores": r["spill_stores"],
@@ -5794,7 +5860,8 @@ def main():
             f"{run['tokens_per_s']:.0f} tokens/s, MFU {run['mfu']:.4f} "
             f"({run['mfu_peak']}), peak memory "
             f"{run['peak_memory_gb']:.2f} GB; losses {run['losses'][0]:.4f}"
-            f" -> {run['losses'][-1]:.4f}; K1-K3 {run['launches']}")
+            f" -> {run['losses'][-1]:.4f}; K1-K3 {run['launches']} by "
+            f"design {run['designs']}")
     log(f"ernie inference on {smi}: ernie-3.0-medium bf16 batch "
         f"{ernie['batch']} x {ernie['seq_len']}: p50 forward "
         f"{ernie['forward_p50_ms']:.2f} ms, {ernie['samples_per_s']:.0f} "

@@ -28,8 +28,7 @@
 // TFLOP/s: K1 0.070 ms, K2 0.104 ms, K3 0.139 ms. Nothing of the [T, T]
 // score matrix reaches device memory.
 //
-// Two designs, chosen in launch() by dtype and H (the same for all three
-// kernels):
+// Three designs, chosen in launch() by dtype, H and kernel:
 //
 // (a) Hopper design: K1, K2 and K3 in bf16 at H = 64 and 128 (every
 //     head_dim a preset uses: gpt2-* and gpt3-1.3B have 64, gpt3-6.7B 128).
@@ -77,9 +76,10 @@
 //     cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled"), so the
 //     library needs no -lcuda, and reach the kernel as __grid_constant__.
 //
-// (b) WMMA design: float32 at every H (so its results stay exact float32,
-//     which wgmma's TF32 would not), and bf16 at H = 96 and 256 (no preset
-//     uses them).
+// (b) WMMA design: K2 in float32 at every H, K1 and K3 in float32 at H = 96
+//     and 256, and all three in bf16 at H = 96 and 256 (no preset uses
+//     those head_dims). It multiplies float32 in exact float32 on the FMA
+//     units.
 //   * One 128-thread block per (b*n, tile of BLK rows): query tiles for K1
 //     and K2, key tiles for K3. The TPU kernel's sequential grid axis over
 //     the other side becomes a loop inside the block, and the running
@@ -90,7 +90,47 @@
 //     warp per row, and accumulates the next product (WMMA bf16 m16n16k16,
 //     or float32 FMA for float32 inputs).
 //
-// Both designs:
+// (c) Split-TF32 design: K1 and K3 in float32 at H = 64 and 128 (bert-base
+//     pretraining in float32, every float32 GPT leg).
+//   * Arithmetic: every float32 operand x is split as hi = tf32(x), lo =
+//     tf32(x - hi) (cvt.rna), and each product is taken on the tensor cores
+//     as lo.hi + hi.lo + hi.hi (small terms first) with float32
+//     accumulators, which keeps about 22 of float32's 24 bits; the dropped
+//     lo.lo term is below 2^-22 of the product. Single TF32 (hi.hi alone)
+//     keeps 11. A product summed over a key or query tile starts from zero
+//     and is added to its running sum with an ordinary float32 add, so the
+//     tensor cores' truncating accumulation never runs over more than one
+//     tile.
+//   * Instruction: mma.sync m16n8k8 TF32, fragments loaded by hand. wgmma's
+//     TF32 takes no transpose, so V (K1) and dO, Q (K3) would need
+//     transposed copies in shared memory; mma.sync reads them in place. An
+//     accumulator holds columns 2t and 2t+1 where an A fragment wants t and
+//     t + 4, so P, P^T and dS^T become A fragments in a fixed permuted key
+//     (query) order, k = 0..7 -> 0, 2, 4, 6, 1, 3, 5, 7, and the B operand
+//     is read from the same permuted rows.
+//   * Tiles: 128 threads, four warps of 16 rows; every shared tile has rows
+//     of H + 4 floats, which puts the rows of ldmatrix (A, and B read
+//     K-major) and of the scalar permuted B reads on distinct banks. Loads
+//     are 16-byte cp.async into a ring of 2 stages.
+//   * K1: a block owns 64 query rows of one (b, n); Q is split once into
+//     hi and lo tiles when it lands; K and V tiles of 32 keys go through
+//     the ring. S = Q K^T, the online softmax (in units of log2) and O run
+//     on registers; O += P V with P as the register A operand. 68 KB of
+//     shared memory and at most 168 registers at H = 64, so three blocks
+//     fit on an SM (bert-base at 16 x 128: a launch's 384 blocks in one
+//     wave);
+//     132 KB at H = 128.
+//   * K3: a block owns 64 keys, K and V split once into resident hi and lo
+//     tiles; query tiles of 32 rows of Q and dO, with their lse and delta,
+//     go through the ring. S^T = K Q^T and dP^T = V dO^T put one key row
+//     in each thread's registers, so P^T and dS^T form there and are the A
+//     operands of dV += P^T dO and dK += dS^T Q. dK and dV stay in
+//     registers until the epilogue. 103 KB of shared memory at H = 64 (two
+//     blocks per SM), 199 KB at H = 128.
+//   * Causal work only where it exists, as in (a), and a warp skips a tile
+//     that lies wholly on the masked side of its 16 rows.
+//
+// Every design:
 //   * dQ and dK/dV stay split across K2 and K3 as on the TPU, so no block
 //     ever adds into another block's output and no atomics are needed; the
 //     results do not change from run to run.
@@ -1177,6 +1217,517 @@ __global__ void __launch_bounds__(256, 2)
   }
 }
 
+// ------------------------------------ K1 and K3 for Hopper, float32 --
+// Design (c): split TF32 on mma.sync m16n8k8, accumulators in registers.
+// In a warp, g = lane / 4 and t = lane % 4; a 16 x 8 accumulator tile holds
+// (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) in its four values.
+
+template <int H>
+struct Tf32Cfg {
+  static constexpr int BM = 64;  // K1: query rows per block; K3: keys
+  static constexpr int BN = 32;  // K1: keys per ring tile
+  static constexpr int BQ = 32;  // K3: query rows per ring tile
+  static constexpr int STAGES = 2;
+  // K1 blocks per SM the registers are held to: three at H = 64 (its 68
+  // KB of shared memory let three fit: bert-base at 16 x 128 runs a
+  // launch's 384 blocks in one wave), one at H = 128
+  static constexpr int FWD_BLOCKS = H == 64 ? 3 : 1;
+  // columns of O (K1) or of dV and dK (K3) summed per pass over a tile:
+  // the pass's accumulator is NC / 2 registers a thread. 16 at H = 128,
+  // where K3's dK and dV take 128 registers and ptxas spills with wider
+  // passes
+  static constexpr int NC = H == 64 ? 64 : 16;
+  static constexpr int LD = H + 4;  // row stride of every tile, in floats
+  static constexpr int TILE = BM * LD * 4;  // 64 rows of H floats
+  static constexpr int QTILE = BQ * LD * 4;
+  // K1: Q hi, Q lo, then the ring of K and V tiles
+  static constexpr int FWD = 2 * TILE + STAGES * 2 * BN * LD * 4;
+  // K3: K hi, K lo, V hi, V lo, then the ring of Q, dO, lse and delta
+  static constexpr int DKV = 4 * TILE + STAGES * (2 * QTILE + 2 * BQ * 4);
+  static_assert(FWD <= 232448 && DKV <= 232448,
+                "tile does not fit in shared memory");
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows x H floats from global memory (row stride in elements) into a
+// shared tile of row stride H + 4, 16 bytes per cp.async
+template <int H>
+__device__ __forceinline__ void load_async(float* dst, const float* src,
+                                           long long row_stride, int rows) {
+  constexpr int CPR = H / 4;
+  for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
+    const int r = i / CPR, c = (i % CPR) * 4;
+    cp_async16(dst + r * (H + 4) + c, src + r * row_stride + c);
+  }
+}
+
+// `n` contiguous floats (a multiple of 4, 16-byte aligned at both ends)
+__device__ __forceinline__ void load_async_row(float* dst, const float* src,
+                                               int n) {
+  for (int i = threadIdx.x; i < n / 4; i += kThreads)
+    cp_async16(dst + 4 * i, src + 4 * i);
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// a landed tile of rows x H floats (row stride H + 4) into its TF32 hi
+// part, in place, and its lo part
+template <int H>
+__device__ __forceinline__ void split_rows(float* hi, float* lo, int rows) {
+  constexpr int CPR = H / 4;
+  for (int i = threadIdx.x; i < rows * CPR; i += kThreads) {
+    const int at = (i / CPR) * (H + 4) + (i % CPR) * 4;
+    float4 x = *reinterpret_cast<float4*>(hi + at);
+    uint32_t h[4], l[4];
+    split_tf32(x.x, h[0], l[0]);
+    split_tf32(x.y, h[1], l[1]);
+    split_tf32(x.z, h[2], l[2]);
+    split_tf32(x.w, h[3], l[3]);
+    *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// four 8 x 4 matrices of 32-bit elements from shared memory (ldmatrix on
+// b16 pairs): register j gets row g, column t of the matrix whose 8 row
+// addresses lanes 8j .. 8j + 7 give
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[0..3] (16 x 8, float32) += A (16 x 8, TF32) . B (8 x 8, TF32)
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A . B in split TF32: the two small terms, then hi . hi
+__device__ __forceinline__ void mma3(float* d, const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// Per-lane offsets (in floats, for row stride ld) of ldmatrix's row
+// addresses. A: the 16 x 8 A fragment at (row 0, column 0), registers
+// (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4). B: two 8 x 8 B fragments
+// of a matrix stored [n][k] (k contiguous), registers b0, b1 of rows 0-7
+// and b0, b1 of rows 8-15.
+__device__ __forceinline__ int a_lane_offset(int ld) {
+  const int lane = threadIdx.x % 32;
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * ld + (lane >> 4) * 4;
+}
+
+__device__ __forceinline__ int b_lane_offset(int ld) {
+  const int lane = threadIdx.x % 32;
+  return ((lane & 7) + (lane >> 4) * 8) * ld + ((lane >> 3) & 1) * 4;
+}
+
+// the A fragment of k-step ks from a 16 x (8 KS) accumulator, split: the
+// fragment's k = t holds column 2t and k = t + 4 column 2t + 1
+template <int N>
+__device__ __forceinline__ void acc_to_a(uint32_t (&ah)[4], uint32_t (&al)[4],
+                                         const float (&d)[N], int ks) {
+  split_tf32(d[4 * ks], ah[0], al[0]);
+  split_tf32(d[4 * ks + 2], ah[1], al[1]);
+  split_tf32(d[4 * ks + 1], ah[2], al[2]);
+  split_tf32(d[4 * ks + 3], ah[3], al[3]);
+}
+
+// acc[NC / 2] (16 x NC) = A . X[rows][NC hc .. NC hc + NC - 1] over K
+// rows of X (row stride ld), A the permuted accumulator d: X's rows read
+// in the same permuted order as A's columns
+template <int K, int NC, int N>
+__device__ __forceinline__ void acc_times_rows(float (&acc)[NC / 2],
+                                               const float (&d)[N],
+                                               const float* X, int ld,
+                                               int hc) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < K / 8; ++ks) {
+    uint32_t ah[4], al[4];
+    acc_to_a(ah, al, d, ks);
+    const float* x0 = X + (8 * ks + 2 * t) * ld + NC * hc + g;
+#pragma unroll
+    for (int nt = 0; nt < NC / 8; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(x0[8 * nt], bh0, bl0);
+      split_tf32(x0[ld + 8 * nt], bh1, bl1);
+      mma3(&acc[4 * nt], ah, al, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// d[N / 2] (16 x N) = A . B^T over H, A the split resident rows (hi at
+// a_hi, lo at a_lo, 16 rows), B the raw rows at b (N rows), both of row
+// stride H + 4, addresses already offset by the lane
+template <int H, int N>
+__device__ __forceinline__ void rows_times_rows(float (&d)[N / 2],
+                                                uint32_t a_hi, uint32_t a_lo,
+                                                uint32_t b) {
+  constexpr int LD = H + 4;
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  // 64 columns of H per pass; the passes are not unrolled, so the H = 128
+  // instances hold the code of one pass
+#pragma unroll 1
+  for (int k0 = 0; k0 < H / 8; k0 += 8) {
+#pragma unroll
+    for (int kk = k0; kk < k0 + 8; ++kk) {
+      uint32_t ah[4], al[4];
+      ldsm_x4(ah, a_hi + kk * 32);
+      ldsm_x4(al, a_lo + kk * 32);
+#pragma unroll
+      for (int nn = 0; nn < N / 16; ++nn) {
+        uint32_t bx[4], bh[4], bl[4];
+        ldsm_x4(bx, b + (nn * 16 * LD + kk * 8) * 4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(__uint_as_float(bx[e]), bh[e], bl[e]);
+        mma3(&d[8 * nn], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma3(&d[8 * nn + 4], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+  }
+}
+
+// K3's query tile i (rows of Q and dO, their lse and delta) into ring
+// stage s
+template <int H, int BQ>
+__device__ __forceinline__ void load_query_tile(
+    float* Qs, float* DOs, float* LSEs, float* DELs, const float* q,
+    const float* dout, const float* lse, const float* delta, const Params& p,
+    int i, int s) {
+  constexpr int LD = H + 4;
+  load_async<H>(Qs + s * BQ * LD, q + (long long)i * BQ * p.vq.st, p.vq.st,
+                BQ);
+  load_async<H>(DOs + s * BQ * LD, dout + (long long)i * BQ * p.vdo.st,
+                p.vdo.st, BQ);
+  load_async_row(LSEs + s * BQ, lse + i * BQ, BQ);
+  load_async_row(DELs + s * BQ, delta + i * BQ, BQ);
+}
+
+// ------------------------------------------------------ K1, split TF32 --
+template <int H>
+__global__ void __launch_bounds__(kThreads, Tf32Cfg<H>::FWD_BLOCKS)
+    flash_fwd_kernel_tf32(const Params p) {
+  count_launch(0, 0);
+  using C = Tf32Cfg<H>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, STAGES = C::STAGES;
+  constexpr int NC = C::NC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qh = reinterpret_cast<float*>(smem);
+  float* Ql = Qh + BM * LD;
+  float* Ks = Ql + BM * LD;
+  float* Vs = Ks + STAGES * BN * LD;
+
+  const int T_len = p.T;
+  const int bn = blockIdx.x;
+  // causal query tiles are issued longest-first
+  const int qb =
+      p.causal ? T_len / BM - 1 - int(blockIdx.y) : int(blockIdx.y);
+  const int b = bn / p.N;
+  const int n = bn % p.N;
+  // the reference's bound: key tiles up to the one holding the last row
+  const int hi = p.causal ? (qb + 1) * BM / BN : T_len / BN;
+
+  const float* q = static_cast<const float*>(p.q) + b * p.vq.sb +
+                   n * p.vq.sn + (long long)qb * BM * p.vq.st;
+  const float* k = static_cast<const float*>(p.k) + b * p.vk.sb + n * p.vk.sn;
+  const float* v = static_cast<const float*>(p.v) + b * p.vv.sb + n * p.vv.sn;
+
+  load_async<H>(Qh, q, p.vq.st, BM);
+  load_async<H>(Ks, k, p.vk.st, BN);
+  load_async<H>(Vs, v, p.vv.st, BN);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int first = qb * BM + 16 * warp;  // this warp's rows
+  const int row0 = first + g;              // and row0 + 8
+  const float sl2 = p.scale * kLog2e;
+  const uint32_t qh_addr =
+      hopper::smem_u32(Qh + 16 * warp * LD + a_lane_offset(LD));
+  const uint32_t ql_addr =
+      hopper::smem_u32(Ql + 16 * warp * LD + a_lane_offset(LD));
+
+  float o[H / 2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < hi; ++j) {
+    const int s = j % STAGES;
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warp is done with j - 1
+    if (j + 1 < hi) {
+      const int s1 = (j + 1) % STAGES;
+      load_async<H>(Ks + s1 * BN * LD, k + (long long)(j + 1) * BN * p.vk.st,
+                    p.vk.st, BN);
+      load_async<H>(Vs + s1 * BN * LD, v + (long long)(j + 1) * BN * p.vv.st,
+                    p.vv.st, BN);
+    }
+    cp_async_commit();
+    if (j == 0) {
+      split_rows<H>(Qh, Ql, BM);
+      __syncthreads();
+    }
+    // a key tile wholly above this warp's rows adds nothing
+    if (p.causal && j * BN > first + 15) continue;
+    const float* Kt = Ks + s * BN * LD;
+    const float* Vt = Vs + s * BN * LD;
+
+    // S = Q K^T: 16 x BN per warp, in registers
+    float sc[BN / 2];
+    rows_times_rows<H, BN>(sc, qh_addr, ql_addr,
+                           hopper::smem_u32(Kt + b_lane_offset(LD)));
+
+    // the mask, only on tiles that reach past this warp's first row
+    if (p.causal && (j + 1) * BN > first + 1) {
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j * BN + 8 * jj + 2 * t + (e & 1);
+          if (key > row0 + 8 * (e >> 1)) sc[4 * jj + e] = -INFINITY;
+        }
+    }
+
+    // online softmax in registers, in units of log2: a row lives in the
+    // four threads of a quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj)
+        mx = fmaxf(mx, fmaxf(sc[4 * jj + 2 * r], sc[4 * jj + 2 * r + 1]) *
+                           sl2);
+      mx = quad_max(mx);
+      // a row with every score masked so far keeps m = -inf and l = 0
+      // and takes no exp of -inf - -inf
+      const float m_use = mx == -INFINITY ? 0.f : mx;
+      const float corr = hopper::ex2(m[r] - m_use);
+      m[r] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float pv =
+              hopper::ex2(fmaf(sc[4 * jj + 2 * r + c], sl2, -m_use));
+          sc[4 * jj + 2 * r + c] = pv;
+          sum += pv;
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int jj = 0; jj < H / 8; ++jj) {
+        o[4 * jj + 2 * r] *= corr;
+        o[4 * jj + 2 * r + 1] *= corr;
+      }
+    }
+
+    // O += P V, NC columns at a time, the tile's sum started from zero
+#pragma unroll
+    for (int hc = 0; hc < H / NC; ++hc) {
+      float acc[NC / 2];
+      acc_times_rows<BN, NC>(acc, sc, Vt, LD, hc);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) o[NC / 2 * hc + i] += acc[i];
+    }
+  }
+
+  const long long out_row = (long long)p.N * H;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float lt = fmaxf(quad_sum(l[r]), 1e-30f);
+    const float inv = 1.f / lt;
+    const int row = row0 + 8 * r;
+    float* out = static_cast<float*>(p.out) +
+                 ((long long)b * T_len + row) * out_row + (long long)n * H;
+#pragma unroll
+    for (int jj = 0; jj < H / 8; ++jj)
+      *reinterpret_cast<float2*>(out + 8 * jj + 2 * t) =
+          make_float2(o[4 * jj + 2 * r] * inv, o[4 * jj + 2 * r + 1] * inv);
+    if (t == 0) p.lse[(long long)bn * T_len + row] = m[r] * kLn2 + logf(lt);
+  }
+}
+
+// ------------------------------------------------------ K3, split TF32 --
+template <int H>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel_tf32(const Params p) {
+  count_launch(2, 0);
+  using C = Tf32Cfg<H>;
+  constexpr int BK = C::BM, BQ = C::BQ, LD = C::LD, STAGES = C::STAGES;
+  constexpr int NC = C::NC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Kh = reinterpret_cast<float*>(smem);
+  float* Kl = Kh + BK * LD;
+  float* Vh = Kl + BK * LD;
+  float* Vl = Vh + BK * LD;
+  float* Qs = Vl + BK * LD;
+  float* DOs = Qs + STAGES * BQ * LD;
+  float* LSEs = DOs + STAGES * BQ * LD;
+  float* DELs = LSEs + STAGES * BQ;
+
+  const int T_len = p.T;
+  const int bn = blockIdx.x;
+  const int kb = blockIdx.y;  // low key tiles see the most query tiles
+  const int b = bn / p.N;
+  const int n = bn % p.N;
+  // the reference's bound: query tiles from the one holding the first key
+  const int lo = p.causal ? (kb * BK) / BQ : 0;
+  const int n_q = T_len / BQ;
+
+  const float* k = static_cast<const float*>(p.k) + b * p.vk.sb +
+                   n * p.vk.sn + (long long)kb * BK * p.vk.st;
+  const float* v = static_cast<const float*>(p.v) + b * p.vv.sb +
+                   n * p.vv.sn + (long long)kb * BK * p.vv.st;
+  const float* q = static_cast<const float*>(p.q) + b * p.vq.sb + n * p.vq.sn;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.vdo.sb + n * p.vdo.sn;
+  const float* lse = p.lse_in + (long long)bn * T_len;
+  const float* delta = p.delta + (long long)bn * T_len;
+
+  load_async<H>(Kh, k, p.vk.st, BK);
+  load_async<H>(Vh, v, p.vv.st, BK);
+  load_query_tile<H, BQ>(Qs, DOs, LSEs, DELs, q, dout, lse, delta, p, lo,
+                         0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int key0 = kb * BK + 16 * warp + g;  // and key0 + 8
+  const float sl2 = p.scale * kLog2e;
+  const int a_off = 16 * warp * LD + a_lane_offset(LD);
+  const uint32_t kh_addr = hopper::smem_u32(Kh + a_off);
+  const uint32_t kl_addr = hopper::smem_u32(Kl + a_off);
+  const uint32_t vh_addr = hopper::smem_u32(Vh + a_off);
+  const uint32_t vl_addr = hopper::smem_u32(Vl + a_off);
+  const int b_off = b_lane_offset(LD);
+
+  float dk[H / 2], dv[H / 2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int i = lo; i < n_q; ++i) {
+    const int it = i - lo, s = it % STAGES;
+    cp_async_wait_all();
+    __syncthreads();  // tile i has landed; every warp is done with i - 1
+    if (i + 1 < n_q)
+      load_query_tile<H, BQ>(Qs, DOs, LSEs, DELs, q, dout, lse, delta, p,
+                             i + 1, (it + 1) % STAGES);
+    cp_async_commit();
+    if (it == 0) {
+      split_rows<H>(Kh, Kl, BK);
+      split_rows<H>(Vh, Vl, BK);
+      __syncthreads();
+    }
+    // a query tile wholly before this warp's keys adds nothing
+    if (p.causal && i * BQ + BQ - 1 < kb * BK + 16 * warp) continue;
+    const float* Qt = Qs + s * BQ * LD;
+    const float* DOt = DOs + s * BQ * LD;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp
+    float st[BQ / 2], dpt[BQ / 2];
+    rows_times_rows<H, BQ>(st, kh_addr, kl_addr,
+                           hopper::smem_u32(Qt + b_off));
+    rows_times_rows<H, BQ>(dpt, vh_addr, vl_addr,
+                           hopper::smem_u32(DOt + b_off));
+
+    // P^T = exp(scale s - lse) and dS^T = P^T (dP^T - delta), per query
+    // column; the mask only on query tiles that start before the last key
+    const float* lse_t = LSEs + s * BQ;
+    const float* del_t = DELs + s * BQ;
+    const bool masked = p.causal && i * BQ < kb * BK + BK - 1;
+#pragma unroll
+    for (int jj = 0; jj < BQ / 8; ++jj) {
+      const float2 ls =
+          *reinterpret_cast<const float2*>(lse_t + 8 * jj + 2 * t);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(del_t + 8 * jj + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1;
+        const int query = i * BQ + 8 * jj + 2 * t + c;
+        const bool keep = !masked || query >= key0 + 8 * (e >> 1);
+        const float pv =
+            keep ? hopper::ex2(fmaf(st[4 * jj + e], sl2,
+                                    -(c ? ls.y : ls.x) * kLog2e))
+                 : 0.f;
+        st[4 * jj + e] = pv;
+        dpt[4 * jj + e] = pv * (dpt[4 * jj + e] - (c ? dl.y : dl.x));
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, NC columns at a time, each tile's
+    // sum started from zero
+#pragma unroll
+    for (int hc = 0; hc < H / NC; ++hc) {
+      float acc[NC / 2];
+      acc_times_rows<BQ, NC>(acc, st, DOt, LD, hc);
+#pragma unroll
+      for (int e = 0; e < NC / 2; ++e) dv[NC / 2 * hc + e] += acc[e];
+      acc_times_rows<BQ, NC>(acc, dpt, Qt, LD, hc);
+#pragma unroll
+      for (int e = 0; e < NC / 2; ++e) dk[NC / 2 * hc + e] += acc[e];
+    }
+  }
+
+  const long long out_row = (long long)p.N * H;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long off =
+        ((long long)b * T_len + key0 + 8 * r) * out_row + (long long)n * H;
+    float* dkp = static_cast<float*>(p.dk) + off;
+    float* dvp = static_cast<float*>(p.dv) + off;
+#pragma unroll
+    for (int jj = 0; jj < H / 8; ++jj) {
+      *reinterpret_cast<float2*>(dkp + 8 * jj + 2 * t) = make_float2(
+          dk[4 * jj + 2 * r] * p.scale, dk[4 * jj + 2 * r + 1] * p.scale);
+      *reinterpret_cast<float2*>(dvp + 8 * jj + 2 * t) =
+          make_float2(dv[4 * jj + 2 * r], dv[4 * jj + 2 * r + 1]);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled from the driver, found at run time so that the
 // library needs no -lcuda
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -1222,11 +1773,13 @@ bool encode_view(CUtensorMap* map, const void* ptr, const View& v, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16 at H = 64 and 128 takes the Hopper design; float32, and bf16 at
-// H = 96 and 256, the WMMA design
+// bf16 at H = 64 and 128 takes the Hopper design (a); K1 and K3 in float32
+// at H = 64 and 128 the split-TF32 design (c); the rest the WMMA design (b)
 template <typename T, int H>
 constexpr bool kSm90 = std::is_same<T, __nv_bfloat16>::value &&
                        (H == 64 || H == 128);
+template <typename T, int H>
+constexpr bool kTf32 = std::is_same<T, float>::value && (H == 64 || H == 128);
 
 // dynamic shared memory that a launch of this kernel instance requests
 template <typename T, int H>
@@ -1235,6 +1788,10 @@ int smem_bytes(int kind) {
     if (kind == kFwd) return FwdCfg<H>::SMEM;
     if (kind == kDkv) return DkvCfg<H>::SMEM;
     return DqCfg<H>::SMEM;
+  }
+  if constexpr (kTf32<T, H>) {
+    if (kind == kFwd) return Tf32Cfg<H>::FWD;
+    if (kind == kDkv) return Tf32Cfg<H>::DKV;
   }
   using C = Cfg<T, H>;
   // the carve rounds every buffer up to 128 bytes
@@ -1288,14 +1845,35 @@ cudaError_t launch_sm90(int kind, const Params& p, int B,
   return cudaGetLastError();
 }
 
+template <int H>
+cudaError_t launch_tf32(int kind, const Params& p, int B,
+                        cudaStream_t stream) {
+  using C = Tf32Cfg<H>;
+  void (*fn)(Params) = kind == kFwd ? flash_fwd_kernel_tf32<H>
+                                    : flash_bwd_dkv_kernel_tf32<H>;
+  const int smem = kind == kFwd ? C::FWD : C::DKV;
+  if (p.T % C::BM != 0 || p.T / C::BM > 65535) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * p.N, p.T / C::BM);
+  fn<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int H>
 cudaError_t launch(int kind, const Params& p, int B, cudaStream_t stream) {
   if constexpr (kSm90<T, H>) {
     return launch_sm90<H>(kind, p, B, stream);
   } else {
-    void (*fn)(Params) = kind == kFwd  ? flash_fwd_kernel<T, H>
-                         : kind == kDq ? flash_bwd_dq_kernel<T, H>
-                                       : flash_bwd_dkv_kernel<T, H>;
+    void (*fn)(Params);
+    if (kind == kDq) {
+      fn = flash_bwd_dq_kernel<T, H>;
+    } else if constexpr (kTf32<T, H>) {
+      return launch_tf32<H>(kind, p, B, stream);
+    } else {
+      fn = kind == kFwd ? flash_fwd_kernel<T, H> : flash_bwd_dkv_kernel<T, H>;
+    }
     using C = Cfg<T, H>;
     const int smem = smem_bytes<T, H>(kind);
     if (p.T % C::BLK != 0 || p.T / C::BLK > 65535)

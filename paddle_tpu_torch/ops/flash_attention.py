@@ -50,8 +50,14 @@ HEAD_DIMS = (64, 96, 128, 256)
 SEQ_MULTIPLE = 128
 
 # per-dtype (atol, rtol) between each kernel and its plain version on the
-# same inputs. float32: the kernels multiply in exact float32 and differ
-# only in summation order over up to 2048 keys. bf16: the kernels round the
+# same inputs. float32: K1 and K3 at head_dim 64 and 128 multiply in split
+# TF32 on the tensor cores (each operand x = hi + lo, both TF32, and each
+# product lo.hi + hi.lo + hi.hi, which keeps about 22 of a float32
+# product's 24 bits), summed in float32 one tile at a time; K2 and the
+# other head_dims multiply in exact float32. Both differ from the plain
+# version by about float32's rounding over up to 2048 keys, in another
+# summation order. Single-rounding TF32 (hi.hi alone, 11 bits) would not
+# meet these bounds. bf16: the kernels round the
 # probabilities P and the score gradients dS to bf16 before the tensor-core
 # products (the plain versions keep them in float32), on top of rounding
 # every output to bf16 (a relative step of 2**-8).
@@ -63,7 +69,8 @@ FLASH_PARITY_TOL = {torch.float32: (1e-4, 1e-4),
 # version's values block by block. bf16: rounding P or dS (relative 2**-9 per term,
 # random in sign) and the output moves a block by about 2e-3 of its norm,
 # while dropping one tile of 64 keys from a row that sees 2048 moves it by
-# about sqrt(64 / 2048) = 18%. float32: summation order only.
+# about sqrt(64 / 2048) = 18%. float32: summation order and split TF32's
+# dropped lo.lo term (below 2**-22 of each product).
 FLASH_PARITY_REL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 REL_BLOCK = 128
 

@@ -33,6 +33,10 @@ from paddle_tpu_torch.distributed.fleet.utils import recompute  # noqa: E402
 from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 _IN = ("float32", "bfloat16", "float16", "int32")
 UNLISTED = ("add", "gelu", "embedding", "reshape", "dropout")
 

@@ -34,6 +34,10 @@ from paddle_tpu_torch.incubate import nn as tinc  # noqa: E402
 from paddle_tpu_torch.models import bert as tbert  # noqa: E402
 from paddle_tpu_torch.models import ernie as ternie  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 V, B, T, LR = 128, 2, 8, 1e-3
 NO_DROPOUT = dict(vocab_size=V, hidden_dropout_prob=0.0,

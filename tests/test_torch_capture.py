@@ -9,8 +9,13 @@ too. The captures themselves run on the card (``tests/test_torch_cuda.py``).
 import gc
 
 import pytest
+import torch
 
 from paddle_tpu_torch.device import collector_paused
+
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
 
 
 @pytest.mark.parametrize("enabled", [True, False])

@@ -9,7 +9,8 @@ version) and ``PAGED_PARITY_REL`` per (slot, head) relative to the plain
 version computed in float32 (the kernel's bf16 output rounding);
 ``FLASH_PARITY_TOL`` elementwise and ``FLASH_PARITY_REL`` block
 by block relative to the plain version's norm for the flash kernels
-(float32 summation order; bf16 P and dS rounded before the tensor-core
+(float32: summation order, and split TF32's dropped lo.lo term in K1 and
+K3 at head_dim 64 and 128; bf16 P and dS rounded before the tensor-core
 products in the kernels).
 """
 import pytest
@@ -17,6 +18,10 @@ import torch
 
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import paged_attention as pa
+
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -530,18 +535,32 @@ def test_flash_kernels_at_the_training_step_shape(cuda):
     _check_flash_kernels(q, k, v, do, True)
 
 
-@pytest.mark.parametrize("B,T,N,H", [(4, 2048, 32, 64), (2, 2048, 8, 128)])
-def test_flash_kernels_repeat_bitwise(cuda, B, T, N, H):
+def test_flash_kernels_at_the_bert_pretraining_shape(cuda):
+    # bert-base pretraining in float32 at the reference benchmark's 16 x
+    # 128: 12 heads of 64, non-causal, on the unbind views of the fused
+    # QKV projection (K1 and K3 on the split-TF32 design)
+    q, k, v, do = _flash_case(cuda, torch.float32, 16, 128, 12, 64,
+                              seed=13, strided=True)
+    _check_flash_kernels(q, k, v, do, False)
+
+
+@pytest.mark.parametrize("dtype,causal,B,T,N,H", [
+    (torch.bfloat16, True, 4, 2048, 32, 64),
+    (torch.bfloat16, True, 2, 2048, 8, 128),
+    (torch.float32, False, 16, 128, 12, 64),
+    (torch.float32, True, 1, 2048, 2, 64),
+    (torch.float32, True, 1, 2048, 2, 128)])
+def test_flash_kernels_repeat_bitwise(cuda, dtype, causal, B, T, N, H):
     # two launches on the same inputs give the same bits: the kernels sum
     # in a fixed order without atomics, so a difference means a tile ring
     # stage was read after its next load overwrote it
-    q, k, v, do = _flash_case(cuda, torch.bfloat16, B, T, N, H, seed=11,
+    q, k, v, do = _flash_case(cuda, dtype, B, T, N, H, seed=11,
                               strided=True)
-    fwd = [fa.flash_fwd(q, k, v, True) for _ in range(2)]
+    fwd = [fa.flash_fwd(q, k, v, causal) for _ in range(2)]
     delta = fa.flash_delta(fwd[0][0], do)
-    dq = [fa.flash_bwd_dq(q, k, v, do, fwd[0][1], delta, True)
+    dq = [fa.flash_bwd_dq(q, k, v, do, fwd[0][1], delta, causal)
           for _ in range(2)]
-    dkv = [fa.flash_bwd_dkv(q, k, v, do, fwd[0][1], delta, True)
+    dkv = [fa.flash_bwd_dkv(q, k, v, do, fwd[0][1], delta, causal)
            for _ in range(2)]
     torch.cuda.synchronize()
     for a, b in zip(fwd[0] + (dq[0],) + dkv[0], fwd[1] + (dq[1],) + dkv[1]):

@@ -36,6 +36,10 @@ from paddle_tpu_torch.profiler import registry  # noqa: E402
 from paddle_tpu_torch.testing import faults as tfaults  # noqa: E402
 from paddle_tpu_torch.testing.world import World  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-6, rtol=1e-6)
 
 

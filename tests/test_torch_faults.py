@@ -39,6 +39,10 @@ from paddle_tpu_torch.serving import (ContinuousBatchScheduler,  # noqa: E402
                                       GenerationEngine, GenerationRequest)
 from paddle_tpu_torch.testing import faults  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 96
 EKW = dict(max_batch_size=2, buckets=(16, 32), block_size=8, rng_seed=7)

@@ -24,6 +24,10 @@ from paddle_tpu_torch.ops import _build  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.profiler import explainer, registry  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 BLOCK = 128
 
@@ -141,6 +145,72 @@ def test_wrappers_compute_plain_versions_on_cpu_tensors():
     assert counts["flash_fwd_ref"] == counts["flash_bwd_dq_ref"] == \
         counts["flash_bwd_dkv_ref"] == 2
     assert lse.dtype == torch.float32 and tuple(lse.shape) == (1, 2, 128)
+
+
+def _tf32(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def _tc_matmul(a, b, split):
+    """``a @ b`` of float32 operands as the float32 K1 and K3 take it on the
+    tensor cores: split TF32 (``x = hi + lo``, both TF32; ``lo.hi + hi.lo +
+    hi.hi``) or single TF32 (``hi.hi``). TF32 products are exact; the sum
+    is taken in float64 and rounded to float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    out = ah.double() @ bh.double()
+    if split:
+        out += (_tf32(a - ah).double() @ bh.double()
+                + ah.double() @ _tf32(b - bh).double())
+    return out.float()
+
+
+def _tc_k1_k3(q, k, v, do, lse, delta, scale, split):
+    """Non-causal K1's output and K3's (dk, dv), ``[B, T, N, H]``, with
+    every product of the two kernels taken by ``_tc_matmul``; K3 from the
+    given lse and delta."""
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    s = _tc_matmul(qh, kh.transpose(-1, -2), split) * scale
+    p = torch.softmax(s, -1)
+    out = _tc_matmul(p, vh, split)
+    p = torch.exp(s - lse.unsqueeze(-1))
+    ds = p * (_tc_matmul(doh, vh.transpose(-1, -2), split)
+              - delta.unsqueeze(-1))
+    dk = _tc_matmul(ds.transpose(-1, -2), qh, split) * scale
+    dv = _tc_matmul(p.transpose(-1, -2), doh, split)
+    return [x.transpose(1, 2) for x in (out, dk, dv)]
+
+
+def test_split_tf32_products_meet_the_float32_bounds():
+    # the split-TF32 arithmetic of the float32 K1 and K3 (head_dim 64 and
+    # 128) against the interpreted Pallas kernels: within FLASH_PARITY_TOL
+    # and FLASH_PARITY_REL for float32, which single-rounding TF32 misses
+    # by some 40 times (phase 14's length, two heads)
+    B, T, N, H = 1, 128, 2, 64
+    q, k, v, do = _inputs(B, T, N, H, seed=14)
+    scale = H ** -0.5
+    jq, jk, jv, jdo = (_flat(x) for x in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        jout, jlse = pallas_ops._flash_fwd_call(jq, jk, jv, False, scale,
+                                                BLOCK, BLOCK)
+        _, jdk, jdv = pallas_ops._flash_flat_bwd(
+            False, scale, BLOCK, BLOCK, (jq, jk, jv, jout, jlse), jdo)
+    want = [torch.from_numpy(_unflat(x, B, N).copy())
+            for x in (jout, jdk, jdv)]
+    lse = torch.from_numpy(np.asarray(jlse).reshape(B, N, T).copy())
+    delta = fa.flash_delta(want[0], torch.from_numpy(do))
+    ins = [torch.from_numpy(x) for x in (q, k, v, do)]
+    atol, rtol = fa.FLASH_PARITY_TOL[torch.float32]
+    bound = fa.FLASH_PARITY_REL[torch.float32]
+    split = _tc_k1_k3(*ins, lse, delta, scale, split=True)
+    single = _tc_k1_k3(*ins, lse, delta, scale, split=False)
+    for got, ref in zip(split, want):
+        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+        assert fa.flash_rel_err(got, ref) <= bound
+    for got, ref in zip(single, want):
+        assert fa.flash_rel_err(got, ref) > 10 * bound
 
 
 def _bf16_forward(q, k, v, drop_key_tile=None, tile=64):

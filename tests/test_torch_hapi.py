@@ -41,6 +41,10 @@ from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.profiler import explainer  # noqa: E402
 from paddle_tpu_torch.testing import faults  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 VOCAB = 96
 CFG = dict(vocab_size=VOCAB, n_head=2, dropout=0.0)
 TOKS = np.random.default_rng(0).integers(0, VOCAB, (8, 129))

@@ -9,6 +9,10 @@ import sys
 import pytest
 import torch
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "paddle_tpu_torch"
 

@@ -31,6 +31,10 @@ from paddle_tpu_torch import io as tio  # noqa: E402
 from paddle_tpu_torch.io import shm_ring  # noqa: E402
 from paddle_tpu_torch.profiler import registry  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 

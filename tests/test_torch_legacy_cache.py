@@ -24,6 +24,10 @@ from paddle_tpu.models import gpt as jgpt  # noqa: E402
 from paddle_tpu_torch import convert  # noqa: E402
 from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 VOCAB = 96
 TOL = dict(atol=1e-5, rtol=1e-5)
 

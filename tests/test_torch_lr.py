@@ -9,6 +9,11 @@ import math
 
 import numpy as np
 import pytest
+import torch
+
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
 
 pytest.importorskip("jax")
 

@@ -46,6 +46,10 @@ from paddle_tpu_torch.serving import (DraftVerifyEngine,  # noqa: E402
                                       GenerationEngine)
 from paddle_tpu_torch.testing.world import World  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 VOCAB = 96
 CFG = dict(vocab_size=VOCAB, initializer_range=0.35)
 EKW = dict(max_batch_size=2, buckets=(8, 16), rng_seed=13, block_size=4)

@@ -31,6 +31,10 @@ from paddle_tpu_torch.nn import moe as tmoe  # noqa: E402
 from paddle_tpu_torch.profiler import explainer as texplain  # noqa: E402
 from paddle_tpu_torch.profiler import registry as tregistry  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 GATE_TOL = dict(atol=1e-6, rtol=0)
 TOL = dict(atol=1e-4, rtol=1e-4)
 D, FF = 16, 32

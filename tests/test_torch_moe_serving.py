@@ -35,6 +35,10 @@ from paddle_tpu_torch.serving import (ContinuousBatchScheduler,  # noqa: E402
                                       DraftVerifyEngine, GenerationEngine,
                                       GenerationRequest)
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 VOCAB = 96
 EKW = dict(max_batch_size=2, buckets=(16, 32), rng_seed=9, block_size=8)
 CFG = dict(vocab_size=VOCAB, initializer_range=0.35)

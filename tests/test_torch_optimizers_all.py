@@ -28,6 +28,10 @@ from paddle_tpu_torch import nn as tnn  # noqa: E402
 from paddle_tpu_torch import optimizer as topt  # noqa: E402
 from paddle_tpu_torch import regularizer as treg  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-6, rtol=2e-6)
 SHAPES = {"w": (5, 4), "b": (4,), "e": (6, 3)}
 W_RATE = 0.5

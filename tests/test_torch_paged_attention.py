@@ -21,6 +21,10 @@ from paddle_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from paddle_tpu_torch.ops.attention import attention  # noqa: E402
 from paddle_tpu_torch.profiler import registry  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
 

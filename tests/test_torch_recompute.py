@@ -29,6 +29,10 @@ from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from paddle_tpu_torch.profiler import registry  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 VOCAB, B, T = 96, 2, 128
 CFG = dict(vocab_size=VOCAB, n_head=2, dropout=0.0)
 N_LAYER = 2

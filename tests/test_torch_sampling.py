@@ -17,6 +17,10 @@ import jax.numpy as jnp  # noqa: E402
 from paddle_tpu.serving import sampling as jsamp  # noqa: E402
 from paddle_tpu_torch.serving import sampling as tsamp  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 B, V = 8, 64
 
 

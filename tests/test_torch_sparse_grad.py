@@ -23,6 +23,10 @@ from paddle_tpu_torch import nn as tnn  # noqa: E402
 from paddle_tpu_torch import optimizer as topt  # noqa: E402
 from paddle_tpu_torch import regularizer as treg  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=2e-6, rtol=2e-6)
 V, D = 10, 4
 # rows 7, 8 and 9 are never looked up; 1 and 3 are looked up twice or more

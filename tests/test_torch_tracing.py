@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -25,6 +26,10 @@ from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.profiler import registry, timeline, tracing  # noqa
 from paddle_tpu_torch.serving import (ContinuousBatchScheduler,  # noqa: E402
                                       GenerationEngine, GenerationRequest)
+
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
 
 VOCAB = 96
 EKW = dict(max_batch_size=2, buckets=(16, 32), block_size=8, rng_seed=7)

@@ -28,6 +28,10 @@ from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
 from paddle_tpu_torch.ops.attention import \
     scaled_dot_product_attention  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 VOCAB, B, LR = 96, 2, 1e-3
 CFG = dict(vocab_size=VOCAB, n_head=2, dropout=0.0)

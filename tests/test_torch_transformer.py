@@ -29,6 +29,10 @@ from paddle_tpu_torch.incubate import nn as tinc  # noqa: E402
 from paddle_tpu_torch.nn import functional as tF  # noqa: E402
 from paddle_tpu_torch.nn import initializer as tinit  # noqa: E402
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 # bert_tiny's widths, so that the two files share compiled shapes
 D, HEADS, FF, B, T = 128, 2, 512, 2, 8

@@ -30,6 +30,10 @@ from paddle_tpu_torch.serving import (ContinuousBatchScheduler,  # noqa: E402
                                       GenerationEngine, GenerationRequest,
                                       GenerationServer, WeightSwapError)
 
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
 VOCAB = 96
 EKW = dict(max_batch_size=3, buckets=(16, 32), rng_seed=9, block_size=8)
 SEEDS = {"A": 21, "B": 22}

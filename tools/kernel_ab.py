@@ -12,7 +12,10 @@ checkout's package alone (it builds its kernels under the checkout's
 ``build/``); the inputs and the timers are this repository's
 ``chip_smoke.py`` for both sides. A child times, at the shapes of
 ``chip_smoke.py``, K4 at 8 slots x 1024 and 2 slots x 2048 live rows (bf16
-decode) and K1, K2 and K3 at the training step's shape, each as device
+decode), K1, K2 and K3 at the training step's shape (bf16, causal) and at
+phase 14's (bert-base pretraining: float32, non-causal, 16 x 12 heads x
+128 x 64, on unbind views), with SDPA's forward at phase 14's shape read
+beside them on each side, each as device
 time (``chip_smoke.device_ms``: calls captured in a CUDA graph and
 replayed, so the host's cost per call does not count; K4's calls take
 copies of its pools in turn, so L2 is cold, and "warm_ms" is K4 on one
@@ -55,16 +58,25 @@ def child(root):
                        20)
         res[name] = {"warm_ms": cs.device_ms(
             lambda a=args: pa.paged_attention(*a), calls=20, replays=2)}
-    B, T, N, H = cs.STEP_SHAPE
-    q, k, v, do = cs.flash_case(dev, torch.bfloat16, B, T, N, H, seed=9,
-                                strided=True)
-    out, lse = fa.flash_fwd(q, k, v, True)
-    delta = fa.flash_delta(out, do)
-    calls["flash_fwd"] = (lambda: fa.flash_fwd(q, k, v, True), 10)
-    calls["flash_bwd_dq"] = (
-        lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True), 10)
-    calls["flash_bwd_dkv"] = (
-        lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True), 10)
+    flash = ((torch.bfloat16, True, cs.STEP_SHAPE, 9, ""),
+             (torch.float32, False, cs.NONCAUSAL_SHAPES[torch.float32], 13,
+              " float32 phase 14"))
+    for dtype, causal, (B, T, N, H), seed, tag in flash:
+        q, k, v, do = cs.flash_case(dev, dtype, B, T, N, H, seed=seed,
+                                    strided=True)
+        out, lse = fa.flash_fwd(q, k, v, causal)
+        delta = fa.flash_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal)
+        calls["flash_fwd" + tag] = (
+            lambda q=q, k=k, v=v, c=causal: fa.flash_fwd(q, k, v, c), 10)
+        calls["flash_bwd_dq" + tag] = (
+            lambda a=args: fa.flash_bwd_dq(*a), 10)
+        calls["flash_bwd_dkv" + tag] = (
+            lambda a=args: fa.flash_bwd_dkv(*a), 10)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    calls["sdpa_forward float32 phase 14"] = (
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt),
+        10)
     for name, (fn, n) in calls.items():
         res.setdefault(name, {}).update(
             device_ms=cs.device_ms(fn, calls=n, replays=2),
