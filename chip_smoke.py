@@ -116,8 +116,10 @@ Phases, in order; any failure exits non-zero:
              (batch 4 x 32 heads, seq_len 2048, head_dim 64, bf16, causal);
              every output held elementwise and, block by block, relative to
              the plain version's norm; each launched twice on the same
-             inputs at the step's shape and at bf16 H=128, T=2048, the
-             outputs bitwise equal (K1, K2 and K3); then each timed at the
+             inputs (REPEAT_CASES: bf16 causal at the step's shape and at
+             H=128, T=2048; float32 non-causal at phase 14's shape and at
+             H=128, causal at T=2048), the outputs bitwise equal (K1, K2
+             and K3); then each timed at the
              step's shape beside its plain version, one library call and
              its bound; and the encoder path's non-causal instances
              (bf16 at 16 x 12 heads x 512, float32 at 16 x 12 x 128, head
@@ -397,8 +399,12 @@ DESIGNS = {
                     "(H=128) mbarrier ring of 64-key K/V tiles, Q/dO/lse/"
                     "delta resident, two consumer warpgroups of 64 query "
                     "rows: S and dP on wgmma, dS as the register A operand "
-                    "of dQ += dS K, dQ in registers; float32 at every H "
-                    "and bf16 at H=96/256: " + _WMMA,
+                    "of dQ += dS K, dQ in registers; float32 at H=64/128: "
+                    + _TF32 + "64 query rows, Q and dO split once into "
+                    "resident hi/lo tiles (2 blocks per SM at H=64), lse "
+                    "and delta in registers, 32-key K/V tiles, dS the register A operand of dQ += dS K in a "
+                    "permuted key order, dQ in registers; "
+                    "float32 and bf16 at H=96/256: " + _WMMA,
     "flash_bwd_dkv": "(a) bf16 at H=64/128: warp-specialised, TMA "
                      "producer (setmaxnreg 24/232) into a 3-stage mbarrier "
                      "ring of Q/dO/lse/delta tiles, 64 keys resident per "
@@ -415,14 +421,12 @@ DESIGNS = {
 PHASE_SECONDS = {}
 
 
-def instance_design(name, dtype, H):
+def instance_design(dtype, H):
     """The design, "a", "b" or "c" (``csrc/flash_attention.cu``'s header),
-    that kernel ``name`` launches at ``dtype`` and head_dim ``H``."""
+    that K1, K2 and K3 launch at ``dtype`` and head_dim ``H``."""
     if H not in (64, 128):
         return "b"
-    if dtype == torch.bfloat16:
-        return "a"
-    return "b" if name == "flash_bwd_dq" else "c"
+    return "a" if dtype == torch.bfloat16 else "c"
 
 
 def timed(name, fn, *args, **kwargs):
@@ -903,10 +907,11 @@ def flash_bound(name, q, causal):
 
 # cases of the run-to-run check, (dtype, causal, [B, T, N, H]): bf16 causal
 # at the training step's shape and at H=128; float32 non-causal at phase
-# 14's shape and causal at T=2048 (the split-TF32 instances)
+# 14's shape and at H=128, and causal at T=2048 (the split-TF32 instances)
 REPEAT_CASES = ((torch.bfloat16, True, STEP_SHAPE),
                 (torch.bfloat16, True, (2, 2048, 8, 128)),
                 (torch.float32, False, NONCAUSAL_SHAPES[torch.float32]),
+                (torch.float32, False, (4, 256, 4, 128)),
                 (torch.float32, True, (1, 2048, 2, 64)))
 
 
@@ -1084,7 +1089,7 @@ def phase_flash_kernels(dev):
             "rel_bound": {str(d)[6:]: t
                           for d, t in fa.FLASH_PARITY_REL.items()},
             **row, "design": DESIGNS[name],
-            "instance_design": instance_design(name, torch.bfloat16,
+            "instance_design": instance_design(torch.bfloat16,
                                                STEP_SHAPE[3])}
     for dtype, shape in NONCAUSAL_SHAPES.items():
         rows.update(noncausal_rows(dev, dtype, shape))
@@ -1121,7 +1126,7 @@ def noncausal_rows(dev, dtype, shape):
             "max_rel_err": max(rels), "rel_bound": fa.FLASH_PARITY_REL[dtype],
             "shape": [B, T, N, H], "causal": False, **row,
             "design": DESIGNS[name],
-            "instance_design": instance_design(name, dtype, H)}
+            "instance_design": instance_design(dtype, H)}
     return rows
 
 
@@ -4495,11 +4500,9 @@ def phase_bert_pretraining(dev, dtype="float32", batch=16, seq_len=128,
               "peak_memory_gb": peak_gb, "train_step": jit,
               "launches": {k: counts["by_dtype"][dtype][k]
                            for k in FLASH_KERNELS},
-              "designs": {k: instance_design(k, torch.bfloat16 if bf16
-                                             else torch.float32,
-                                             cfg.hidden_size
-                                             // cfg.num_attention_heads)
-                          for k in FLASH_KERNELS}}
+              "designs": dict.fromkeys(FLASH_KERNELS, instance_design(
+                  torch.bfloat16 if bf16 else torch.float32,
+                  cfg.hidden_size // cfg.num_attention_heads))}
     log(f"bert pretraining ({dtype}): " + json.dumps(result))
     del train, opt, model
     free_memory()

@@ -76,10 +76,9 @@
 //     cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled"), so the
 //     library needs no -lcuda, and reach the kernel as __grid_constant__.
 //
-// (b) WMMA design: K2 in float32 at every H, K1 and K3 in float32 at H = 96
-//     and 256, and all three in bf16 at H = 96 and 256 (no preset uses
-//     those head_dims). It multiplies float32 in exact float32 on the FMA
-//     units.
+// (b) WMMA design: K1, K2 and K3 at H = 96 and 256, in float32 and bf16
+//     (no preset uses those head_dims). It multiplies float32 in exact
+//     float32 on the FMA units.
 //   * One 128-thread block per (b*n, tile of BLK rows): query tiles for K1
 //     and K2, key tiles for K3. The TPU kernel's sequential grid axis over
 //     the other side becomes a loop inside the block, and the running
@@ -90,8 +89,8 @@
 //     warp per row, and accumulates the next product (WMMA bf16 m16n16k16,
 //     or float32 FMA for float32 inputs).
 //
-// (c) Split-TF32 design: K1 and K3 in float32 at H = 64 and 128 (bert-base
-//     pretraining in float32, every float32 GPT leg).
+// (c) Split-TF32 design: K1, K2 and K3 in float32 at H = 64 and 128
+//     (bert-base pretraining in float32, every float32 GPT leg).
 //   * Arithmetic: every float32 operand x is split as hi = tf32(x), lo =
 //     tf32(x - hi) (cvt.rna), and each product is taken on the tensor cores
 //     as lo.hi + hi.lo + hi.hi (small terms first) with float32
@@ -120,6 +119,16 @@
 //     fit on an SM (bert-base at 16 x 128: a launch's 384 blocks in one
 //     wave);
 //     132 KB at H = 128.
+//   * K2: a block owns 64 query rows of one (b, n), Q and dO resident,
+//     each thread's two rows' lse and delta in registers; K and V tiles of
+//     32 keys go through the ring, the first in one group with Q and dO.
+//     S = Q K^T and dP = dO V^T run on registers, P and dS = P (dP -
+//     delta) form there, and dS is the register A operand of dQ += dS K,
+//     K read in the permuted key order. dQ stays in registers until the
+//     epilogue. Q and dO are split once into resident hi and lo tiles:
+//     102 KB of shared memory and two blocks per SM at H = 64 (bert-base
+//     at 16 x 128: a launch's 384 blocks in 1.45 waves), 198 KB and one
+//     block at H = 128.
 //   * K3: a block owns 64 keys, K and V split once into resident hi and lo
 //     tiles; query tiles of 32 rows of Q and dO, with their lse and delta,
 //     go through the ring. S^T = K Q^T and dP^T = V dO^T put one key row
@@ -1217,21 +1226,23 @@ __global__ void __launch_bounds__(256, 2)
   }
 }
 
-// ------------------------------------ K1 and K3 for Hopper, float32 --
+// -------------------------------- K1, K2 and K3 for Hopper, float32 --
 // Design (c): split TF32 on mma.sync m16n8k8, accumulators in registers.
 // In a warp, g = lane / 4 and t = lane % 4; a 16 x 8 accumulator tile holds
 // (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) in its four values.
 
 template <int H>
 struct Tf32Cfg {
-  static constexpr int BM = 64;  // K1: query rows per block; K3: keys
-  static constexpr int BN = 32;  // K1: keys per ring tile
+  static constexpr int BM = 64;  // K1, K2: query rows per block; K3: keys
+  static constexpr int BN = 32;  // K1, K2: keys per ring tile
   static constexpr int BQ = 32;  // K3: query rows per ring tile
   static constexpr int STAGES = 2;
   // K1 blocks per SM the registers are held to: three at H = 64 (its 68
   // KB of shared memory let three fit: bert-base at 16 x 128 runs a
   // launch's 384 blocks in one wave), one at H = 128
   static constexpr int FWD_BLOCKS = H == 64 ? 3 : 1;
+  // K2's: two at H = 64 (102 KB), one at H = 128
+  static constexpr int DQ_BLOCKS = H == 64 ? 2 : 1;
   // columns of O (K1) or of dV and dK (K3) summed per pass over a tile:
   // the pass's accumulator is NC / 2 registers a thread. 16 at H = 128,
   // where K3's dK and dV take 128 registers and ptxas spills with wider
@@ -1242,9 +1253,11 @@ struct Tf32Cfg {
   static constexpr int QTILE = BQ * LD * 4;
   // K1: Q hi, Q lo, then the ring of K and V tiles
   static constexpr int FWD = 2 * TILE + STAGES * 2 * BN * LD * 4;
+  // K2: Q hi, Q lo, dO hi, dO lo, then the ring of K and V tiles
+  static constexpr int DQ = 4 * TILE + STAGES * 2 * BN * LD * 4;
   // K3: K hi, K lo, V hi, V lo, then the ring of Q, dO, lse and delta
   static constexpr int DKV = 4 * TILE + STAGES * (2 * QTILE + 2 * BQ * 4);
-  static_assert(FWD <= 232448 && DKV <= 232448,
+  static_assert(FWD <= 232448 && DQ <= 232448 && DKV <= 232448,
                 "tile does not fit in shared memory");
 };
 
@@ -1589,6 +1602,133 @@ __global__ void __launch_bounds__(kThreads, Tf32Cfg<H>::FWD_BLOCKS)
   }
 }
 
+// ------------------------------------------------------ K2, split TF32 --
+template <int H>
+__global__ void __launch_bounds__(kThreads, Tf32Cfg<H>::DQ_BLOCKS)
+    flash_bwd_dq_kernel_tf32(const Params p) {
+  count_launch(1, 0);
+  using C = Tf32Cfg<H>;
+  constexpr int BM = C::BM, BN = C::BN, LD = C::LD, STAGES = C::STAGES;
+  constexpr int NC = C::NC;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qh = reinterpret_cast<float*>(smem);
+  float* Ql = Qh + BM * LD;
+  float* DOh = Ql + BM * LD;
+  float* DOl = DOh + BM * LD;
+  float* Ks = DOl + BM * LD;
+  float* Vs = Ks + STAGES * BN * LD;
+
+  const int T_len = p.T;
+  const int bn = blockIdx.x;
+  // causal query tiles are issued longest-first
+  const int qb =
+      p.causal ? T_len / BM - 1 - int(blockIdx.y) : int(blockIdx.y);
+  const int b = bn / p.N;
+  const int n = bn % p.N;
+  // the reference's bound: key tiles up to the one holding the last row
+  const int hi = p.causal ? (qb + 1) * BM / BN : T_len / BN;
+
+  const float* q = static_cast<const float*>(p.q) + b * p.vq.sb +
+                   n * p.vq.sn + (long long)qb * BM * p.vq.st;
+  const float* dout = static_cast<const float*>(p.dout) + b * p.vdo.sb +
+                      n * p.vdo.sn + (long long)qb * BM * p.vdo.st;
+  const float* k = static_cast<const float*>(p.k) + b * p.vk.sb + n * p.vk.sn;
+  const float* v = static_cast<const float*>(p.v) + b * p.vv.sb + n * p.vv.sn;
+
+  // Q and dO in the first group, with the first K and V tile
+  load_async<H>(Qh, q, p.vq.st, BM);
+  load_async<H>(DOh, dout, p.vdo.st, BM);
+  load_async<H>(Ks, k, p.vk.st, BN);
+  load_async<H>(Vs, v, p.vv.st, BN);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int first = qb * BM + 16 * warp;  // this warp's rows
+  const int row0 = first + g;              // and row0 + 8
+  const float sl2 = p.scale * kLog2e;
+  // lse (in units of log2) and delta of rows row0 and row0 + 8
+  const long long at = (long long)bn * T_len + row0;
+  const float lse2[2] = {p.lse_in[at] * kLog2e, p.lse_in[at + 8] * kLog2e};
+  const float del[2] = {p.delta[at], p.delta[at + 8]};
+  const int a_off = 16 * warp * LD + a_lane_offset(LD);
+  const uint32_t qh_addr = hopper::smem_u32(Qh + a_off);
+  const uint32_t ql_addr = hopper::smem_u32(Ql + a_off);
+  const uint32_t doh_addr = hopper::smem_u32(DOh + a_off);
+  const uint32_t dol_addr = hopper::smem_u32(DOl + a_off);
+  const int b_off = b_lane_offset(LD);
+
+  float dq[H / 2];
+#pragma unroll
+  for (int i = 0; i < H / 2; ++i) dq[i] = 0.f;
+
+  for (int j = 0; j < hi; ++j) {
+    const int s = j % STAGES;
+    cp_async_wait_all();
+    __syncthreads();  // tile j has landed; every warp is done with j - 1
+    if (j + 1 < hi) {
+      const int s1 = (j + 1) % STAGES;
+      load_async<H>(Ks + s1 * BN * LD, k + (long long)(j + 1) * BN * p.vk.st,
+                    p.vk.st, BN);
+      load_async<H>(Vs + s1 * BN * LD, v + (long long)(j + 1) * BN * p.vv.st,
+                    p.vv.st, BN);
+    }
+    cp_async_commit();
+    if (j == 0) {
+      split_rows<H>(Qh, Ql, BM);
+      split_rows<H>(DOh, DOl, BM);
+      __syncthreads();
+    }
+    // a key tile wholly above this warp's rows adds nothing to its dQ
+    if (p.causal && j * BN > first + 15) continue;
+    const float* Kt = Ks + s * BN * LD;
+    const float* Vt = Vs + s * BN * LD;
+
+    // S = Q K^T and dP = dO V^T: 16 x BN each per warp, in registers
+    float sc[BN / 2], dp[BN / 2];
+    rows_times_rows<H, BN>(sc, qh_addr, ql_addr,
+                           hopper::smem_u32(Kt + b_off));
+    rows_times_rows<H, BN>(dp, doh_addr, dol_addr,
+                           hopper::smem_u32(Vt + b_off));
+
+    // P = exp(scale s - lse) and dS = P (dP - delta), into sc; the mask
+    // only on tiles that reach past this warp's first row
+    const bool masked = p.causal && (j + 1) * BN > first + 1;
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = j * BN + 8 * jj + 2 * t + (e & 1);
+        const float pv = !masked || key <= row0 + 8 * r
+                             ? hopper::ex2(fmaf(sc[4 * jj + e], sl2, -lse2[r]))
+                             : 0.f;
+        sc[4 * jj + e] = pv * (dp[4 * jj + e] - del[r]);
+      }
+
+    // dQ += dS K, NC columns at a time, the tile's sum started from zero
+#pragma unroll
+    for (int hc = 0; hc < H / NC; ++hc) {
+      float acc[NC / 2];
+      acc_times_rows<BN, NC>(acc, sc, Kt, LD, hc);
+#pragma unroll
+      for (int i = 0; i < NC / 2; ++i) dq[NC / 2 * hc + i] += acc[i];
+    }
+  }
+
+  const long long out_row = (long long)p.N * H;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* out = static_cast<float*>(p.dq) +
+                 ((long long)b * T_len + row0 + 8 * r) * out_row +
+                 (long long)n * H;
+#pragma unroll
+    for (int jj = 0; jj < H / 8; ++jj)
+      *reinterpret_cast<float2*>(out + 8 * jj + 2 * t) = make_float2(
+          dq[4 * jj + 2 * r] * p.scale, dq[4 * jj + 2 * r + 1] * p.scale);
+  }
+}
+
 // ------------------------------------------------------ K3, split TF32 --
 template <int H>
 __global__ void __launch_bounds__(kThreads)
@@ -1773,8 +1913,8 @@ bool encode_view(CUtensorMap* map, const void* ptr, const View& v, int B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16 at H = 64 and 128 takes the Hopper design (a); K1 and K3 in float32
-// at H = 64 and 128 the split-TF32 design (c); the rest the WMMA design (b)
+// bf16 at H = 64 and 128 takes the Hopper design (a); float32 at H = 64
+// and 128 the split-TF32 design (c); the rest the WMMA design (b)
 template <typename T, int H>
 constexpr bool kSm90 = std::is_same<T, __nv_bfloat16>::value &&
                        (H == 64 || H == 128);
@@ -1792,6 +1932,7 @@ int smem_bytes(int kind) {
   if constexpr (kTf32<T, H>) {
     if (kind == kFwd) return Tf32Cfg<H>::FWD;
     if (kind == kDkv) return Tf32Cfg<H>::DKV;
+    return Tf32Cfg<H>::DQ;
   }
   using C = Cfg<T, H>;
   // the carve rounds every buffer up to 128 bytes
@@ -1849,9 +1990,10 @@ template <int H>
 cudaError_t launch_tf32(int kind, const Params& p, int B,
                         cudaStream_t stream) {
   using C = Tf32Cfg<H>;
-  void (*fn)(Params) = kind == kFwd ? flash_fwd_kernel_tf32<H>
-                                    : flash_bwd_dkv_kernel_tf32<H>;
-  const int smem = kind == kFwd ? C::FWD : C::DKV;
+  void (*fn)(Params) = kind == kFwd  ? flash_fwd_kernel_tf32<H>
+                       : kind == kDq ? flash_bwd_dq_kernel_tf32<H>
+                                     : flash_bwd_dkv_kernel_tf32<H>;
+  const int smem = smem_bytes<float, H>(kind);
   if (p.T % C::BM != 0 || p.T / C::BM > 65535) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -1865,15 +2007,12 @@ template <typename T, int H>
 cudaError_t launch(int kind, const Params& p, int B, cudaStream_t stream) {
   if constexpr (kSm90<T, H>) {
     return launch_sm90<H>(kind, p, B, stream);
+  } else if constexpr (kTf32<T, H>) {
+    return launch_tf32<H>(kind, p, B, stream);
   } else {
-    void (*fn)(Params);
-    if (kind == kDq) {
-      fn = flash_bwd_dq_kernel<T, H>;
-    } else if constexpr (kTf32<T, H>) {
-      return launch_tf32<H>(kind, p, B, stream);
-    } else {
-      fn = kind == kFwd ? flash_fwd_kernel<T, H> : flash_bwd_dkv_kernel<T, H>;
-    }
+    void (*fn)(Params) = kind == kFwd  ? flash_fwd_kernel<T, H>
+                         : kind == kDq ? flash_bwd_dq_kernel<T, H>
+                                       : flash_bwd_dkv_kernel<T, H>;
     using C = Cfg<T, H>;
     const int smem = smem_bytes<T, H>(kind);
     if (p.T % C::BLK != 0 || p.T / C::BLK > 65535)

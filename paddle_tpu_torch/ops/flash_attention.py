@@ -50,11 +50,11 @@ HEAD_DIMS = (64, 96, 128, 256)
 SEQ_MULTIPLE = 128
 
 # per-dtype (atol, rtol) between each kernel and its plain version on the
-# same inputs. float32: K1 and K3 at head_dim 64 and 128 multiply in split
-# TF32 on the tensor cores (each operand x = hi + lo, both TF32, and each
-# product lo.hi + hi.lo + hi.hi, which keeps about 22 of a float32
-# product's 24 bits), summed in float32 one tile at a time; K2 and the
-# other head_dims multiply in exact float32. Both differ from the plain
+# same inputs. float32: K1, K2 and K3 at head_dim 64 and 128 multiply in
+# split TF32 on the tensor cores (each operand x = hi + lo, both TF32, and
+# each product lo.hi + hi.lo + hi.hi, which keeps about 22 of a float32
+# product's 24 bits), summed in float32 one tile at a time; the other
+# head_dims multiply in exact float32. Both differ from the plain
 # version by about float32's rounding over up to 2048 keys, in another
 # summation order. Single-rounding TF32 (hi.hi alone, 11 bits) would not
 # meet these bounds. bf16: the kernels round the

@@ -9,8 +9,8 @@ version) and ``PAGED_PARITY_REL`` per (slot, head) relative to the plain
 version computed in float32 (the kernel's bf16 output rounding);
 ``FLASH_PARITY_TOL`` elementwise and ``FLASH_PARITY_REL`` block
 by block relative to the plain version's norm for the flash kernels
-(float32: summation order, and split TF32's dropped lo.lo term in K1 and
-K3 at head_dim 64 and 128; bf16 P and dS rounded before the tensor-core
+(float32: summation order, and split TF32's dropped lo.lo term in K1, K2
+and K3 at head_dim 64 and 128; bf16 P and dS rounded before the tensor-core
 products in the kernels).
 """
 import pytest
@@ -538,16 +538,37 @@ def test_flash_kernels_at_the_training_step_shape(cuda):
 def test_flash_kernels_at_the_bert_pretraining_shape(cuda):
     # bert-base pretraining in float32 at the reference benchmark's 16 x
     # 128: 12 heads of 64, non-causal, on the unbind views of the fused
-    # QKV projection (K1 and K3 on the split-TF32 design)
+    # QKV projection (K1, K2 and K3 on the split-TF32 design)
     q, k, v, do = _flash_case(cuda, torch.float32, 16, 128, 12, 64,
                               seed=13, strided=True)
     _check_flash_kernels(q, k, v, do, False)
+
+
+@pytest.mark.parametrize("H", [64, 128])
+def test_float32_k2_launches_the_split_tf32_instance(cuda, H):
+    # float32 K2 at head_dim 64 and 128 runs design (c), named
+    # flash_bwd_dq_kernel_tf32<H> on the card, and no other K2 instance
+    q, k, v, do = _flash_case(cuda, torch.float32, 2, 256, 2, H, seed=4,
+                              strided=True)
+    out, lse = fa.flash_fwd(q, k, v, True)
+    delta = fa.flash_delta(out, do)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    dq = [n for n in names if "flash_bwd_dq_kernel" in n]
+    assert len(dq) == 1, names
+    assert "flash_bwd_dq_kernel_tf32" in dq[0] and f"<{H}>" in dq[0], dq
 
 
 @pytest.mark.parametrize("dtype,causal,B,T,N,H", [
     (torch.bfloat16, True, 4, 2048, 32, 64),
     (torch.bfloat16, True, 2, 2048, 8, 128),
     (torch.float32, False, 16, 128, 12, 64),
+    (torch.float32, False, 4, 256, 4, 128),
     (torch.float32, True, 1, 2048, 2, 64),
     (torch.float32, True, 1, 2048, 2, 128)])
 def test_flash_kernels_repeat_bitwise(cuda, dtype, causal, B, T, N, H):

@@ -155,10 +155,10 @@ def _tf32(x):
 
 
 def _tc_matmul(a, b, split):
-    """``a @ b`` of float32 operands as the float32 K1 and K3 take it on the
-    tensor cores: split TF32 (``x = hi + lo``, both TF32; ``lo.hi + hi.lo +
-    hi.hi``) or single TF32 (``hi.hi``). TF32 products are exact; the sum
-    is taken in float64 and rounded to float32."""
+    """``a @ b`` of float32 operands as the float32 K1, K2 and K3 take it on
+    the tensor cores: split TF32 (``x = hi + lo``, both TF32; ``lo.hi +
+    hi.lo + hi.hi``) or single TF32 (``hi.hi``). TF32 products are exact;
+    the sum is taken in float64 and rounded to float32."""
     ah, bh = _tf32(a), _tf32(b)
     out = ah.double() @ bh.double()
     if split:
@@ -167,50 +167,65 @@ def _tc_matmul(a, b, split):
     return out.float()
 
 
-def _tc_k1_k3(q, k, v, do, lse, delta, scale, split):
-    """Non-causal K1's output and K3's (dk, dv), ``[B, T, N, H]``, with
-    every product of the two kernels taken by ``_tc_matmul``; K3 from the
-    given lse and delta."""
+def _tc_kernels(q, k, v, do, lse, delta, scale, causal, split):
+    """K1's output, K2's dq and K3's (dk, dv), ``[B, T, N, H]``, with every
+    product of the three kernels taken by ``_tc_matmul``; K2 and K3 from
+    the given lse and delta."""
     qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
     s = _tc_matmul(qh, kh.transpose(-1, -2), split) * scale
-    p = torch.softmax(s, -1)
-    out = _tc_matmul(p, vh, split)
+    if causal:
+        T = q.shape[1]
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(),
+                          float("-inf"))
+    out = _tc_matmul(torch.softmax(s, -1), vh, split)
     p = torch.exp(s - lse.unsqueeze(-1))
     ds = p * (_tc_matmul(doh, vh.transpose(-1, -2), split)
               - delta.unsqueeze(-1))
+    dq = _tc_matmul(ds, kh, split) * scale
     dk = _tc_matmul(ds.transpose(-1, -2), qh, split) * scale
     dv = _tc_matmul(p.transpose(-1, -2), doh, split)
-    return [x.transpose(1, 2) for x in (out, dk, dv)]
+    return [x.transpose(1, 2) for x in (out, dq, dk, dv)]
 
 
-def test_split_tf32_products_meet_the_float32_bounds():
-    # the split-TF32 arithmetic of the float32 K1 and K3 (head_dim 64 and
-    # 128) against the interpreted Pallas kernels: within FLASH_PARITY_TOL
-    # and FLASH_PARITY_REL for float32, which single-rounding TF32 misses
-    # by some 40 times (phase 14's length, two heads)
-    B, T, N, H = 1, 128, 2, 64
-    q, k, v, do = _inputs(B, T, N, H, seed=14)
+def _check_split_tf32(T, causal, seed):
+    """The split-TF32 arithmetic of the float32 K1, K2 and K3 against the
+    interpreted Pallas kernels (two heads of 64): within FLASH_PARITY_TOL
+    and FLASH_PARITY_REL for float32, which single-rounding TF32 misses
+    by more than ten times."""
+    B, N, H = 1, 2, 64
+    q, k, v, do = _inputs(B, T, N, H, seed=seed)
     scale = H ** -0.5
     jq, jk, jv, jdo = (_flat(x) for x in (q, k, v, do))
     with pltpu.force_tpu_interpret_mode():
-        jout, jlse = pallas_ops._flash_fwd_call(jq, jk, jv, False, scale,
+        jout, jlse = pallas_ops._flash_fwd_call(jq, jk, jv, causal, scale,
                                                 BLOCK, BLOCK)
-        _, jdk, jdv = pallas_ops._flash_flat_bwd(
-            False, scale, BLOCK, BLOCK, (jq, jk, jv, jout, jlse), jdo)
+        jdq, jdk, jdv = pallas_ops._flash_flat_bwd(
+            causal, scale, BLOCK, BLOCK, (jq, jk, jv, jout, jlse), jdo)
     want = [torch.from_numpy(_unflat(x, B, N).copy())
-            for x in (jout, jdk, jdv)]
+            for x in (jout, jdq, jdk, jdv)]
     lse = torch.from_numpy(np.asarray(jlse).reshape(B, N, T).copy())
     delta = fa.flash_delta(want[0], torch.from_numpy(do))
     ins = [torch.from_numpy(x) for x in (q, k, v, do)]
     atol, rtol = fa.FLASH_PARITY_TOL[torch.float32]
     bound = fa.FLASH_PARITY_REL[torch.float32]
-    split = _tc_k1_k3(*ins, lse, delta, scale, split=True)
-    single = _tc_k1_k3(*ins, lse, delta, scale, split=False)
+    split = _tc_kernels(*ins, lse, delta, scale, causal, split=True)
+    single = _tc_kernels(*ins, lse, delta, scale, causal, split=False)
     for got, ref in zip(split, want):
         torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
         assert fa.flash_rel_err(got, ref) <= bound
     for got, ref in zip(single, want):
         assert fa.flash_rel_err(got, ref) > 10 * bound
+
+
+def test_split_tf32_products_meet_the_float32_bounds():
+    # phase 14's length, non-causal: K1, K2 and K3 at bert-base's float32
+    # shape (head_dim 64)
+    _check_split_tf32(128, causal=False, seed=14)
+
+
+def test_split_tf32_products_meet_the_float32_bounds_causal():
+    # two 128-row tiles, causal: the float32 GPT legs' masking
+    _check_split_tf32(256, causal=True, seed=15)
 
 
 def _bf16_forward(q, k, v, drop_key_tile=None, tile=64):

@@ -9,9 +9,9 @@ Run on a machine with one NVIDIA GPU and nvcc, from the repository root:
 Each mutant below is one edit of a kernel source under
 ``paddle_tpu_torch/csrc/``. The ``k1``-``k3`` mutants edit the flash
 kernels' Hopper design (a), which bf16 takes at head_dim 64 and 128; the
-``k1_tf32`` and ``k3_tf32`` mutants edit the split-TF32 design (c), which
-float32 K1 and K3 take at head_dim 64 and 128; the K4 mutants edit the
-paged kernel's split pass or its combine, every dtype. For each, the tool
+``k1_tf32``, ``k2_tf32`` and ``k3_tf32`` mutants edit the split-TF32
+design (c), which float32 K1, K2 and K3 take at head_dim 64 and 128; the
+K4 mutants edit the paged kernel's split pass or its combine, every dtype. For each, the tool
 copies ``paddle_tpu_torch/`` into
 ``build/mutants/<name>/`` (the copy builds its own libraries under that
 directory), applies the edit there and runs, in a child process against the
@@ -77,11 +77,12 @@ MUTANTS = {
     "k1_tf32_drop_lo_term": (
         "K1 (split TF32, float32) drops Q's lo part, so S loses its lo.hi "
         "term: the product keeps TF32's 11 bits of Q", FLASH,
-        "      split_rows<H>(Qh, Ql, BM);\n",
+        "      split_rows<H>(Qh, Ql, BM);\n      __syncthreads();\n",
         "      split_rows<H>(Qh, Ql, BM);\n"
         "      __syncthreads();\n"
         "      for (int e = threadIdx.x; e < BM * LD; e += kThreads)\n"
-        "        Ql[e] = 0.f;\n"),
+        "        Ql[e] = 0.f;\n"
+        "      __syncthreads();\n"),
     "k1_tf32_last_key_tile": (
         "K1 (split TF32, float32) skips each query tile's last key tile "
         "(the diagonal one where causal)", FLASH,
@@ -90,6 +91,24 @@ MUTANTS = {
         "#pragma unroll\n"
         "      for (int e = 0; e < BN / 2; ++e) sc[e] = -INFINITY;\n"
         "    // the mask, only on tiles that reach past this warp's first row\n"),
+    "k2_tf32_drop_lo_term": (
+        "K2 (split TF32, float32) drops dO's lo part, so dP loses its "
+        "lo.hi term: the product keeps TF32's 11 bits of dO", FLASH,
+        "      split_rows<H>(DOh, DOl, BM);\n",
+        "      split_rows<H>(DOh, DOl, BM);\n"
+        "      __syncthreads();\n"
+        "      for (int e = threadIdx.x; e < BM * LD; e += kThreads)\n"
+        "        DOl[e] = 0.f;\n"),
+    "k2_tf32_last_key_tile": (
+        "K2 (split TF32, float32) skips each query tile's last key tile "
+        "(the diagonal one where causal): dQ loses those keys' terms", FLASH,
+        "    // dQ += dS K, NC columns at a time, the tile's sum started from "
+        "zero\n",
+        "    if (j == hi - 1)\n"
+        "#pragma unroll\n"
+        "      for (int e = 0; e < BN / 2; ++e) sc[e] = 0.f;\n"
+        "    // dQ += dS K, NC columns at a time, the tile's sum started from "
+        "zero\n"),
     "k3_tf32_one_query_tile": (
         "K3 (split TF32, float32) skips the last query tile (32 rows) of "
         "every key tile's loop: dK and dV lose those rows' terms", FLASH,

@@ -6,15 +6,17 @@ Run on a machine with one NVIDIA GPU and nvcc, from the repository root:
     python3 tools/kernel_ab.py PARENT_DIR CHANGE_DIR [--rounds N]
 
 Each directory holds a checkout of the repository (a commit unpacked with
-``git archive``) with its ``paddle_tpu_torch/``. Each round runs parent,
+``git archive``, or a copy with one edit of a kernel source, to time a
+variant) with its ``paddle_tpu_torch/``. Each round runs parent,
 change, change, parent, every run in a child process that imports that
 checkout's package alone (it builds its kernels under the checkout's
 ``build/``); the inputs and the timers are this repository's
 ``chip_smoke.py`` for both sides. A child times, at the shapes of
 ``chip_smoke.py``, K4 at 8 slots x 1024 and 2 slots x 2048 live rows (bf16
-decode), K1, K2 and K3 at the training step's shape (bf16, causal) and at
+decode), K1, K2 and K3 at the training step's shape (bf16, causal), at
 phase 14's (bert-base pretraining: float32, non-causal, 16 x 12 heads x
-128 x 64, on unbind views), with SDPA's forward at phase 14's shape read
+128 x 64, on unbind views) and at float32 causal 1 x 2 heads x 2048 x 64
+(a ``REPEAT_CASES`` shape), with SDPA's forward at phase 14's shape read
 beside them on each side, each as device
 time (``chip_smoke.device_ms``: calls captured in a CUDA graph and
 replayed, so the host's cost per call does not count; K4's calls take
@@ -58,7 +60,9 @@ def child(root):
                        20)
         res[name] = {"warm_ms": cs.device_ms(
             lambda a=args: pa.paged_attention(*a), calls=20, replays=2)}
+    # phase 14's shape last: SDPA's forward below reads its q, k and v
     flash = ((torch.bfloat16, True, cs.STEP_SHAPE, 9, ""),
+             (torch.float32, True, (1, 2048, 2, 64), 11, " float32 causal"),
              (torch.float32, False, cs.NONCAUSAL_SHAPES[torch.float32], 13,
               " float32 phase 14"))
     for dtype, causal, (B, T, N, H), seed, tag in flash:

@@ -43,7 +43,8 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 
 # kernel family by a substring of the kernel's name, first match wins; the
-# flash patterns match both designs (flash_*_kernel, flash_*_kernel_sm90)
+# flash patterns match every design (flash_*_kernel, flash_*_kernel_sm90,
+# flash_*_kernel_tf32)
 FAMILIES = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
