@@ -295,6 +295,24 @@ Phases, in order; any failure exits non-zero:
              mode, bf16, 16 x 128: 6 K1 launches a forward and no K2 or
              K3 on the card's count, the logits within FLASH_PARITY_TOL of
              the plain route's; p50 forward and samples/s.
+15. resnet   BASELINE config 1 (tools/model_bench.py:43-70): resnet50()
+             (1000 classes, 25.6 M parameters, float32, seed-0 weights),
+             32 x 3 x 224 x 224 synthetic images from a seeded generator,
+             labels in [0, 10), cross_entropy and Momentum(0.1) through
+             TrainStep's CUDA graph, 10 steps: losses finite, one capture,
+             0 kernels launched from the host a step (torch.profiler);
+             p50 step (host clock, synchronised), images/s, MFU (conv and
+             FC multiply-adds counted from the model's shapes, 3 forwards
+             a step, against 67 TFLOP/s float32 FMA), device time a step,
+             peak memory; then the same step under auto_cast O1 (conv in
+             bf16, batch norm in float32): images/s, peak memory;
+15b. resnet parity  resnet18(num_classes=10) at 4 x 3 x 32 x 32 (the
+             benchmark's tiny scale) under cudnn.deterministic: 3 steps
+             through the graph against 3 eager steps of a twin (losses,
+             parameters, running statistics within RESNET_GRAPH_TOL); the
+             card's float32 forward, loss and gradients at step 0 against
+             the port's CPU float64 run of the same weights
+             (RESNET_CPU_TOL, gradients relative in norm).
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -357,6 +375,17 @@ NONCAUSAL_SHAPES = {torch.bfloat16: (16, 512, 12, 64),
 # can take on the card. PEAK_FLOPS keeps 67 TFLOP/s for float32: phase
 # 14's MFU reads it, and its GEMMs run on the FMA units (TF32 stays off).
 FLASH_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
+# BASELINE config 1 (tools/model_bench.py:43-70): ResNet-50 at batch 32 x
+# 3 x 224 x 224, labels in [0, 10), Momentum 0.1; and its tiny scale
+RESNET_FULL = dict(batch=32, side=224, num_classes=1000)
+RESNET_TINY = dict(batch=4, side=32, num_classes=10)
+# phase 15b: graph against eager (the same kernels, cudnn.deterministic:
+# held to float32 noise); the card's float32 against the CPU's float64
+# (logits and loss elementwise; gradients relative in norm per parameter:
+# cuDNN sums a weight's gradient over 4 x 32 x 32 positions and more in
+# float32, and the worst parameter measured 2.7e-4)
+RESNET_GRAPH_TOL = 1e-5
+RESNET_CPU_TOL = dict(logits=1e-4, grad_rel=1e-3)
 PEAK_NAMES = {torch.bfloat16: "989 TFLOP/s bf16 tensor cores, dense",
               torch.float32: "3 TF32 products at 495 TFLOP/s, dense "
                              "(split TF32)"}
@@ -2449,9 +2478,10 @@ def profile_steps(step, n):
     card ran: ``{"split": {(Dh, rows of the instance): launches of K4's
     split pass}, "combine": launches of its combine, "kernels": every
     kernel, "graph_launches": cudaGraphLaunch calls, "kernel_launches":
-    kernel launch calls made from the host}``. CUPTI reports each kernel
-    of a replayed CUDA graph as its own activity, so the kernels inside
-    the graph are counted one by one."""
+    kernel launch calls made from the host, "device_ms": the kernels'
+    summed durations}``. CUPTI reports each kernel of a replayed CUDA graph
+    as its own activity, so the kernels inside the graph are counted one
+    by one."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2460,10 +2490,11 @@ def profile_steps(step, n):
             step()
         torch.cuda.synchronize()
     out = {"split": {}, "combine": 0, "kernels": 0, "graph_launches": 0,
-           "kernel_launches": 0, "host_syncs": {}}
+           "kernel_launches": 0, "host_syncs": {}, "device_ms": 0.0}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             out["kernels"] += 1
+            out["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3
             m = _SPLIT.search(e.name)
             if m:
                 key = (int(m.group(1)), int(m.group(2)))
@@ -4509,6 +4540,233 @@ def phase_bert_pretraining(dev, dtype="float32", batch=16, seq_len=128,
     return result
 
 
+def resnet_macs(model, dev, side):
+    """Multiply-adds of one image's forward through ``model``'s
+    convolutions and Linear layers, counted from the shapes a forward at
+    batch 1 gives them (eval mode, no gradient)."""
+    from paddle_tpu_torch.nn.layer.conv import _ConvNd
+
+    macs = [0]
+
+    def conv_hook(mod, args, out):
+        k = math.prod(mod.weight.shape[2:])
+        cin = mod.weight.shape[0] if mod._transpose else mod.weight.shape[1]
+        macs[0] += out.numel() * cin * k
+
+    def linear_hook(mod, args, out):
+        macs[0] += out.numel() * mod.in_features
+
+    hooks = [m.register_forward_hook(conv_hook if isinstance(m, _ConvNd)
+                                     else linear_hook)
+             for m in model.modules()
+             if isinstance(m, (_ConvNd, torch.nn.Linear))]
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, side, side, device=dev))
+    finally:
+        model.train(was)
+        for h in hooks:
+            h.remove()
+    return macs[0]
+
+
+def resnet_batch(dev, batch, side, seed=0):
+    """``model_bench``'s synthetic batch: normal images and labels in
+    [0, 10) from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(batch, 3, side, side)).astype(np.float32)
+    y = rng.integers(0, 10, (batch,))
+    return torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+
+
+def resnet_training_setup(dev, depth=50, batch=32, side=224,
+                          num_classes=1000, seed=0, amp=None):
+    """Phase 15's step (``tools/model_bench.py:43-70``): ``resnet<depth>``
+    with seed-``seed`` weights, ``Momentum(0.1)``, ``F.cross_entropy``
+    (the forward under ``auto_cast(level=amp)`` when ``amp`` is given)
+    under ``TrainStep``, and the batch. Returns ``(model, opt, train, x,
+    y)``; ``train(x, y)`` is one step (eager, then capture, then replays),
+    ``train.step_fn(x, y)`` the same step run eagerly."""
+    import contextlib
+
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import models
+
+    model = getattr(models, f"resnet{depth}")(
+        num_classes=num_classes, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    opt = Momentum(0.1, parameters=model.parameters())
+    x, y = resnet_batch(dev, batch, side, seed)
+
+    def step_fn(xb, yb):
+        with (auto_cast(level=amp) if amp else contextlib.nullcontext()):
+            loss = F.cross_entropy(model(xb), yb)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, TrainStep(step_fn, model, opt), x, y
+
+
+def resnet_run(dev, steps, amp=None):
+    """``steps`` calls of phase 15's step through the graph: the eager
+    call and the capture, then timed replays (host clock, each read
+    synchronised), then 2 replays under torch.profiler."""
+    from paddle_tpu_torch.profiler import registry
+
+    t0 = time.perf_counter()
+    model, opt, train, x, y = resnet_training_setup(dev, amp=amp,
+                                                    **RESNET_FULL)
+    build_s = time.perf_counter() - t0
+    macs = resnet_macs(model, dev, RESNET_FULL["side"])
+    registry.reset("jit")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(train(x, y).detach()) for _ in range(2)]
+    step_s = []
+    for _ in range(steps - 2):
+        t1 = time.perf_counter()
+        losses.append(float(train(x, y)))
+        step_s.append(time.perf_counter() - t1)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    jit = dict(registry.counters("jit"))
+    prof = profile_steps(lambda: train(x, y), 2)
+    p50 = sorted(step_s)[math.ceil(len(step_s) / 2) - 1]
+    batch = RESNET_FULL["batch"]
+    flops = 3 * 2 * macs * batch
+    result = {"amp": amp or "float32", "batch": batch,
+              "side": RESNET_FULL["side"], "steps": steps,
+              "build_s": build_s, "step_p50_ms": p50 * 1e3,
+              "step_ms": [round(t * 1e3, 3) for t in step_s],
+              "images_per_s": batch / p50,
+              "macs_per_image": macs, "flops_per_step": flops,
+              "mfu": flops / p50 / PEAK_FLOPS[torch.float32],
+              "mfu_peak": "67 TFLOP/s float32 FMA (TF32 off)",
+              "least_step_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
+              "losses": losses, "peak_memory_gb": peak_gb,
+              "train_step": jit,
+              "params": sum(p.numel() for p in model.parameters()),
+              "host_kernel_launches_per_step": prof["kernel_launches"] / 2,
+              "graph_launches_per_step": prof["graph_launches"] / 2,
+              "kernels_per_step": prof["kernels"] / 2,
+              "device_ms_per_step": prof["device_ms"] / 2}
+    del train, opt, model
+    free_memory()
+    return result
+
+
+def phase_resnet_training(dev, steps=10):
+    """15: BASELINE config 1's ResNet-50 step at full scale through
+    ``TrainStep``'s graph, float32, then under O1 (see the module's
+    docstring). Checks: losses finite, one capture and one eager call a
+    route, 0 kernels launched from the host a step (float32 route)."""
+    fp32 = resnet_run(dev, steps)
+    o1 = resnet_run(dev, steps, amp="O1")
+    for r in (fp32, o1):
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"resnet {r['amp']}: losses {r['losses']}")
+        jit = r["train_step"]
+        if jit["train_step_captures"] != 1 or jit["train_step_eager"] != 1:
+            raise AssertionError(f"resnet {r['amp']}: TrainStep {jit}")
+        if r["host_kernel_launches_per_step"] != 0 or \
+                r["graph_launches_per_step"] != 1:
+            raise AssertionError(
+                f"resnet {r['amp']}: {r['host_kernel_launches_per_step']} "
+                "kernels launched from the host and "
+                f"{r['graph_launches_per_step']} graph launches a step")
+    if fp32["params"] != 25557032:
+        raise AssertionError(f"resnet50: {fp32['params']} parameters")
+    log("resnet training: " + json.dumps({"float32": fp32, "O1": o1}))
+    return fp32, o1
+
+
+def _resnet_state(model):
+    return {k: v.detach().float().cpu().clone()
+            for k, v in model.state_dict().items()}
+
+
+def _max_gap(a, b):
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def phase_resnet_parity(dev, steps=3):
+    """15b: ``resnet18(num_classes=10)`` at the tiny scale under
+    ``cudnn.deterministic``: the graph route against a twin's eager steps,
+    then the card's float32 step-0 forward, loss and gradients against the
+    port's CPU float64 run of the same weights."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import models
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, _, graph, x, y = resnet_training_setup(dev, depth=18,
+                                                  **RESNET_TINY)
+        _, _, eager, _, _ = resnet_training_setup(dev, depth=18,
+                                                  **RESNET_TINY)
+        g_losses = [float(graph(x, y).detach()) for _ in range(steps)]
+        e_losses = [float(eager.step_fn(x, y).detach())
+                    for _ in range(steps)]
+        g_state = _resnet_state(graph._models[0])
+        e_state = _resnet_state(eager._models[0])
+        scale = max(float(v.abs().max()) for v in e_state.values())
+        gap = _max_gap(g_state, e_state)
+        loss_gap = max(abs(a - b) for a, b in zip(g_losses, e_losses))
+        if gap > RESNET_GRAPH_TOL * scale or loss_gap > RESNET_GRAPH_TOL * \
+                max(abs(v) for v in e_losses):
+            raise AssertionError(
+                f"resnet parity: graph against eager: losses {g_losses} / "
+                f"{e_losses}, state gap {gap} (scale {scale})")
+        # the card's float32 step 0 against the CPU's float64
+        card = models.resnet18(
+            num_classes=10, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))
+        cpu = models.resnet18(num_classes=10, device="cpu").double()
+        cpu.load_state_dict({k: v.double() if v.is_floating_point() else v
+                             for k, v in _resnet_state(card).items()})
+        outs = []
+        for m, xb in ((card, x), (cpu, x.cpu().double())):
+            logits = m(xb)
+            loss = F.cross_entropy(logits, y.to(xb.device))
+            loss.backward()
+            outs.append((logits.detach().cpu().double(),
+                         loss.detach().cpu().double(),
+                         {n: p.grad.detach().cpu().double()
+                          for n, p in m.named_parameters()}))
+        (lc, sc, gc_), (lf, sf, gf) = outs
+        logits_gap = float((lc - lf).abs().max())
+        loss_gap64 = float((sc - sf).abs())
+        grad_rel, worst = max((float((gc_[n] - gf[n]).norm() / gf[n].norm()),
+                               n) for n in gf)
+        tol = RESNET_CPU_TOL
+        if logits_gap > tol["logits"] * max(1.0, float(lf.abs().max())) or \
+                loss_gap64 > tol["logits"] * max(1.0, float(sf.abs())) or \
+                grad_rel > tol["grad_rel"]:
+            raise AssertionError(
+                f"resnet parity: card against CPU float64: logits gap "
+                f"{logits_gap}, loss gap {loss_gap64}, gradients {grad_rel} "
+                f"({worst})")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    result = {"graph_vs_eager": {"losses": g_losses, "eager": e_losses,
+                                 "state_gap": gap, "state_scale": scale,
+                                 "tol": RESNET_GRAPH_TOL},
+              "card_vs_cpu_float64": {"logits_gap": logits_gap,
+                                      "loss_gap": loss_gap64,
+                                      "grad_rel_max": grad_rel,
+                                      "grad_rel_worst": worst,
+                                      "tol": tol}}
+    log("resnet parity: " + json.dumps(result))
+    free_memory()
+    return result
+
+
 # bf16 gradients of the kernel route against the plain route, relative in
 # norm per parameter: phase 8's bound for two layers (the routes round P
 # and dS, and the scores and probabilities, to bf16 in different places)
@@ -5709,6 +5967,8 @@ def main():
                       "bfloat16", seq_len=512)
     bert_parity = timed("14c bert parity", phase_bert_parity, dev)
     ernie = timed("14d ernie inference", phase_ernie_inference, dev)
+    resnet, resnet_o1 = timed("15 resnet", phase_resnet_training, dev)
+    resnet_parity = timed("15b resnet parity", phase_resnet_parity, dev)
     runs = {"bfloat16": ("14b", bert_bf16), "float32": ("14", bert)}
     for name, row in flash.items():  # the encoder path's instances
         if "_noncausal_" not in name:
@@ -5870,6 +6130,19 @@ def main():
         f"{ernie['forward_p50_ms']:.2f} ms, {ernie['samples_per_s']:.0f} "
         f"samples/s, K1 {ernie['launches_per_forward']:.0f} per forward; "
         f"bert parity {json.dumps(bert_parity)}")
+    for run in (resnet, resnet_o1):
+        log(f"resnet training on {smi}: resnet50 {run['amp']} batch "
+            f"{run['batch']} x 3 x {run['side']}^2 through TrainStep's "
+            f"graph: p50 step {run['step_p50_ms']:.2f} ms, "
+            f"{run['images_per_s']:.1f} images/s, MFU {run['mfu']:.4f} "
+            f"({run['mfu_peak']}; least step "
+            f"{run['least_step_ms']:.2f} ms), device "
+            f"{run['device_ms_per_step']:.2f} ms a step, "
+            f"{run['host_kernel_launches_per_step']:.0f} kernels launched "
+            f"from the host a step, peak memory "
+            f"{run['peak_memory_gb']:.2f} GB; losses "
+            f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}")
+    log(f"resnet parity on {smi}: {json.dumps(resnet_parity)}")
     r0 = dist["ranks"][0]
     peak = max(r["peak_memory_gb"] for r in dist["ranks"])
     staged = {k: v for k, v in r0["collective"].items() if "staged" in k}

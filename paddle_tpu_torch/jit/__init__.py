@@ -50,7 +50,11 @@ perturbs a recorded argument shape, so the check captures again;
 ``mode=scalar`` finds nothing pinned and does nothing). Every
 ``torch.Generator`` on the card held by a module of the models (a GPT's
 dropout stream) is registered with each graph, so each replay draws new
-masks and the generator's state between calls is its true state.
+masks and the generator's state between calls is its true state. Before
+each replay torch writes the seed and the offset of every generator the
+step drew from into the graph's copies of them: two ``fill_`` kernels
+launched from the host a replay (BERT's dropout stream); a step that
+draws nothing (ResNet, GPT without dropout) launches none.
 
 Counters (registry scope ``jit``): ``train_step_captures``,
 ``train_step_replays``, ``train_step_eager``. The kernel wrappers'

@@ -12,10 +12,13 @@ the ranks' results in rank order. Every wait has a deadline: a rank that
 raises, or a world that does not answer within ``timeout`` seconds (a
 hung collective), fails that call with the ranks' tracebacks; the world
 is then stopped and the next call starts a fresh one. ``close()`` stops
-the ranks and waits for them.
+the ranks, waits for them, and closes and drops the queues, whose
+semaphores are then unlinked at once (a resource tracker stopped after
+``close()`` finds none left to clean up).
 """
 from __future__ import annotations
 
+import gc
 import multiprocessing as mp
 import os
 import pickle
@@ -152,8 +155,22 @@ class World:
         deadline = time.monotonic() + 5.0
         for p in self._procs:
             p.join(timeout=max(deadline - time.monotonic(), 0.01))
+        killed = False
         for p in self._procs:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=5.0)
+                killed = True
         self._procs = []
+        # close the queues, wait for their feeder threads (which hold two
+        # of each queue's semaphores) and drop them: the semaphores are
+        # unlinked now, not left to a resource tracker that may be stopped
+        # first. A killed rank may leave data unread: nothing waits for it.
+        for q in self._tasks + ([self._results]
+                               if self._results is not None else []):
+            if killed:
+                q.cancel_join_thread()
+            q.close()
+            q.join_thread()
+        self._tasks, self._results, q = [], None, None
+        gc.collect()

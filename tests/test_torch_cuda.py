@@ -13,6 +13,8 @@ by block relative to the plain version's norm for the flash kernels
 and K3 at head_dim 64 and 128; bf16 P and dS rounded before the tensor-core
 products in the kernels).
 """
+import math
+
 import pytest
 import torch
 
@@ -1227,3 +1229,98 @@ def test_bert_train_step_with_dropout_equals_the_eager_loop(cuda):
     assert len(set(float(x) for x in lg)) == 4
     assert all(torch.equal(a, b) for a, b in zip(mg.parameters(),
                                                  me.parameters()))
+
+
+def _resnet18(dev, seed=0):
+    from paddle_tpu_torch.vision.models import resnet18
+
+    return resnet18(num_classes=10, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def test_resnet18_train_step_graph_equals_the_eager_loop(cuda):
+    """BASELINE config 1's step at its tiny scale (4 x 3 x 32 x 32,
+    Momentum 0.1) through ``TrainStep``'s graph against the same step
+    called eagerly, under cudnn.deterministic: losses, parameters and the
+    batch norms' running statistics (updated in place at every replay)
+    equal."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.profiler import registry
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 3, 32, 32, generator=g).to(cuda)
+    y = torch.randint(0, 10, (4,), generator=g).to(cuda)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for graph in (True, False):
+            model = _resnet18(cuda)
+            opt = Momentum(0.1, parameters=model.parameters())
+
+            def step_fn(xb, yb, model=model, opt=opt):
+                loss = F.cross_entropy(model(xb), yb)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+
+            registry.reset("jit")
+            step = TrainStep(step_fn, model, opt) if graph else step_fn
+            losses = [step(x, y).detach() for _ in range(4)]
+            torch.cuda.synchronize()
+            if graph:
+                jit = registry.counters("jit")
+                assert jit["train_step_captures"] == 1
+                assert jit["train_step_replays"] == 3
+            runs.append((losses, model))
+    finally:
+        torch.backends.cudnn.deterministic = det
+    (lg, mg), (le, me) = runs
+    for a, b in zip(lg, le):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert len(set(float(v) for v in lg)) == 4
+    for (name, a), b in zip(mg.state_dict().items(),
+                            me.state_dict().values()):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=name)
+    assert float(mg.bn1._mean.abs().sum()) > 0
+
+
+def test_conv_and_batch_norm_under_o1(cuda):
+    """Under O1 a convolution runs in bf16 (white list) and a batch norm in
+    float32 (black list) on the card too; the O1 step through the graph
+    gives finite losses and float32 gradients."""
+    from paddle_tpu_torch.amp import auto_cast
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = _resnet18(cuda)
+    x = torch.randn(4, 3, 32, 32, device=cuda)
+    y = torch.randint(0, 10, (4,), device=cuda)
+    # no autograd graph out here: one kept alive into the capture would
+    # hold AccumulateGrad nodes of the default stream
+    with torch.no_grad(), auto_cast(level="O1"):
+        h = model.conv1(x)
+        b = model.bn1(h)
+    assert h.dtype == torch.bfloat16 and b.dtype == torch.float32
+    torch.testing.assert_close(
+        b, F.batch_norm(h.float(), torch.zeros(64, device=cuda),
+                        torch.ones(64, device=cuda), model.bn1.weight,
+                        model.bn1.bias, True), atol=1e-5, rtol=1e-5)
+    opt = Momentum(0.1, parameters=model.parameters())
+
+    def step_fn(xb, yb):
+        with auto_cast(level="O1"):
+            loss = F.cross_entropy(model(xb), yb)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    step = TrainStep(step_fn, model, opt)
+    losses = [float(step(x, y)) for _ in range(3)]
+    assert all(math.isfinite(v) for v in losses)
+    assert all(p.dtype == torch.float32 for p in model.parameters())

@@ -108,6 +108,20 @@ def test_encoder_entry_points_raise_without_cuda(monkeypatch):
     assert {p.device.type for p in model.parameters()} == {"cpu"}
 
 
+def test_vision_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch.vision import models
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("resnet50", "resnet18", "LeNet", "alexnet", "vgg11",
+                 "squeezenet1_1", "mobilenet_v2", "shufflenet_v2_x0_25",
+                 "googlenet", "inception_v3", "densenet121"):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            getattr(models, name)()
+    model = models.resnet18(num_classes=10, device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert {b.device.type for b in model.buffers()} == {"cpu"}
+
+
 def test_kernel_choice_never_demotes_quietly():
     from paddle_tpu_torch.ops.paged_attention import select_paged_kernel
 

@@ -1,0 +1,30 @@
+"""The port's DenseNet-121 and GoogLeNet (its main and two auxiliary logits)
+against the JAX package's: each model's forward at its smallest valid
+input, in eval mode (running statistics drawn at random), with the
+reference's weights carried across by ``paddle_tpu_torch.convert`` (every
+state name matching). The zoo is split over three files so that each runs
+in under a minute on one worker.
+
+float32, one image; logits held to 1e-4 absolute and relative (float32 in
+both frameworks, convolutions summed in another order).
+"""
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+
+from vision_parity import zoo_parity  # noqa: E402
+
+# one intra-op thread: the suite's parallel workers share the CPU, and
+# a torch thread pool in each would oversubscribe it
+torch.set_num_threads(1)
+
+CASES = {
+    "densenet121": (lambda m: m.densenet121(num_classes=10), (1, 3, 32, 32)),
+    "googlenet": (lambda m: m.googlenet(num_classes=10), (1, 3, 32, 32)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_forward(name):
+    zoo_parity(*CASES[name])

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Where a GPT (or BERT) pretraining step of paddle_tpu_torch spends its
+"""Where a GPT, BERT or ResNet training step of paddle_tpu_torch spends its
 time, through ``TrainStep``'s CUDA graph and as the same step run eagerly.
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_train_profile.py [--preset gpt3-1.3B] [--batch 4]
         [--seq-len 2048] [--steps 2]
-        [--route both|graph|eager|fit|all|bert|bert-bf16]
+        [--route both|graph|eager|fit|all|bert|bert-bf16|resnet]
         [--trace train_trace.json]
 
 Builds the training step of ``chip_smoke.py`` phase 7 through its
@@ -19,15 +19,19 @@ DataLoader hands it; "all" runs eager, graph and fit, one model at a
 time. "bert" and "bert-bf16" are ``chip_smoke.py`` phases 14 and 14b's
 step through the graph (``bert_training_setup``: bert-base float32 at
 16 x 128, bf16 at 16 x 512; ``--preset``, ``--batch`` and ``--seq-len``
-do not apply), run one after the other for "bert-both". Per route: 3
-warm-up steps (for a graph: the eager call, the capture and a replay), 5
-steps timed on the host clock, then ``--steps``
-more traced with ``torch.profiler``. Prints the card (nvidia-smi name and
-power limit), and per route the step time, the device-busy share of the
-traced window (union of kernel intervals over wall time), the kernels
-launched from the host and the graph launches per step, and the device
-time per step by kernel family and by kernel; ``--trace`` also writes the
-chrome trace of the last route profiled to that path.
+do not apply), run one after the other for "bert-both". "resnet" is
+phase 15's step (``resnet_training_setup``: ResNet-50 float32 at 32 x 3
+x 224 x 224, Momentum 0.1, through the graph), and after it the Momentum
+update alone (``opt.step()`` called eagerly on the step's gradients, its
+kernels' device time). Per route: 3 warm-up steps (for a graph: the eager
+call, the capture and a replay), 5 steps timed on the host clock, then
+``--steps`` more traced with ``torch.profiler``. Prints the card
+(nvidia-smi name and power limit), and per route the step time, the
+device-busy share of the traced window (union of kernel intervals over
+wall time), the kernels launched from the host and the graph launches per
+step, the host-side operators per step (what launched those kernels), and
+the device time per step by kernel family and by kernel; ``--trace``
+also writes the chrome trace of the last route profiled to that path.
 """
 from __future__ import annotations
 
@@ -49,6 +53,10 @@ FAMILIES = (
     ("K1 flash_fwd", ("flash_fwd_kernel",)),
     ("K2 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K3 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("convolution", ("fprop", "dgrad", "wgrad", "convolve", "conv2d",
+                     "implicit_gemm", "winograd", "conv_kernel")),
+    ("BatchNorm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm")),
+    ("pooling", ("pool",)),
     ("GEMM", ("gemm", "sm90_xmma", "cutlass", "nvjet", "cublas")),
     ("LayerNorm", ("layer_norm",)),
     ("softmax / cross-entropy", ("softmax", "nll_loss", "log_softmax")),
@@ -107,6 +115,10 @@ def profile(step, steps):
                and not getattr(e, "is_user_annotation", False)]
     host = [e.name for e in events
             if e.device_type != torch.autograd.DeviceType.CUDA]
+    host_ops = {}
+    for n in host:
+        if n.startswith("aten::"):
+            host_ops[n] = host_ops.get(n, 0) + 1
     busy_us = _busy_union((e.time_range.start, e.time_range.end)
                           for e in kernels)
     by_name, by_family = {}, {}
@@ -127,6 +139,8 @@ def profile(step, steps):
         "host_kernel_launches_per_step": sum(
             n in LAUNCHES for n in host) / steps,
         "graph_launches_per_step": host.count("cudaGraphLaunch") / steps,
+        "host_ops_per_step": {n: c / steps for n, c in sorted(
+            host_ops.items(), key=lambda kv: -kv[1])[:12]},
         "family_ms_per_step": {f: v[1] / steps / 1e3
                                for f, v in by_family.items()},
         "top": sorted(((v[1] / steps / 1e3, v[0] // steps, n)
@@ -146,7 +160,7 @@ def main():
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--route", default="both",
                     choices=("both", "graph", "eager", "fit", "all", "bert",
-                             "bert-bf16", "bert-both"))
+                             "bert-bf16", "bert-both", "resnet"))
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace of the window here")
     args = ap.parse_args()
@@ -154,7 +168,8 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import (bert_training_setup, fit_model, free_memory,
+    from chip_smoke import (RESNET_FULL, bert_training_setup, fit_model,
+                            free_memory, resnet_training_setup,
                             training_setup)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -192,6 +207,25 @@ def main():
         routes["bert_model"] = train
         return lambda: train(ids, nsp)
 
+    def resnet_route():
+        """Phase 15's step through the graph; its optimizer for the
+        update's own timing."""
+        routes.clear()
+        free_memory()
+        model, opt, train, x, y = resnet_training_setup(dev, **RESNET_FULL)
+        routes["resnet"] = (model, opt, train, x, y)
+        return lambda: train(x, y)
+
+    def momentum_alone():
+        """``opt.step()`` on a step's gradients, eagerly: the update's
+        kernels and their device time a call."""
+        model, opt, _, x, y = routes["resnet"]
+        from paddle_tpu_torch.nn import functional as F
+
+        F.cross_entropy(model(x), y).backward()
+        res, _ = profile(opt.step, 2)
+        return res
+
     shapes = {"bert": ("float32", "bert-base float32, batch 16 x 128"),
               "bert-bf16": ("bfloat16", "bert-base bf16, batch 16 x 512")}
     print(f"card: {smi}")
@@ -199,7 +233,11 @@ def main():
            "seq_len": args.seq_len}
     prof = None
     for route in order:
-        if route in shapes:
+        if route == "resnet":
+            step = resnet_route()
+            what = (f"resnet50 float32, batch {RESNET_FULL['batch']} x 3 x "
+                    f"{RESNET_FULL['side']}^2")
+        elif route in shapes:
             step = bert_route(shapes[route][0],
                               128 if route == "bert" else 512)
             what = shapes[route][1]
@@ -225,6 +263,14 @@ def main():
         print("top kernels per step:")
         for ms, n, name in res.pop("top"):
             print(f"  {ms:9.2f} ms  {n:6d}/step  {name[:90]}")
+        print(f"host operators per step: {res['host_ops_per_step']}")
+        if route == "resnet":
+            upd = momentum_alone()
+            upd.pop("top")
+            out["resnet_momentum_update"] = upd
+            print(f"Momentum update alone (eager, 161 parameters): device "
+                  f"{upd['device_ms_per_step']:.2f} ms, "
+                  f"{upd['kernels_per_step']:.0f} kernels a call")
     if args.trace and prof is not None:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
