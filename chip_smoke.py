@@ -313,6 +313,33 @@ Phases, in order; any failure exits non-zero:
              card's float32 forward, loss and gradients at step 0 against
              the port's CPU float64 run of the same weights
              (RESNET_CPU_TOL, gradients relative in norm).
+16. ernie static  BASELINE config 5 (tools/model_bench.py:166-202):
+             ErnieForSequenceClassification(ErnieModel(ErnieConfig()), 3)
+             (bert-base widths, float32, seed-0 weights, eval) recorded by
+             build_static_inference_program from static.data
+             ("input_ids", [None, 128], "int64") under program_guard and
+             run by static.Executor at 16 x 128 as one CUDA graph: p50 run
+             (host clock, numpy feed and fetch included), samples/s,
+             device time and the host's CUDA calls a run (torch.profiler:
+             one graph launch, the feed, output and fetch copies, 0
+             kernels), 12 K1 launches a run on the card's count, 1
+             capture; the logits
+             against the module's eager forward and the plain route
+             (FLASH_PARITY_TOL); a batch-4 feed captures a second graph and
+             gives batch 16's first rows; the eager forward's p50 beside;
+16a.         save_inference_model of phase 16's Program (torch.export,
+             dynamic batch) served by create_predictor at batch 16 and 4
+             from the one artifact (12 K1 launches a run); jit.save /
+             jit.load of the classifier against both;
+16b.         the classifier (dropout 0) recorded with static.data ids and
+             labels, cross_entropy and AdamW(1e-4).minimize: 5 Executor
+             runs at 16 x 128 through one graph, K1, K2 and K3 12 times a
+             run, 0 kernels from the host on a replay; losses against
+             TrainStep's from the same weights (STATIC_TRAIN_TOL); then
+             static.save, load_program and one more run, bitwise the
+             original's next run;
+16c.         a static.nn.cond / while_loop Program on the card: its values
+             and its route (uncaptured, with the reason).
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -324,7 +351,8 @@ Every K4 row's "launches" is what the card counted for the row's instance
 over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
 one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
 the verify row, phase 7's graph replays for K1-K3 (phases 14 and 14b's
-for their non-causal float32 and bf16 rows), each counted on the
+for their non-causal float32 and bf16 rows, with phases 16-16b's static
+runs under "launches_by_path"), each counted on the
 card by the kernel itself; "launches_by_path" adds the MoE paths' windows
 (9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance) and phase
 10's launches per step by policy. The per-shard row's are phase 13's
@@ -4983,6 +5011,435 @@ def phase_ernie_inference(dev, batch=16, seq_len=128, iters=20):
     return result
 
 
+ERNIE_STATIC = dict(batch=16, seq_len=128, small_batch=4, runs=20)
+# 16b: the Executor's static training against TrainStep's eager-built
+# step on the same weights and data (the same kernels in the same order:
+# equality is expected; the bound allows float32 reassociation)
+STATIC_TRAIN_TOL = 1e-5
+STATIC_NO_DROPOUT = dict(hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+
+
+def ernie_classifier(dev, seed=0, **over):
+    """BASELINE config 5's model (tools/model_bench.py:166-202):
+    ``ErnieForSequenceClassification(ErnieModel(ErnieConfig()), 3)``,
+    bert-base widths (12 layers, hidden 768, 12 heads, vocab 30522),
+    float32, weights from ``seed``."""
+    from paddle_tpu_torch.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification, ErnieModel)
+
+    ernie = ErnieModel(ErnieConfig(**over), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(seed))
+    return ErnieForSequenceClassification(ernie, 3)
+
+
+def ernie_static_setup(dev, batch=16, seq_len=128):
+    """Phase 16's Program: ``ernie_classifier`` in eval mode recorded by
+    ``build_static_inference_program`` (``static.data("input_ids", [None,
+    seq_len], "int64")``). Returns ``(model, program, fetch, ids)``, ids a
+    seeded numpy batch."""
+    from paddle_tpu_torch.models.ernie import build_static_inference_program
+
+    model = ernie_classifier(dev)
+    model.eval()
+    prog, _, fetch = build_static_inference_program(model, seq_len=seq_len)
+    ids = np.random.default_rng(0).integers(
+        0, model.ernie.cfg.vocab_size, (batch, seq_len)).astype(np.int64)
+    return model, prog, fetch, ids
+
+
+def ernie_static_training_setup(dev, batch=16, seq_len=128, n_feeds=6):
+    """Phase 16b's Program: ``ernie_classifier`` without dropout, recorded
+    with ``static.data`` ids and labels, ``cross_entropy`` and
+    ``AdamW(1e-4).minimize``. Returns ``(model, program, loss, feeds)``,
+    ``n_feeds`` seeded numpy batches."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework import disable_static, enable_static
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = ernie_classifier(dev, **STATIC_NO_DROPOUT)
+    rng = np.random.default_rng(1)
+    feeds = [{"ids": rng.integers(0, model.ernie.cfg.vocab_size,
+                                  (batch, seq_len)).astype(np.int64),
+              "labels": rng.integers(0, 3, (batch,)).astype(np.int64)}
+             for _ in range(n_feeds)]
+    prog = static.Program()
+    enable_static()
+    try:
+        with static.program_guard(prog):
+            ids = static.data("ids", [None, seq_len], "int64")
+            labels = static.data("labels", [None], "int64")
+            loss = F.cross_entropy(model(ids), labels)
+            AdamW(learning_rate=1e-4).minimize(loss)
+    finally:
+        disable_static()
+    return model, prog, loss, feeds
+
+
+def host_calls(step, n):
+    """``step()`` ``n`` times under torch.profiler: per call, the CUDA
+    calls the host made by name (kernel launches, graph launches, copies),
+    the card's activities and their summed time."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    calls, device_ms, activities = {}, 0.0, 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            activities += 1
+            device_ms += (e.time_range.end - e.time_range.start) / 1e3
+        elif e.name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch",
+                                "cudaMemcpy", "cudaMemset")):
+            calls[e.name] = calls.get(e.name, 0) + 1
+    return {"host_calls": {k: v / n for k, v in sorted(calls.items())},
+            "kernel_launches": sum(v for k, v in calls.items()
+                                   if "Launch" in k and "Graph" not in k)
+            / n,
+            "device_activities": activities / n, "device_ms": device_ms / n}
+
+
+def _set_attention_route(model, route):
+    from paddle_tpu_torch.nn.layer.transformer import MultiHeadAttention
+
+    for mod in model.modules():
+        if isinstance(mod, MultiHeadAttention):
+            mod.kernel = route
+
+
+def phase_ernie_static(dev, **kw):
+    """16: BASELINE config 5 at full width through the static Executor.
+    The classifier is recorded by ``build_static_inference_program``
+    (``static.data("input_ids", [None, 128], "int64")`` under
+    ``program_guard``) and run by ``Executor.run`` at 16 x 128: run 1
+    eagerly, run 2 captures one CUDA graph, the timed runs replay it (host
+    clock, the numpy feed and the fetch included). The card counts 12 K1
+    launches a run and no K2 or K3; the logits equal the same module's
+    eager forward (the same kernels) and are within FLASH_PARITY_TOL of
+    the plain attention route. A batch-4 feed captures a second graph,
+    whose logits are the first four rows of batch 16's."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.profiler import registry
+
+    cfg = dict(ERNIE_STATIC, **kw)
+    B, T, runs = cfg["batch"], cfg["seq_len"], cfg["runs"]
+    t0 = time.perf_counter()
+    model, prog, fetch, ids_np = ernie_static_setup(dev, B, T)
+    setup_s = time.perf_counter() - t0
+    L = model.ernie.cfg.num_hidden_layers
+    ids = torch.from_numpy(ids_np).to(dev)
+    with torch.no_grad():
+        model(ids)
+        torch.cuda.synchronize()
+        eager_s = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            eager = model(ids)
+            torch.cuda.synchronize()
+            eager_s.append(time.perf_counter() - t0)
+        _set_attention_route(model, "torch")
+        plain = model(ids)
+        _set_attention_route(model, model.ernie.attn_kernel)
+    scope = static.Scope()
+    with static.scope_guard(scope):
+        exe = static.Executor()
+        registry.reset("jit")
+        registry.reset("static")
+        torch.cuda.reset_peak_memory_stats(dev)
+        feed = {"input_ids": ids_np}
+        for _ in range(2):  # the eager run, then the capture
+            logits, = exe.run(prog, feed=feed, fetch_list=[fetch])
+        torch.cuda.synchronize()
+        fa.reset_device_launches()
+        run_s = []
+        for _ in range(runs):
+            t0 = time.perf_counter()
+            logits, = exe.run(prog, feed=feed, fetch_list=[fetch])
+            run_s.append(time.perf_counter() - t0)
+        counts = flash_device_counts()
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+        if counts != {"flash_fwd": runs * L, "flash_bwd_dq": 0,
+                      "flash_bwd_dkv": 0}:
+            raise AssertionError(f"ernie static: the card counted {counts} "
+                                 f"over {runs} runs, want K1 {runs} x {L}")
+        captures = registry.counters("jit")["train_step_captures"]
+        if captures != 1:
+            raise AssertionError(f"ernie static: {captures} captures for "
+                                 "one feed signature")
+        prof = host_calls(lambda: exe.run(prog, feed=feed,
+                                          fetch_list=[fetch]), 3)
+        small = ids_np[:cfg["small_batch"]]
+        for _ in range(2):
+            logits_small, = exe.run(prog, feed={"input_ids": small},
+                                    fetch_list=[fetch])
+        captures_after = registry.counters("jit")["train_step_captures"]
+        static_counts = dict(registry.counters("static"))
+    got = torch.from_numpy(logits)
+    tol = fa.FLASH_PARITY_TOL[torch.float32]
+    eager_err = float((got - eager.cpu()).abs().max())
+    plain_err = check_close(got, plain.cpu(), tol,
+                            "ernie static logits vs the plain route")
+    check_close(got, eager.cpu(), tol, "ernie static logits vs eager")
+    small_err = check_close(torch.from_numpy(logits_small),
+                            got[:cfg["small_batch"]], tol,
+                            "ernie static batch 4 vs rows of batch 16")
+    if captures_after != 2:
+        raise AssertionError(f"ernie static: {captures_after} captures for "
+                             "two feed signatures")
+    p50 = sorted(run_s)[math.ceil(runs / 2) - 1]
+    eager_p50 = sorted(eager_s)[math.ceil(runs / 2) - 1]
+    flops = bert_flops_per_token(model.ernie.cfg, T, training=False,
+                                 lm_head=False) * B * T
+    result = {"batch": B, "seq_len": T, "n_layer": L, "runs": runs,
+              "setup_s": setup_s, "ops": len(prog.ops),
+              "params": len(prog.params),
+              "run_p50_ms": p50 * 1e3, "samples_per_s": B / p50,
+              "run_ms": [round(t * 1e3, 3) for t in run_s],
+              "eager_forward_p50_ms": eager_p50 * 1e3,
+              "least_run_ms": flops / PEAK_FLOPS[torch.float32] * 1e3,
+              "device_ms_per_run": prof["device_ms"],
+              "device_activities_per_run": prof["device_activities"],
+              "host_calls_per_run": prof["host_calls"],
+              "host_kernel_launches_per_run": prof["kernel_launches"],
+              "k1_launches_per_run": counts["flash_fwd"] / runs,
+              "captures": captures, "captures_after_batch_4": captures_after,
+              "static_counters": static_counts,
+              "max_abs_err_vs_eager": eager_err,
+              "max_abs_err_vs_plain": plain_err,
+              "max_abs_err_batch_4": small_err, "tolerance": list(tol),
+              "peak_memory_gb": peak_gb}
+    log("ernie static (16): " + json.dumps(result))
+    return result, (model, prog, fetch, scope, ids_np, logits, logits_small)
+
+
+def phase_ernie_static_io(dev, ctx):
+    """16a: phase 16's Program saved by ``save_inference_model`` and served
+    by ``create_predictor(Config(prefix))`` on the card from that one
+    artifact at batch 16 and batch 4 (each signature: an eager run, a
+    capture, replays): equal to phase 16's logits, 12 K1 launches a run
+    on the card's count. ``jit.save`` / ``jit.load`` of the same
+    classifier agrees with both."""
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    model, prog, fetch, scope, ids_np, logits, logits_small = ctx
+    L = model.ernie.cfg.num_hidden_layers
+    tol = fa.FLASH_PARITY_TOL[torch.float32]
+    d = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    try:
+        t0 = time.perf_counter()
+        with static.scope_guard(scope):
+            static.save_inference_model(
+                f"{d}/ernie", [prog.feed_vars["input_ids"]], [fetch],
+                static.Executor(), program=prog)
+        export_s = time.perf_counter() - t0
+        pred = inference.create_predictor(inference.Config(f"{d}/ernie"))
+        small = ids_np[:logits_small.shape[0]]
+        for _ in range(2):
+            out16 = pred.run([ids_np])[0]
+            out4 = pred.run([small])[0]
+        torch.cuda.synchronize()
+        fa.reset_device_launches()
+        runs, run_s = 5, []
+        for _ in range(runs):
+            t1 = time.perf_counter()
+            out16 = pred.run([ids_np])[0]
+            run_s.append(time.perf_counter() - t1)
+        counts = flash_device_counts()
+        if counts["flash_fwd"] != runs * L:
+            raise AssertionError(f"predictor: the card counted {counts} "
+                                 f"over {runs} runs, want K1 {runs} x {L}")
+        err16 = check_close(torch.from_numpy(out16), torch.from_numpy(logits),
+                            tol, "predictor batch 16 vs the Executor")
+        err4 = check_close(torch.from_numpy(out4),
+                           torch.from_numpy(logits_small), tol,
+                           "predictor batch 4 vs the Executor")
+        t0 = time.perf_counter()
+        jit.save(model, f"{d}/jit", input_spec=[
+            static.InputSpec([None, ids_np.shape[1]], "int64")])
+        jit_save_s = time.perf_counter() - t0
+        layer = jit.load(f"{d}/jit")
+        out_jit = layer(torch.from_numpy(ids_np)).cpu()
+        err_jit = check_close(out_jit, torch.from_numpy(logits), tol,
+                              "jit.load vs the Executor")
+        err_jit_pred = check_close(out_jit, torch.from_numpy(out16), tol,
+                                   "jit.load vs the Predictor")
+        jit_pred = inference.create_predictor(inference.Config(f"{d}/jit"))
+        err_jit_served = check_close(
+            torch.from_numpy(jit_pred.run([small])[0]),
+            torch.from_numpy(logits_small), tol,
+            "jit.save artifact through the Predictor vs the Executor")
+        size_mb = sum(os.path.getsize(f"{d}/ernie{x}")
+                      for x in (".pdmodel", ".pdiparams")) / 1e6
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    p50 = sorted(run_s)[math.ceil(runs / 2) - 1]
+    result = {"export_s": export_s, "jit_save_s": jit_save_s,
+              "artifact_mb": size_mb, "predictor_run_p50_ms": p50 * 1e3,
+              "k1_launches_per_run": counts["flash_fwd"] / runs,
+              "max_abs_err_batch_16": err16, "max_abs_err_batch_4": err4,
+              "max_abs_err_jit_vs_executor": err_jit,
+              "max_abs_err_jit_vs_predictor": err_jit_pred,
+              "max_abs_err_jit_predictor_batch_4": err_jit_served}
+    log("ernie static save/load (16a): " + json.dumps(result))
+    return result
+
+
+def phase_ernie_static_training(dev, steps=5, batch=16, seq_len=128):
+    """16b: the same classifier (dropout 0) recorded with
+    ``static.data`` ids and labels, ``F.cross_entropy`` and
+    ``AdamW(1e-4).minimize(loss)``; ``steps`` Executor runs at 16 x 128
+    float32 through one graph: K1, K2 and K3 12 times a run on the card's
+    count, no kernel launched from the host on a replay (only the feed,
+    scalar, output and fetch copies). The losses against the same model trained
+    by TrainStep from the same weights (STATIC_TRAIN_TOL). Then
+    ``static.save``, ``load_program`` into a fresh scope and one more run:
+    bitwise the run the original Program makes next."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import registry
+
+    model, prog, loss, feeds = ernie_static_training_setup(
+        dev, batch, seq_len, steps + 1)
+    L = model.ernie.cfg.num_hidden_layers
+    scope = static.Scope()
+    d = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    try:
+        with static.scope_guard(scope):
+            exe = static.Executor()
+            registry.reset("jit")
+            torch.cuda.synchronize()
+            fa_counts, losses, step_s = [], [], []
+            for f in feeds[:steps]:
+                fa.reset_device_launches()
+                t0 = time.perf_counter()
+                losses.append(float(exe.run(prog, feed=f,
+                                            fetch_list=[loss])[0]))
+                step_s.append(time.perf_counter() - t0)
+                fa_counts.append(flash_device_counts())
+            captures = registry.counters("jit")["train_step_captures"]
+            want = {"flash_fwd": L, "flash_bwd_dq": L, "flash_bwd_dkv": L}
+            if any(c != want for c in fa_counts):
+                raise AssertionError(f"static training: the card counted "
+                                     f"{fa_counts}, want {want} a run")
+            static.save(prog, f"{d}/ckpt")
+            continued = float(exe.run(prog, feed=feeds[steps],
+                                      fetch_list=[loss])[0])
+            prof = host_calls(lambda: exe.run(prog, feed=feeds[steps],
+                                              fetch_list=[loss]), 1)
+        with static.scope_guard(static.Scope()):
+            loaded = static.load_program(f"{d}/ckpt")
+            resumed = float(static.Executor().run(
+                loaded, feed=feeds[steps],
+                fetch_list=[loaded.vars[loss.name]])[0])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if resumed != continued:
+        raise AssertionError(f"static training: the loaded Program's next "
+                             f"loss {resumed!r}, the original's "
+                             f"{continued!r}")
+    del exe, prog, scope, loaded, model
+    free_memory()
+    # TrainStep from the same weights on the same data
+    twin = ernie_classifier(dev, **STATIC_NO_DROPOUT)
+    opt = AdamW(learning_rate=1e-4, parameters=twin.parameters())
+
+    def step_fn(ids, labels):
+        out = F.cross_entropy(twin(ids), labels)
+        out.backward()
+        opt.step()
+        opt.clear_grad()
+        return out
+
+    train = TrainStep(step_fn, twin, opt)
+    ref = [float(train(torch.from_numpy(f["ids"]).to(dev),
+                       torch.from_numpy(f["labels"]).to(dev)).detach())
+           for f in feeds[:steps]]
+    gaps = [abs(a - b) for a, b in zip(losses, ref)]
+    if max(gaps) > STATIC_TRAIN_TOL * max(abs(x) for x in ref):
+        raise AssertionError(f"static training losses {losses} vs "
+                             f"TrainStep's {ref}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"static training: losses {losses}")
+    del twin, opt, train
+    free_memory()
+    p50 = sorted(step_s[2:])[math.ceil((steps - 2) / 2) - 1]
+    result = {"batch": batch, "seq_len": seq_len, "steps": steps,
+              "losses": losses, "trainstep_losses": ref,
+              "max_loss_gap": max(gaps), "tolerance": STATIC_TRAIN_TOL,
+              "step_p50_ms": p50 * 1e3,
+              "step_ms": [round(t * 1e3, 3) for t in step_s],
+              "captures": captures,
+              "launches_per_run": fa_counts[-1],
+              "host_calls_per_replay": prof["host_calls"],
+              "host_kernel_launches_per_replay": prof["kernel_launches"],
+              "device_ms_per_replay": prof["device_ms"],
+              "resumed_loss": resumed, "continued_loss": continued}
+    if prof["kernel_launches"] != 0:
+        raise AssertionError(f"static training: {prof['host_calls']} from "
+                             "the host on a replay")
+    log("ernie static training (16b): " + json.dumps(result))
+    return result
+
+
+def phase_static_control_flow(dev):
+    """16c: a small Program holding ``static.nn.while_loop`` (a counter
+    summing a feed) and ``static.nn.cond`` (a branch on the feed's sign)
+    on the card, three runs: the values against numpy, and the route the
+    Executor took, with the reason it gives."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework import disable_static, enable_static
+    from paddle_tpu_torch.profiler import explainer, registry
+
+    prog = static.Program()
+    enable_static()
+    try:
+        with static.program_guard(prog):
+            x = static.data("x", [None, 4], "float32")
+            limit = static.data("limit", [1], "float32")
+            i, acc = static.nn.while_loop(
+                lambda i, a: i < limit, lambda i, a: [i + 1.0, a + x.sum()],
+                [torch.zeros(1), torch.zeros(1)])
+            out = static.nn.cond(x.sum() > 0.0, lambda: x * 2.0,
+                                 lambda: x - 10.0)
+    finally:
+        disable_static()
+    registry.reset("static")
+    registry.reset("jit")
+    seq = last_event_seq()
+    xs = np.arange(8, dtype=np.float32).reshape(2, 4) - 3.0
+    with static.scope_guard(static.Scope()):
+        exe = static.Executor()
+        for sign in (1.0, -1.0, 1.0):
+            feed = {"x": sign * xs, "limit": np.array([5.0], np.float32)}
+            iv, av, ov = exe.run(prog, feed=feed, fetch_list=[i, acc, out])
+            want = sign * xs * 2.0 if (sign * xs).sum() > 0 \
+                else sign * xs - 10.0
+            if float(iv[0]) != 5.0 or float(av[0]) != 5 * float(
+                    (sign * xs).sum()) or not np.array_equal(ov, want):
+                raise AssertionError(f"static control flow: {iv} {av} {ov}")
+    counters = dict(registry.counters("static"))
+    events = [e for e in explainer.events(kind="static_uncaptured")
+              if e["seq"] > seq]
+    if counters["uncaptured_runs"] != 3 or len(events) != 1 or \
+            registry.counters("jit")["train_step_captures"]:
+        raise AssertionError(f"static control flow: counters {counters}, "
+                             f"events {events}")
+    result = {"route": "uncaptured", "why": events[0]["why"],
+              "uncaptured_runs": counters["uncaptured_runs"],
+              "captures": 0}
+    log("static control flow (16c): " + json.dumps(result))
+    return result
+
+
 # ------------------------------------------------------------------ main --
 _ENTRY = re.compile(r"Compiling entry function '\S*?\d((?:flash|paged)_\w*?"
                     r"_kernel(?:_sm90|_tf32)?)I(\w*?)E+v")
@@ -5969,6 +6426,16 @@ def main():
     ernie = timed("14d ernie inference", phase_ernie_inference, dev)
     resnet, resnet_o1 = timed("15 resnet", phase_resnet_training, dev)
     resnet_parity = timed("15b resnet parity", phase_resnet_parity, dev)
+    static_run, static_ctx = timed("16 ernie static", phase_ernie_static,
+                                   dev)
+    static_io = timed("16a static save/load", phase_ernie_static_io, dev,
+                      static_ctx)
+    del static_ctx
+    free_memory()
+    static_train = timed("16b static training",
+                         phase_ernie_static_training, dev)
+    static_cf = timed("16c static control flow", phase_static_control_flow,
+                      dev)
     runs = {"bfloat16": ("14b", bert_bf16), "float32": ("14", bert)}
     for name, row in flash.items():  # the encoder path's instances
         if "_noncausal_" not in name:
@@ -5983,6 +6450,15 @@ def main():
             row["launches_by_path"]["ernie inference (phase 14d, per "
                                     "forward)"] = \
                 ernie["launches_per_forward"]
+        if dtype == "float32":
+            paths = row["launches_by_path"]
+            if kern == "flash_fwd":
+                paths["ernie static Executor (phase 16, per run)"] = \
+                    static_run["k1_launches_per_run"]
+                paths["ernie Predictor (phase 16a, per run)"] = \
+                    static_io["k1_launches_per_run"]
+            paths["ernie static training (phase 16b, per run)"] = \
+                static_train["launches_per_run"][kern]
     world_dir = tempfile.mkdtemp(prefix="chip_smoke_world_")
     t0 = time.perf_counter()
     world = two_ranks(dev, world_dir)
@@ -6143,6 +6619,30 @@ def main():
             f"{run['peak_memory_gb']:.2f} GB; losses "
             f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}")
     log(f"resnet parity on {smi}: {json.dumps(resnet_parity)}")
+    log(f"ernie static on {smi}: bert-base float32 batch "
+        f"{static_run['batch']} x {static_run['seq_len']} through "
+        f"Executor.run's CUDA graph: p50 run {static_run['run_p50_ms']:.2f} "
+        f"ms (numpy feed and fetch included), "
+        f"{static_run['samples_per_s']:.0f} samples/s, device "
+        f"{static_run['device_ms_per_run']:.2f} ms a run, host calls a run "
+        f"{json.dumps(static_run['host_calls_per_run'])}; eager forward "
+        f"p50 {static_run['eager_forward_p50_ms']:.2f} ms (phase 14d, "
+        f"ernie-3.0-medium bf16: {ernie['forward_p50_ms']:.2f} ms); K1 "
+        f"{static_run['k1_launches_per_run']:.0f} a run, captures "
+        f"{static_run['captures']}; logits vs eager "
+        f"{static_run['max_abs_err_vs_eager']:.3e}, vs plain "
+        f"{static_run['max_abs_err_vs_plain']:.3e}; peak memory "
+        f"{static_run['peak_memory_gb']:.2f} GB")
+    log(f"ernie static save/load on {smi}: {json.dumps(static_io)}")
+    log(f"ernie static training on {smi}: p50 step "
+        f"{static_train['step_p50_ms']:.2f} ms, losses "
+        f"{static_train['losses']} (TrainStep "
+        f"{static_train['trainstep_losses']}, gap "
+        f"{static_train['max_loss_gap']:.3e}); host calls a replay "
+        f"{json.dumps(static_train['host_calls_per_replay'])}; loaded and "
+        f"continued {static_train['resumed_loss']!r} == "
+        f"{static_train['continued_loss']!r}; control flow "
+        f"{json.dumps(static_cf)}")
     r0 = dist["ranks"][0]
     peak = max(r["peak_memory_gb"] for r in dist["ranks"])
     staged = {k: v for k, v in r0["collective"].items() if "staged" in k}

@@ -12,6 +12,11 @@ runs the CUDA paged-attention kernel in ``csrc/paged_attention.cu``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on a
 machine without a GPU they raise instead of falling back to the CPU.
+
+``enable_static()`` switches to declarative mode: ``static`` records torch
+calls into a Program that ``static.Executor`` runs as one CUDA graph per
+feed signature, and ``inference`` serves what ``static`` and ``jit``
+save.
 """
 import torch
 
@@ -22,5 +27,9 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .device import resolve_device  # noqa: E402
+from .framework import (disable_static, enable_static,  # noqa: E402
+                        in_dygraph_mode, in_dynamic_mode)
+from . import inference, static  # noqa: E402
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "enable_static", "disable_static",
+           "in_dynamic_mode", "in_dygraph_mode", "static", "inference"]

@@ -255,3 +255,51 @@ def optimizer_state_to_paddle_tpu(optimizer, model):
             value = dict(value)
         out[key] = value
     return out
+
+
+def static_scope_from_paddle_tpu(ref_vars, ref_program, program, scope=None,
+                                 device="cpu"):
+    """Fill the port's scope with a static Program's parameters from the
+    reference's: ``ref_vars`` is the reference's scope as ``{name: numpy
+    array}`` (``paddle_tpu.static.global_scope().vars`` after its startup
+    run), ``ref_program`` and ``program`` the same Program recorded by
+    each package. Parameters match by their position in
+    ``program.params``, not by name: ``static.nn``'s auto names come from
+    a process-wide counter in each package. Layouts agree (``static.nn.fc``
+    keeps the reference's ``[in, out]``). A Program recorded from a model
+    reads the model's own parameters: carry those with
+    :func:`load_paddle_tpu_state` before recording. Returns the scope."""
+    from .static import global_scope
+    from .static.program import recording_suspended
+
+    scope = scope or global_scope()
+    with recording_suspended():
+        _fill_scope(ref_vars, ref_program, program, scope, device)
+    return scope
+
+
+def _fill_scope(ref_vars, ref_program, program, scope, device):
+    if len(ref_program.params) != len(program.params):
+        raise ValueError(f"the reference Program has "
+                         f"{len(ref_program.params)} parameters, this one "
+                         f"{len(program.params)}")
+    for (rv, _), (pv, _) in zip(ref_program.params, program.params):
+        arr = np.array(ref_vars[rv.name])
+        if list(arr.shape) != pv.static_shape:
+            raise ValueError(f"{rv.name} {tuple(arr.shape)} does not fit "
+                             f"{pv.name} {tuple(pv.static_shape)}")
+        value = torch.from_numpy(arr).to(device)
+        scope.set(pv.name, value if pv.stop_gradient
+                  else nn.Parameter(value))
+
+
+def static_scope_to_paddle_tpu(program, ref_program, scope=None):
+    """The inverse of :func:`static_scope_from_paddle_tpu`: ``{reference
+    name: numpy array}`` of the port's scope, matched by position."""
+    from .static import global_scope
+    from .static.program import recording_suspended
+
+    scope = scope or global_scope()
+    with recording_suspended():
+        return {rv.name: _leaf(scope.vars[pv.name]) for (rv, _), (pv, _)
+                in zip(ref_program.params, program.params)}

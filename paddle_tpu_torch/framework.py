@@ -1,6 +1,9 @@
 """paddle_tpu_torch.framework — save/load of state nests (counterpart of
 paddle_tpu/framework.py:16-186), in the reference's pickle format, so that
-a file written by either package loads in the other.
+a file written by either package loads in the other; the switch between
+dygraph and static mode (``enable_static``, ``disable_static``,
+``in_dynamic_mode``; ``framework.py:189-208``); and ``static_leaf``, which
+makes a function one call of a static Program.
 
 A nest is dicts, lists and tuples over leaves. ``save`` turns every torch
 tensor leaf into the reference's record ``{"__tensor__": True, "data":
@@ -25,7 +28,9 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["save", "load", "atomic_write_bytes"]
+__all__ = ["save", "load", "atomic_write_bytes", "in_dynamic_mode",
+           "in_dygraph_mode", "enable_static", "disable_static",
+           "static_leaf"]
 
 
 def _to_saveable(obj):
@@ -182,3 +187,62 @@ def load(path):
             "training checkpoints, paddle_tpu_torch.incubate.checkpoint."
             "load_latest(dir) falls back to the newest valid one") from e
     return _from_saveable(obj)
+
+
+# -- dygraph and static mode (counterpart of paddle_tpu/framework.py:189-208)
+
+_recording = False  # static mode's recorder is on torch's mode stack
+
+
+def in_dynamic_mode() -> bool:
+    """True unless :func:`enable_static` is in force."""
+    return not _recording
+
+
+def in_dygraph_mode() -> bool:
+    return in_dynamic_mode()
+
+
+def enable_static():
+    """Record torch calls on ``static.data`` Variables (and on parameters
+    they meet) into the default main Program instead of running them."""
+    from .static import program as _prog
+
+    _prog._enable_static()
+
+
+def disable_static():
+    from .static import program as _prog
+
+    _prog._disable_static()
+
+
+def static_leaf(meta):
+    """Make a function one call of a static Program: while a Program
+    records, a call of the decorated function on its Variables is recorded
+    whole (as torch records ``torch.nn.functional``'s), so the branches it
+    takes on device, dtype or exact shape are taken when the Program runs,
+    on real tensors. ``meta(*args, **kwargs)`` gives its outputs on meta
+    tensors, from which the recorder reads shapes and dtypes (None: the
+    function itself runs on them). Outside static mode the guard is one
+    flag, so other torch function modes (``amp.auto_cast``) see the
+    function's inner calls as before."""
+    import functools
+
+    from torch.overrides import handle_torch_function, has_torch_function
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def leaf(*args, **kwargs):
+            if _recording:
+                tensors = tuple(a for a in args
+                                if isinstance(a, torch.Tensor))
+                if has_torch_function(tensors):
+                    return handle_torch_function(leaf, tensors, *args,
+                                                 **kwargs)
+            return fn(*args, **kwargs)
+
+        leaf.static_meta = meta or fn
+        return leaf
+
+    return wrap

@@ -67,6 +67,7 @@ the step runs eagerly every call, the same update code.
 from __future__ import annotations
 
 import contextlib
+import itertools
 
 import numpy as np
 import torch
@@ -76,7 +77,7 @@ from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "save", "load", "TranslatedLayer"]
 
 _counters = _registry.scoped_counters("jit", {
     "train_step_captures": 0, "train_step_replays": 0,
@@ -123,9 +124,10 @@ class TrainStep:
     ``step_fn`` runs ordinary eager code: forward, ``loss.backward()``,
     ``opt.step()``, ``opt.clear_grad()``, and returns the loss (or a tuple
     of tensors). Arguments that are numpy arrays or tensors elsewhere go to
-    the first model's device. Each call must advance every optimizer's step
-    count exactly once (one ``opt.step()``): a ``step_fn`` that steps an
-    optimizer twice, or not at all, raises ``RuntimeError``. (The
+    the device of the first model's first parameter (or buffer). Each call
+    must advance every optimizer's step count exactly once (one
+    ``opt.step()``): a ``step_fn`` that steps an optimizer twice, or not at
+    all, raises ``RuntimeError``. (The
     reference's ``TrainStep`` advances the count once itself and once more
     inside ``opt.step()``, so its Adam bias correction runs at t = 2, 4, 6,
     ...; the port follows the eager loop instead.)"""
@@ -137,7 +139,9 @@ class TrainStep:
         self._opts = list(optimizers) if isinstance(optimizers,
                                                     (list, tuple)) \
             else [optimizers]
-        self._device = next(self._models[0].parameters()).device
+        first = self._models[0]
+        self._device = next(itertools.chain(first.parameters(),
+                                            first.buffers())).device
         if self._device.type == "cuda":
             self._refuse_gloo()
         named = [(name or type(mod).__name__, mod) for m in self._models
@@ -352,3 +356,77 @@ class TrainStep:
             o._opt_step += 1
         _counters["train_step_replays"] += 1
         return _detached(graph.out)
+
+
+# -- save / load: the inference artifact --------------------------------------
+
+class _LayerForward(torch.nn.Module):
+    """``layer``'s forward with its state passed in (what ``save``
+    exports); the layer is held outside the module's own state."""
+
+    def __init__(self, layer, names):
+        super().__init__()
+        self._layer, self._names = (layer,), names
+
+    def forward(self, params, *args):
+        out = torch.func.functional_call(
+            self._layer[0], dict(zip(self._names, params)), args)
+        return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def save(layer, path, input_spec=None, **configs):
+    """``paddle.jit.save``: ``layer``'s forward exported with
+    ``torch.export`` (a ``Dim`` for each None/-1 of ``input_spec``, so one
+    artifact serves any batch) in ``path.pdmodel``, its parameters and
+    buffers as numpy arrays in ``path.pdiparams``: the pair
+    ``paddle_tpu_torch.inference`` and :func:`load` read (the format of
+    ``static.save_inference_model``)."""
+    from ..static.io import _write_artifact, export_artifact
+    from ..static.program import convert_dtype, recording_suspended
+
+    if input_spec is None:
+        raise ValueError("jit.save requires input_spec")
+    with recording_suspended():
+        state = dict(layer.named_parameters())
+        state.update(layer.named_buffers())
+        names = list(state)
+        params = [state[n].detach() for n in names]
+        device = params[0].device if params else torch.device("cpu")
+        shapes = [[-1 if s is None else int(s) for s in spec.shape]
+                  for spec in input_spec]
+        dtypes = [convert_dtype(getattr(spec, "dtype", "float32"))
+                  for spec in input_spec]
+        exported = export_artifact(_LayerForward(layer, names), params,
+                                   shapes, dtypes, device)
+        _write_artifact(path, exported, params, {
+            "names": names,
+            "feed_names": [getattr(s, "name", None) or f"x{i}"
+                           for i, s in enumerate(input_spec)],
+            "kind": "jit_save", "device": str(device)})
+
+
+class TranslatedLayer(torch.nn.Module):
+    """What :func:`load` returns (reference translated_layer.py): calling
+    it runs the exported forward over the loaded parameters."""
+
+    def __init__(self, module, params):
+        super().__init__()
+        self._module, self._params = module, params
+        self.device = params[0].device if params else torch.device("cpu")
+
+    def forward(self, *args):
+        args = [torch.as_tensor(a).to(self.device) for a in args]
+        with torch.no_grad():
+            outs = self._module(tuple(self._params), *args)
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+
+def load(path, device=None, **configs):
+    """Load a :func:`save` (or ``static.save_inference_model``) artifact
+    as a :class:`TranslatedLayer` on ``device`` (the current CUDA device
+    unless ``"cpu"`` is asked for)."""
+    from ..static.executor import place_device
+    from ..static.io import load_artifact
+
+    module, params, _ = load_artifact(path, place_device(device))
+    return TranslatedLayer(module, params)

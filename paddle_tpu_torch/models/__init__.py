@@ -3,7 +3,8 @@ from .bert import (BertConfig, BertForPretraining,
                    BertForSequenceClassification, BertModel,
                    BertPretrainingCriterion, bert_base, bert_tiny)
 from .ernie import (ErnieConfig, ErnieForSequenceClassification, ErnieModel,
-                    ernie_3p0_medium, ernie_tiny)
+                    build_static_inference_program, ernie_3p0_medium,
+                    ernie_tiny)
 from .gpt import (GPTConfig, GPTForPretraining, GPTModel,
                   GPTPretrainingCriterion)
 
@@ -12,4 +13,5 @@ __all__ = ["GPTConfig", "GPTModel", "GPTForPretraining",
            "BertForPretraining", "BertPretrainingCriterion",
            "BertForSequenceClassification", "bert_base", "bert_tiny",
            "ErnieConfig", "ErnieModel", "ErnieForSequenceClassification",
-           "ernie_3p0_medium", "ernie_tiny"]
+           "ernie_3p0_medium", "ernie_tiny",
+           "build_static_inference_program"]

@@ -1,9 +1,8 @@
 """ERNIE-3.0-style encoder (counterpart of paddle_tpu/models/ernie.py): a
-BERT encoder with its own presets and a sequence-classification head.
-
-The reference's ``build_static_inference_program`` records the model into
-a static Program; the port has no ``static/`` yet (ROADMAP queue 1 item
-11), so it raises.
+BERT encoder with its own presets and a sequence-classification head, and
+``build_static_inference_program``, which records the model into a static
+Program for ``static.Executor`` (BASELINE config 5: on the card the
+Executor runs it as one CUDA graph).
 """
 from __future__ import annotations
 
@@ -68,9 +67,25 @@ def ernie_tiny(device=None, generator=None, attn_kernel=None, **kw):
 
 
 def build_static_inference_program(model, seq_len=128, batch=None):
-    """Not ported: the static Program and its Executor come with
-    ``static/`` (ROADMAP queue 1 item 11)."""
-    raise NotImplementedError(
-        "build_static_inference_program needs paddle_tpu_torch.static, "
-        "which is not ported yet (ROADMAP queue 1 item 11); run the model "
-        "eagerly in eval mode instead")
+    """Record ``model`` (in eval mode) into a static Program for
+    ``static.Executor`` inference (BASELINE config 5) from one int64 feed
+    ``input_ids`` ``[batch or None, seq_len]``. Returns ``(program,
+    ["input_ids"], fetch)``: the logits of a classifier, the pooled output
+    of an ``ErnieModel``. Static mode is left as it was found."""
+    from .. import static
+    from ..framework import disable_static, enable_static, in_dynamic_mode
+
+    was_dynamic = in_dynamic_mode()
+    enable_static()
+    try:
+        prog = static.Program()
+        with static.program_guard(prog):
+            input_ids = static.data("input_ids", [batch or -1, seq_len],
+                                    "int64")
+            model.eval()
+            out = model(input_ids)
+            fetch = out[1] if isinstance(out, tuple) else out
+        return prog, ["input_ids"], fetch
+    finally:
+        if was_dynamic:
+            disable_static()

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...framework import static_leaf
 from .conv import channels_last
 
 __all__ = ["batch_norm", "layer_norm", "instance_norm", "group_norm",
@@ -45,6 +46,7 @@ def _channels_back(x, data_format):
         else x
 
 
+@static_leaf(None)
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
                data_format="NCHW", use_global_stats=None, name=None):

@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 
 from ..amp.auto_cast import cast_inputs as _amp_cast
+from ..framework import static_leaf
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from . import _build
@@ -370,6 +371,16 @@ attention_op.register_autograd(_attention_backward,
                                setup_context=_attention_setup)
 
 
+@attention_op.register_fake
+def _attention_fake(q, k, v, mask, causal, scale, kernel):
+    """The op's outputs without computing them (meta and fake tensors, as
+    ``torch.export`` and the static recorder use): ``out`` ``[B, T, N,
+    Hv]`` in q's dtype, ``lse`` float32 ``[B, N, T]``."""
+    B, T, N, _ = q.shape
+    return (q.new_empty((B, T, N, v.shape[-1])),
+            q.new_empty((B, N, T), dtype=torch.float32))
+
+
 class FlashAttentionFunction:
     """Attention through K1 forward and K2 + K3 backward (the reference's
     ``custom_vjp`` ``_flash_flat``): the kernel route of
@@ -399,6 +410,13 @@ def flash_ineligible(q, k, mask=None):
     return None
 
 
+def _flash_meta(q, k, v, mask=None, causal=False, scale=None, kernel=None):
+    q, k, v, mask = _amp_cast("flash_attention", q, k, v, mask)
+    return attention_op(q, k, v, mask, bool(causal),
+                        _scale(scale, q.shape[-1]), False)[0]
+
+
+@static_leaf(_flash_meta)
 def flash_attention(q, k, v, mask=None, causal=False, scale=None,
                     kernel=None):
     """``[B, T, N, H]`` attention.
@@ -414,7 +432,10 @@ def flash_attention(q, k, v, mask=None, causal=False, scale=None,
     ``flash_attention`` (white-listed: q, k, v and a float mask in the low
     dtype), as the reference's dispatcher casts them; the kernels take
     float32 and bf16 only, so a float16 call takes the plain path and
-    records why."""
+    records why.
+
+    A static Program records a call as one call (``framework.static_leaf``),
+    so the route is chosen when the Program runs."""
     q, k, v, mask = _amp_cast("flash_attention", q, k, v, mask)
     route = kernel or ("cuda" if q.device.type == "cuda" else "torch")
     if route not in ("cuda", "torch"):

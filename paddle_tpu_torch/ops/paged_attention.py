@@ -45,6 +45,7 @@ import functools
 
 import torch
 
+from ..framework import static_leaf
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
@@ -239,6 +240,11 @@ def _workspace_floats(B, T, H, Dh, M, bs):
     return _lib().paged_attention_workspace_floats(B, T, H, Dh, M, bs)
 
 
+def _paged_meta(q, *args, **kwargs):
+    return torch.empty_like(q)
+
+
+@static_leaf(_paged_meta)
 def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
                     scale=None):
     """Paged attention through the CUDA kernel.
@@ -250,7 +256,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, seq_lens, q_offsets,
     the kernel on the current stream, and raises on any argument the kernel
     does not take or any launch error. The kernel's split-KV workspace
     (float32, a size fixed by the shapes) comes from ``torch.empty`` on the
-    current stream; nothing is read back to the host."""
+    current stream; nothing is read back to the host. A static Program
+    records a call as one call (``framework.static_leaf``)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pool, v_pool, block_tables, seq_lens,
                                    q_offsets, scale=scale)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from ..framework import in_dynamic_mode
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Lars"]
@@ -53,9 +54,12 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
-        if parameters is None:
+        # in static mode the Executor binds the Program's parameters
+        self._static_unbound = parameters is None and not in_dynamic_mode()
+        if parameters is None and not self._static_unbound:
             raise ValueError("parameters is required (pass "
                              "model.parameters())")
+        parameters = parameters or []
         self._parameter_list, self._parameter_names = [], []
         for item in parameters:
             pname, p = item if isinstance(item, tuple) else (None, item)
@@ -200,8 +204,13 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
-        """``loss.backward()`` then :meth:`step` (the eager form; there is
-        no static mode). Returns ``(None, [(param, grad)])``."""
+        """``loss.backward()`` then :meth:`step`, returning ``(None,
+        [(param, grad)])``. In static mode it records the request into
+        ``loss``'s Program instead, and the Executor runs the backward,
+        the clip and the update at every run (``(None, [])``)."""
+        if not in_dynamic_mode():
+            loss.program.minimize_reqs.append((self, loss))
+            return None, []
         loss.backward()
         self.step()
         return None, [(p, g) for _, p, g in self._params_grads()]

@@ -310,7 +310,11 @@ def test_a_wrapped_trunks_state_loads_without_its_prefix():
 
 
 def test_static_program_and_a_cuda_route_on_the_cpu_refuse():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ternie.build_static_inference_program(None)
+    # the static Program is ported (tests/test_torch_static.py holds it
+    # against the reference): recording the model no longer refuses
+    te = ternie.ernie_tiny(device="cpu", **NO_DROPOUT)
+    prog, feeds, fetch = ternie.build_static_inference_program(te,
+                                                               seq_len=T)
+    assert feeds == ["input_ids"] and fetch.static_shape == [-1, 128]
     with pytest.raises(ValueError, match="CUDA device"):
         tbert.bert_tiny(device="cpu", attn_kernel="cuda")

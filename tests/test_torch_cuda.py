@@ -1324,3 +1324,125 @@ def test_conv_and_batch_norm_under_o1(cuda):
     losses = [float(step(x, y)) for _ in range(3)]
     assert all(math.isfinite(v) for v in losses)
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+def _static_ernie(dev, **over):
+    """A 2-layer ERNIE classifier at bert-base width (the kernels' head
+    size 64, T 128), float32, seed-0 weights."""
+    from paddle_tpu_torch.models.ernie import (
+        ErnieConfig, ErnieForSequenceClassification, ErnieModel)
+
+    ernie = ErnieModel(ErnieConfig(num_hidden_layers=2, **over), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+    return ErnieForSequenceClassification(ernie, 3)
+
+
+def _static_ids(model, batch, seed=0):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, model.ernie.cfg.vocab_size, (batch, 128)).astype(np.int64)
+
+
+def test_static_executor_graph_equals_the_eager_forward(cuda):
+    """Executor.run's captured graph (runs 2 and 3) against the module's
+    eager forward: the same kernels, so equal; K1 once a layer a run."""
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.models.ernie import build_static_inference_program
+    from paddle_tpu_torch.profiler import registry
+
+    model = _static_ernie(cuda).eval()
+    ids = _static_ids(model, 4)
+    with torch.no_grad():
+        want = model(torch.from_numpy(ids).to(cuda)).cpu().numpy()
+    prog, _, fetch = build_static_inference_program(model, seq_len=128)
+    registry.reset("jit")
+    with static.scope_guard(static.Scope()):
+        exe = static.Executor()
+        outs = []
+        for _ in range(3):
+            fa.reset_device_launches()
+            outs.append(exe.run(prog, feed={"input_ids": ids},
+                                fetch_list=[fetch])[0])
+            assert fa.device_launches()["flash_fwd"] == 2
+    assert registry.counters("jit")["train_step_captures"] == 1
+    for got in outs:
+        torch.testing.assert_close(torch.from_numpy(got),
+                                   torch.from_numpy(want), rtol=0, atol=0)
+
+
+def test_static_predictor_serves_two_batches_from_one_artifact(
+        cuda, tmp_path):
+    from paddle_tpu_torch import inference, static
+    from paddle_tpu_torch.models.ernie import build_static_inference_program
+
+    model = _static_ernie(cuda).eval()
+    prog, _, fetch = build_static_inference_program(model, seq_len=128)
+    with static.scope_guard(static.Scope()):
+        exe = static.Executor()
+        want = {b: exe.run(prog, feed={"input_ids": _static_ids(model, b)},
+                           fetch_list=[fetch])[0] for b in (2, 5)}
+        static.save_inference_model(str(tmp_path / "m"),
+                                    [prog.feed_vars["input_ids"]], [fetch],
+                                    exe, program=prog)
+    pred = inference.create_predictor(inference.Config(str(tmp_path / "m")))
+    tol = fa.FLASH_PARITY_TOL[torch.float32]
+    for _ in range(3):  # eager, capture, replay per signature
+        for b in (2, 5):
+            got = pred.run([_static_ids(model, b)])[0]
+            torch.testing.assert_close(
+                torch.from_numpy(got), torch.from_numpy(want[b]),
+                atol=tol[0], rtol=tol[1])
+
+
+def test_static_training_step_equals_train_step(cuda):
+    """Three Executor runs of a recorded AdamW step against TrainStep's
+    three calls from the same weights: equal losses; K1, K2 and K3 once a
+    layer a run."""
+    import numpy as np
+
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.framework import disable_static, enable_static
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+
+    over = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids = _static_ids(_static_ernie(cuda, **over), 4)
+    labels = np.arange(4, dtype=np.int64) % 3
+    model, twin = _static_ernie(cuda, **over), _static_ernie(cuda, **over)
+    prog = static.Program()
+    enable_static()
+    try:
+        with static.program_guard(prog):
+            x = static.data("ids", [None, 128], "int64")
+            y = static.data("labels", [None], "int64")
+            loss = F.cross_entropy(model(x), y)
+            AdamW(learning_rate=1e-4).minimize(loss)
+    finally:
+        disable_static()
+    got = []
+    with static.scope_guard(static.Scope()):
+        exe = static.Executor()
+        for _ in range(3):
+            fa.reset_device_launches()
+            got.append(float(exe.run(prog, feed={"ids": ids, "labels":
+                                                 labels},
+                                     fetch_list=[loss])[0]))
+            counts = fa.device_launches()
+            assert [counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                        "flash_bwd_dkv")] == [2, 2, 2]
+    opt = AdamW(learning_rate=1e-4, parameters=twin.parameters())
+
+    def step_fn(a, b):
+        out = F.cross_entropy(twin(a), b)
+        out.backward()
+        opt.step()
+        opt.clear_grad()
+        return out
+
+    train = TrainStep(step_fn, twin, opt)
+    want = [float(train(torch.from_numpy(ids).to(cuda),
+                        torch.from_numpy(labels).to(cuda)).detach())
+            for _ in range(3)]
+    assert got == want

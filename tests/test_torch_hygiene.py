@@ -1,5 +1,6 @@
 """paddle_tpu_torch stands alone: it imports neither JAX nor the JAX package,
 and its entry points refuse to run on the CPU unless asked to."""
+import io
 import os
 import pathlib
 import re
@@ -106,6 +107,52 @@ def test_encoder_entry_points_raise_without_cuda(monkeypatch):
             build()
     model = BertForPretraining(bert_tiny(device="cpu", vocab_size=64))
     assert {p.device.type for p in model.parameters()} == {"cpu"}
+
+
+def test_static_entry_points_raise_without_cuda(monkeypatch):
+    from paddle_tpu_torch import inference, jit, static
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        static.Executor()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        static.Executor("gpu:0")
+    assert static.Executor("cpu").device.type == "cpu"
+    assert static.Executor(static.cpu_places()[0]).device.type == "cpu"
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        inference.create_predictor(inference.Config("model"))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        static.load_inference_model("model")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        jit.load("model")
+
+
+def test_cpu_artifact_is_refused_on_cuda(monkeypatch, tmp_path):
+    """An artifact exported on the CPU holds flash_attention's plain route
+    (baked in at export); every load of it on CUDA raises, naming the fix,
+    instead of serving the plain attention on the card."""
+    from paddle_tpu_torch import inference, jit, static
+    from paddle_tpu_torch.nn.layer.transformer import MultiHeadAttention
+    from paddle_tpu_torch.static.io import EXPORT_MAGIC
+
+    torch.manual_seed(0)
+    prefix = str(tmp_path / "mha")
+    jit.save(MultiHeadAttention(64, 1), prefix,
+             input_spec=[static.InputSpec([None, 128, 64], "float32")])
+    blob = (tmp_path / "mha.pdmodel").read_bytes()[len(EXPORT_MAGIC):]
+    exported = torch.export.load(io.BytesIO(blob))
+    routes = [n.args[-1] for n in exported.graph.nodes
+              if "flash_attention" in str(n.target)]
+    assert routes == [False]  # the plain route, chosen on the CPU
+    assert jit.load(prefix, device="cpu") is not None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for load in (lambda: jit.load(prefix),
+                 lambda: static.load_inference_model(prefix),
+                 lambda: inference.create_predictor(inference.Config(prefix))):
+        with pytest.raises(ValueError, match="exported on cpu.*Export it "
+                                             "again on cuda"):
+            load()
 
 
 def test_vision_entry_points_raise_without_cuda(monkeypatch):

@@ -6,7 +6,8 @@ Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_train_profile.py [--preset gpt3-1.3B] [--batch 4]
         [--seq-len 2048] [--steps 2]
-        [--route both|graph|eager|fit|all|bert|bert-bf16|resnet]
+        [--route both|graph|eager|fit|all|bert|bert-bf16|resnet|
+                 ernie-static|ernie-static-train|ernie-static-both]
         [--trace train_trace.json]
 
 Builds the training step of ``chip_smoke.py`` phase 7 through its
@@ -23,7 +24,12 @@ do not apply), run one after the other for "bert-both". "resnet" is
 phase 15's step (``resnet_training_setup``: ResNet-50 float32 at 32 x 3
 x 224 x 224, Momentum 0.1, through the graph), and after it the Momentum
 update alone (``opt.step()`` called eagerly on the step's gradients, its
-kernels' device time). Per route: 3 warm-up steps (for a graph: the eager
+kernels' device time). "ernie-static" is phase 16's run
+(``ernie_static_setup``: BASELINE config 5's ERNIE classifier, float32,
+16 x 128, ``static.Executor.run`` with the numpy feed and fetch) and
+"ernie-static-train" phase 16b's (``ernie_static_training_setup``: the
+same model recorded with AdamW's ``minimize``), one after the other for
+"ernie-static-both". Per route: 3 warm-up steps (for a graph: the eager
 call, the capture and a replay), 5 steps timed on the host clock, then
 ``--steps`` more traced with ``torch.profiler``. Prints the card
 (nvidia-smi name and power limit), and per route the step time, the
@@ -160,7 +166,9 @@ def main():
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--route", default="both",
                     choices=("both", "graph", "eager", "fit", "all", "bert",
-                             "bert-bf16", "bert-both", "resnet"))
+                             "bert-bf16", "bert-both", "resnet",
+                             "ernie-static", "ernie-static-train",
+                             "ernie-static-both"))
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace of the window here")
     args = ap.parse_args()
@@ -168,8 +176,9 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import (RESNET_FULL, bert_training_setup, fit_model,
-                            free_memory, resnet_training_setup,
+    from chip_smoke import (RESNET_FULL, bert_training_setup,
+                            ernie_static_setup, ernie_static_training_setup,
+                            fit_model, free_memory, resnet_training_setup,
                             training_setup)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -177,7 +186,8 @@ def main():
                          text=True, check=True, timeout=60).stdout.strip()
     dev = torch.device("cuda", 0)
     order = {"both": ["eager", "graph"], "all": ["eager", "graph", "fit"],
-             "bert-both": ["bert", "bert-bf16"]}
+             "bert-both": ["bert", "bert-bf16"],
+             "ernie-static-both": ["ernie-static", "ernie-static-train"]}
     order = order.get(args.route, [args.route])
 
     def bf16_routes():
@@ -216,6 +226,29 @@ def main():
         routes["resnet"] = (model, opt, train, x, y)
         return lambda: train(x, y)
 
+    def ernie_static_route(train):
+        """Phase 16's Executor run (or 16b's, ``train``), one Program at a
+        time, under a scope of its own."""
+        from paddle_tpu_torch import static
+
+        routes.clear()
+        free_memory()
+        if train:
+            _, prog, fetch, feeds = ernie_static_training_setup(dev)
+            feed = feeds[0]
+        else:
+            _, prog, fetch, ids = ernie_static_setup(dev)
+            feed = {"input_ids": ids}
+        scope = static.Scope()
+        exe = static.Executor()
+        routes["ernie"] = (prog, scope, exe)
+
+        def step():
+            with static.scope_guard(scope):
+                exe.run(prog, feed=feed, fetch_list=[fetch])
+
+        return step
+
     def momentum_alone():
         """``opt.step()`` on a step's gradients, eagerly: the update's
         kernels and their device time a call."""
@@ -233,7 +266,13 @@ def main():
            "seq_len": args.seq_len}
     prof = None
     for route in order:
-        if route == "resnet":
+        if route.startswith("ernie-static"):
+            train = route == "ernie-static-train"
+            step = ernie_static_route(train)
+            what = ("ernie classifier float32 (BASELINE config 5), 16 x "
+                    "128, static.Executor.run, "
+                    + ("AdamW step" if train else "inference"))
+        elif route == "resnet":
             step = resnet_route()
             what = (f"resnet50 float32, batch {RESNET_FULL['batch']} x 3 x "
                     f"{RESNET_FULL['side']}^2")
