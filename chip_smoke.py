@@ -340,6 +340,51 @@ Phases, in order; any failure exits non-zero:
              original's next run;
 16c.         a static.nn.cond / while_loop Program on the card: its values
              and its route (uncaptured, with the reason).
+17. lstm lm  the "large" PTB model of Zaremba et al. (arXiv:1409.2329
+             section 4, LSTM_LM): Embedding(10000, 1500), a 2-layer LSTM
+             of 1500 units with dropout 0.65, Linear(1500, 10000), float32,
+             SGD(1.0) with a global-norm clip of 10, batch 20 x 35 seeded
+             ids, 10 steps through TrainStep's graph: losses finite, one
+             capture, 0 kernels launched from the host a step
+             (torch.profiler: the dropout key is a counter on the card);
+             p50 step, tokens/s, device time, peak memory; 3 graph steps
+             against an eager twin's; the step's loss and gradients at
+             batch 2 x 5 against the port's CPU float64 run; the LSTM
+             forward at the step's shape against cuDNN's torch.nn.LSTM
+             holding the same weights (max error, both device times: a
+             yardstick only, not on the path);
+17a. gru, rnnt, functional  a 3-layer bidirectional GRU 1024 wide over
+             16 padded sequences of 100-400 frames with sequence_length,
+             forward and backward (zeros past each length; against CPU
+             float64 at its 2 shortest sequences); rnnt_loss at B 8, T 250, U 50, V
+             1024 forward and backward (timed; against CPU float64 at B 2,
+             T 40); each functional name of the slice on the card against
+             the CPU at the shape of a named model's layer
+             (functional_cases); F.scaled_dot_product_attention at bert-base's
+             float32 16 x 128 x 12 x 64 launching K1 once a call and
+             F.paged_attention(kernel="pallas") at phase 3's decode case
+             launching K4 once a call (the card's counts), each bitwise
+             equal to ops.flash_attention / ops.paged_attention;
+18. yolov3   YOLOv3-608's three heads at batch 8 (255 channels at 19, 38
+             and 76 squared, the paper's nine anchors, seeded values):
+             yolo_box, the top 1000 (box, class) pairs above 0.01,
+             category-aware nms at 0.45, 100 kept per image (timed, peak
+             memory), each image's picks equal to the port's CPU nms on
+             the card's boxes; yolo_loss over the three heads with 50
+             ground-truth boxes an image, forward and backward (timed,
+             peak memory, its loss and input gradients against the
+             CPU's float64);
+18a. detection heads  (DETECT) generate_proposals of the R50-C4 RPN (pre
+             6000, post 1000, NMS 0.7) and roi_align 14 x 14 (scale 1/16,
+             adaptive sampling, aligned) over its RoIs on a 1024-channel
+             map; roi_pool at Fast R-CNN's conv5; psroi_pool at R-FCN's
+             3969 channels; distribute_fpn_proposals on 2000 RoIs; DCNv2's
+             deform_conv2d forward and backward; SSD300's prior_box and
+             box_coder decode (8732 priors). Each timed, its peak memory
+             above its inputs held within DETECTION_MEM_CAP beyond its
+             outputs, and checked against the port's CPU run of the same
+             inputs (float64 for the smooth ops; exactly for indices,
+             counts and roi_pool's maxima, against its float32 run).
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -352,7 +397,9 @@ over the main path's timed window: phase 4's decode steps (bf16, Dh 64,
 one row) for the decode rows, phase 5b's verifies (the 8-row instance) for
 the verify row, phase 7's graph replays for K1-K3 (phases 14 and 14b's
 for their non-causal float32 and bf16 rows, with phases 16-16b's static
-runs under "launches_by_path"), each counted on the
+runs and phase 17a's F.scaled_dot_product_attention calls under
+"launches_by_path"; phase 17a's F.paged_attention calls under K4's decode
+row's), each counted on the
 card by the kernel itself; "launches_by_path" adds the MoE paths' windows
 (9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance) and phase
 10's launches per step by policy. The per-shard row's are phase 13's
@@ -6220,6 +6267,890 @@ def phase_mesh_small(dev, world, n_requests=8, max_new_tokens=16,
     return result
 
 
+# ------------------------------------------- recurrent, detection (17-18a) --
+# phase 17: the "large" PTB model of Zaremba, Sutskever & Vinyals
+# (arXiv:1409.2329 section 4): vocabulary 10000, 2 LSTM layers of 1500
+# units, dropout 0.65 on the non-recurrent connections, weights uniform in
+# [-0.04, 0.04], SGD at rate 1 with the gradients' global norm clipped at
+# 10, batch 20 x 35 unrolled steps (each batch from zero states here: the
+# paper carries them across batches)
+LSTM_LM = dict(vocab=10000, hidden=1500, layers=2, dropout=0.65, batch=20,
+               steps=35, init=0.04, lr=1.0, clip=10.0)
+# the card's float32 against the CPU's float64 (17: the LM's loss, and its
+# gradients relative in norm per parameter; 17a: the GRU's outputs and
+# gradients, rnnt_loss's loss and gradient relative to their largest)
+CPU64_TOL = dict(loss_rel=1e-5, grad_rel=1e-4, out_abs=1e-4)
+# 17a: each functional name on the card against the CPU's float32, relative
+# to the CPU result's largest magnitude
+FUNCTIONAL_TOL = 1e-5
+# 17a: a 3-layer bidirectional GRU 1024 wide over 16 padded sequences of
+# 100-400 frames; rnnt_loss at a transducer's size
+GRU_CASE = dict(width=1024, layers=3, batch=16, min_len=100, max_len=400)
+RNNT_CASE = dict(B=8, T=250, U=50, V=1024)
+# 18: YOLOv3-608 on COCO (arXiv:1804.02767): three heads of 3 x (5 + 80)
+# channels at strides 32, 16, 8, the paper's nine anchors, and
+# PaddleDetection's YOLOv3 post-process (yolo_box at conf 0.005, the top
+# 1000 (box, class) pairs above 0.01, NMS at 0.45 per class, 100 kept)
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = [(19, [6, 7, 8], 32), (38, [3, 4, 5], 16), (76, [0, 1, 2], 8)]
+YOLO = dict(batch=8, classes=80, image=608, conf=0.005, score=0.01,
+            pre_nms=1000, nms=0.45, keep=100, gt=50, ignore=0.7)
+# 18a: the heads' shapes: Faster R-CNN R50-C4's RPN at an 800 x 1333 image
+# (stride 16: a 50 x 84 map, 15 anchors, batch 2) and its 1024-channel
+# RoIAlign input; Fast R-CNN's VGG16 conv5 (512 channels, 38 x 63, 128
+# RoIs); R-FCN's 81 x 7 x 7 score maps over 300 RoIs; FPN levels over 2000
+# RoIs; DCNv2's 3 x 3, 256 -> 256 on [2, 256, 50, 84]; SSD300 decoding a
+# batch of 8 over its 8732 priors
+DETECT = dict(rpn_map=(50, 84), rpn_batch=2, align_channels=1024,
+              conv5=(512, 38, 63), pool_rois=128, rfcn=(81 * 49, 300),
+              fpn_rois=2000, dcn=(2, 256, 50, 84), ssd_batch=8)
+# 18a: no detection op may allocate more than this above its inputs and
+# outputs
+DETECTION_MEM_CAP = 4 << 30
+
+
+def lstm_lm(dev, seed=0):
+    """Phase 17's language model on ``dev``: Embedding, dropout, the
+    2-layer LSTM (dropout between its layers), dropout, Linear, weights
+    uniform in [-init, init] from a generator seeded ``seed``. Every
+    dropout hashes one key (``nn.DropoutKeys``) that the training forward
+    advances on the card (a counter in a buffer): a replayed graph draws new
+    masks with no generator to refill from the host, and the masks are the
+    same on any device for the same counter."""
+    from paddle_tpu_torch import nn
+
+    cfg = LSTM_LM
+
+    class LM(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            V, H = cfg["vocab"], cfg["hidden"]
+            self.embed = nn.Embedding(V, H)
+            self.drop_in = nn.Dropout(cfg["dropout"])
+            self.rnn = nn.LSTM(H, H, num_layers=cfg["layers"],
+                               dropout=cfg["dropout"])
+            self.drop_out = nn.Dropout(cfg["dropout"])
+            self.head = nn.Linear(H, V)
+            self.keys = nn.DropoutKeys()
+            self.keys.attach(self)
+            self.register_buffer("draws", torch.tensor([seed, 0]))
+
+        def forward(self, tokens):
+            if self.training:
+                self.draws[1:].add_(1)
+                self.keys.key = self.draws
+            out, _ = self.rnn(self.drop_in(self.embed(tokens)))
+            return self.head(self.drop_out(out))
+
+    with torch.device(dev):
+        model = LM()
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.uniform_(-cfg["init"], cfg["init"], generator=g)
+    return model
+
+
+def lstm_lm_setup(dev, seed=0, batch=None, steps=None):
+    """Phase 17's step: ``lstm_lm``, SGD(lr) with the global-norm clip,
+    cross entropy over every position, under ``TrainStep``; and one batch
+    of seeded token ids. Returns ``(model, opt, train, x, y)``."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD
+
+    cfg = LSTM_LM
+    B, T, V = batch or cfg["batch"], steps or cfg["steps"], cfg["vocab"]
+    model = lstm_lm(dev, seed)
+    opt = SGD(cfg["lr"], parameters=model.parameters(),
+              grad_clip=ClipGradByGlobalNorm(cfg["clip"]))
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, V, (B, T + 1))).to(dev)
+    x, y = toks[:, :-1].contiguous(), toks[:, 1:].contiguous()
+
+    def step_fn(xb, yb):
+        loss = F.cross_entropy(model(xb).reshape(-1, V), yb.reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    return model, opt, TrainStep(step_fn, model, opt), x, y
+
+
+def _grads_rel(card, cpu):
+    """The largest relative gap in norm, per parameter, between two models'
+    gradients, and its parameter."""
+    want = {n: p.grad.detach().double() for n, p in cpu.named_parameters()}
+    return max((float((p.grad.detach().cpu().double() - want[n]).norm()
+                      / want[n].norm().clamp_min(1e-30)), n)
+               for n, p in card.named_parameters())
+
+
+def _cpu_twin(model, build):
+    """``build()`` on the CPU in float64, holding ``model``'s state."""
+    twin = build().double()
+    twin.load_state_dict({k: v.detach().cpu().double()
+                          if v.is_floating_point() else v.cpu()
+                          for k, v in model.state_dict().items()})
+    return twin
+
+
+def phase_lstm_lm(dev, steps=10):
+    """17: the large PTB LSTM LM (see ``LSTM_LM``) through ``TrainStep``'s
+    graph, float32, 10 steps: losses finite, one capture, 0 kernels from
+    the host a step (torch.profiler); p50 step, tokens/s, device time,
+    peak memory; 3 graph steps against an eager twin's; the step's loss
+    and gradients at batch 2 x 5 against the port's CPU float64 run; the
+    LSTM forward at the step's shape against cuDNN's ``torch.nn.LSTM``
+    holding the same weights (a yardstick: max error, both device
+    times)."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.profiler import registry
+
+    cfg = LSTM_LM
+    B, T, V = cfg["batch"], cfg["steps"], cfg["vocab"]
+    t0 = time.perf_counter()
+    model, opt, train, x, y = lstm_lm_setup(dev)
+    build_s = time.perf_counter() - t0
+    registry.reset("jit")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(train(x, y)) for _ in range(2)]
+    step_s = []
+    for _ in range(steps - 2):
+        t1 = time.perf_counter()
+        losses.append(float(train(x, y)))
+        step_s.append(time.perf_counter() - t1)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    jit = dict(registry.counters("jit"))
+    prof = profile_steps(lambda: train(x, y), 2)
+    p50 = sorted(step_s)[math.ceil(len(step_s) / 2) - 1]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"lstm lm: losses {losses}")
+    if jit["train_step_captures"] != 1 or jit["train_step_eager"] != 1:
+        raise AssertionError(f"lstm lm: TrainStep {jit}")
+    if prof["kernel_launches"] != 0 or prof["graph_launches"] != 2:
+        raise AssertionError(
+            f"lstm lm: {prof['kernel_launches']} kernels launched from the "
+            f"host and {prof['graph_launches']} graph launches over 2 steps")
+    result = {"batch": B, "steps": T, "build_s": build_s,
+              "params": sum(p.numel() for p in model.parameters()),
+              "losses": losses, "step_p50_ms": p50 * 1e3,
+              "step_ms": [round(t * 1e3, 3) for t in step_s],
+              "tokens_per_s": B * T / p50, "peak_memory_gb": peak_gb,
+              "train_step": jit,
+              "host_kernel_launches_per_step": prof["kernel_launches"] / 2,
+              "graph_launches_per_step": prof["graph_launches"] / 2,
+              "kernels_per_step": prof["kernels"] / 2,
+              "device_ms_per_step": prof["device_ms"] / 2}
+    marks = {"train": time.perf_counter() - t0}
+    # the yardstick: the LSTM's forward at the step's shape, eval mode
+    import torch.nn as tnn
+
+    rnn = model.rnn.eval()
+    cudnn = tnn.LSTM(cfg["hidden"], cfg["hidden"], cfg["layers"],
+                     batch_first=True).to(dev)
+    cudnn.load_state_dict(rnn.state_dict())
+    h = torch.randn(B, T, cfg["hidden"], device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3))
+    with torch.no_grad():
+        err = float((rnn(h)[0] - cudnn(h)[0]).abs().max())
+        port_ms = device_ms(lambda: rnn(h), calls=2)
+        cudnn_ms = device_ms(lambda: cudnn(h), calls=2)
+    result["yardstick"] = {"max_abs_err": err, "port_device_ms": port_ms,
+                           "cudnn_device_ms": cudnn_ms,
+                           "cudnn_tf32": torch.backends.cudnn.allow_tf32}
+    del train, opt, model, rnn, cudnn
+    free_memory()
+    marks["yardstick"] = time.perf_counter() - t0
+    # graph against an eager twin: the same weights, batch and key counter
+    _, _, graph, xg, yg = lstm_lm_setup(dev, seed=1)
+    _, _, eager, _, _ = lstm_lm_setup(dev, seed=1)
+    g_losses = [float(graph(xg, yg)) for _ in range(3)]
+    e_losses = [float(eager.step_fn(xg, yg)) for _ in range(3)]
+    gap = max(float((a - b).abs().max()) for a, b in zip(
+        graph._models[0].parameters(), eager._models[0].parameters()))
+    loss_gap = max(abs(a - b) for a, b in zip(g_losses, e_losses))
+    if gap > 1e-5 or loss_gap > 1e-5 * max(map(abs, e_losses)):
+        raise AssertionError(f"lstm lm: graph {g_losses} against eager "
+                             f"{e_losses}, parameter gap {gap}")
+    result["graph_vs_eager"] = {"losses": g_losses, "eager": e_losses,
+                                "parameter_gap": gap,
+                                "bitwise": gap == 0 and loss_gap == 0}
+    del graph, eager
+    free_memory()
+    marks["graph_vs_eager"] = time.perf_counter() - t0
+    # the card's float32 step at batch 2 x 5 against the CPU's float64
+    card = lstm_lm(dev, seed=2)
+    cpu = _cpu_twin(card, lambda: lstm_lm("cpu", seed=2))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, V, (2, 6)))
+    losses64 = []
+    for m, d in ((card, dev), (cpu, "cpu")):
+        t = toks.to(d)
+        loss = F.cross_entropy(m(t[:, :-1]).reshape(-1, V),
+                               t[:, 1:].reshape(-1))
+        loss.backward()
+        losses64.append(float(loss))
+    loss_rel = abs(losses64[0] - losses64[1]) / abs(losses64[1])
+    grad_rel, worst = _grads_rel(card, cpu)
+    if loss_rel > CPU64_TOL["loss_rel"] or grad_rel > CPU64_TOL["grad_rel"]:
+        raise AssertionError(f"lstm lm: card against CPU float64: loss "
+                             f"{losses64}, gradients {grad_rel} ({worst})")
+    result["card_vs_cpu_float64"] = {"losses": losses64,
+                                     "loss_rel": loss_rel,
+                                     "grad_rel_max": grad_rel,
+                                     "grad_rel_worst": worst,
+                                     "tol": CPU64_TOL}
+    del card, cpu
+    free_memory()
+    marks["cpu_float64"] = time.perf_counter() - t0
+    result["seconds_at"] = marks
+    log("lstm lm: " + json.dumps(result))
+    return result
+
+
+def _nbytes(out):
+    if isinstance(out, torch.Tensor):
+        return out.numel() * out.element_size()
+    if isinstance(out, (tuple, list)):
+        return sum(_nbytes(o) for o in out)
+    return 0
+
+
+def memory_above(fn):
+    """``fn()`` once from a clean peak: ``(result, peak bytes allocated
+    above what was live before, the result's own bytes)``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base, _nbytes(out)
+
+
+def _gap(got, want):
+    """Largest absolute gap, and the largest relative to ``want``'s
+    largest magnitude."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    return err, err / max(float(want.abs().max()) if want.numel() else 0.0,
+                          1e-30)
+
+
+def functional_cases(g):
+    """17a's functional names, each at the shape of a named model's layer
+    (float32 inputs from the CPU generator ``g``): ``{name: (fn, args,
+    kwargs, the layer)}``."""
+    from paddle_tpu_torch.nn import functional as F
+
+    def r(*shape):
+        return torch.randn(*shape, generator=g)
+
+    lens = torch.from_numpy(np.random.default_rng(17).integers(
+        GRU_CASE["min_len"], GRU_CASE["max_len"] + 1, GRU_CASE["batch"]))
+    theta = r(32, 2, 3) * 0.1 + torch.tensor([[1.0, 0, 0], [0, 1.0, 0]])
+    # the pooled maps and their indices that the unpools scatter back
+    segnet = F.max_pool2d_with_index(r(2, 64, 360, 480), 2, 2)
+    c3d = F.max_pool3d_with_index(r(2, 128, 16, 56, 56), 2, 2)
+    bert = F.max_pool2d_with_index(r(16, 768, 1, 128), (1, 2), (1, 2))
+    arc = torch.randint(0, 85742, (128,), generator=g)
+    ptb = torch.randint(0, 10000, (700,), generator=g)
+    return {
+        "linear": (F.linear, (r(16, 128, 768), r(768, 3072) * 0.03,
+                              r(3072)), {},
+                   "bert-base's FFN up-projection, 16 x 128 x 768 -> 3072"),
+        "embedding": (F.embedding, (torch.randint(0, 30522, (16, 128),
+                                                  generator=g),
+                                    r(30522, 768)), dict(padding_idx=0),
+                      "bert-base's word embeddings, 30522 x 768, 16 x 128"),
+        "sequence_mask": (F.sequence_mask, (lens,), {},
+                          "phase 17a's GRU lengths, 16 of 100-400"),
+        "grid_sample": (F.grid_sample, (r(32, 3, 224, 224),
+                                        F.affine_grid(theta,
+                                                      [32, 3, 224, 224])),
+                        dict(mode="bilinear", padding_mode="border"),
+                        "a spatial transformer's sampler (arXiv:1506.02025)"
+                        " on ResNet-50's 32 x 3 x 224^2 input"),
+        "affine_grid": (F.affine_grid, (theta, [32, 3, 224, 224]), {},
+                        "the same transformer's grid, 32 x 224^2"),
+        "temporal_shift": (F.temporal_shift, (r(16, 256, 56, 56), 8),
+                           dict(shift_ratio=0.125),
+                           "TSM ResNet-50's res2 input (arXiv:1811.08383), "
+                           "2 clips x 8 segments x 256 x 56^2"),
+        "max_pool2d_with_index": (F.max_pool2d_with_index,
+                                  (r(8, 64, 112, 112), 3, 2, 1), {},
+                                  "ResNet-50's stem pool, 8 x 64 x 112^2"),
+        "max_pool3d_with_index": (F.max_pool3d_with_index,
+                                  (r(2, 128, 16, 56, 56), 2, 2), {},
+                                  "C3D's pool2 (arXiv:1412.0767), 2 x 128 x "
+                                  "16 x 56^2"),
+        "max_unpool1d": (F.max_unpool1d, (bert[0][:, :, 0],
+                                          bert[1][:, :, 0], 2), {},
+                         "bert-base's 16 x 768 x 128 hidden states, "
+                         "pooled by 2"),
+        "max_unpool2d": (F.max_unpool2d, (*segnet, 2, 2), {},
+                         "SegNet's first decoder (arXiv:1511.00561), 2 x 64 "
+                         "x 180 x 240 -> 360 x 480"),
+        "max_unpool3d": (F.max_unpool3d, (*c3d, 2, 2), {},
+                         "C3D's pool2 undone, 2 x 128 x 8 x 28^2"),
+        "margin_cross_entropy": (F.margin_cross_entropy,
+                                 (torch.tanh(r(128, 85742)), arc),
+                                 dict(return_softmax=True),
+                                 "ArcFace on MS1MV2 (arXiv:1801.07698), "
+                                 "128 x 85742 classes"),
+        "hsigmoid_loss": (F.hsigmoid_loss,
+                          (r(700, 1500), ptb, 10000, r(9999, 1500) * 0.03,
+                           r(9999, 1)), {},
+                          "phase 17's LM outputs (700 x 1500) over a "
+                          "10000-word tree"),
+        "class_center_sample": (F.class_center_sample, (arc, 85742, 8574),
+                                {}, "PartialFC (arXiv:2010.05222) on "
+                                "MS1MV2, 10% of 85742 classes, 128 labels"),
+        "rnnt_loss": (F.rnnt_loss, (r(2, 40, RNNT_CASE["U"] + 1,
+                                      RNNT_CASE["V"]),
+                                    torch.randint(1, RNNT_CASE["V"],
+                                                  (2, RNNT_CASE["U"]),
+                                                  generator=g),
+                                    torch.tensor([40, 31]),
+                                    torch.tensor([RNNT_CASE["U"], 37])),
+                      dict(reduction="none"),
+                      "phase 17a's transducer at B 2, T 40, U 50, V 1024"),
+    }
+
+
+def functional_on_card(dev):
+    """Each of 17a's functional names (``functional_cases``) on the card
+    against its CPU result on the same float32 inputs: ``{name: {"gap":
+    largest gap relative to the CPU result's largest magnitude, "layer":
+    ...}}`` (0 for indices, masks and sampled classes, which must be
+    equal)."""
+    gaps = {}
+    for name, (fn, args, kw, layer) in functional_cases(
+            torch.Generator().manual_seed(17)).items():
+        cpu = fn(*args, **kw)
+        card = fn(*[a.to(dev) if torch.is_tensor(a) else a for a in args],
+                  **kw)
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        card = card if isinstance(card, tuple) else (card,)
+        worst = 0.0
+        for c, w in zip(card, cpu):
+            if w.is_floating_point():
+                worst = max(worst, _gap(c, w)[1])
+            elif not torch.equal(c.cpu(), w):
+                raise AssertionError(f"17a {name}: the card's indices "
+                                     "differ from the CPU's")
+        if worst > FUNCTIONAL_TOL:
+            raise AssertionError(f"17a {name}: card against CPU {worst} of "
+                                 "the largest")
+        gaps[name] = {"gap": worst, "layer": layer}
+        del cpu, card
+    free_memory()
+    return gaps
+
+
+def phase_rnn_rnnt_functional(dev, calls=3):
+    """17a: the 3-layer bidirectional GRU over padded sequences with
+    ``sequence_length`` (zeros past each length; against CPU float64 at
+    its 2 shortest sequences), ``rnnt_loss`` at a transducer's size (timed; against CPU
+    float64 at B 2, T 40), every functional name of the slice on the card
+    against the CPU, and the two attention entries: each call of
+    ``F.scaled_dot_product_attention`` at bert-base's float32 16 x 128 x
+    12 x 64 launches K1 once and ``F.paged_attention(kernel="pallas")`` at
+    phase 3's decode case K4 once (the card's counts), each bitwise equal to
+    ``ops.flash_attention`` / ``ops.paged_attention``."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.nn.layer.layers import init_parameters
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    t0 = time.perf_counter()
+    c = GRU_CASE
+    W = c["width"]
+    rng = np.random.default_rng(17)
+    lens = rng.integers(c["min_len"], c["max_len"] + 1, c["batch"])
+    T = int(lens.max())
+
+    def gru_on(d):
+        with torch.device(d):
+            m = nn.GRU(W, W, num_layers=c["layers"], direction="bidirect")
+        return init_parameters(m, torch.Generator(device=d).manual_seed(4))
+
+    gru = gru_on(dev)
+    x = torch.from_numpy(rng.standard_normal((c["batch"], T, W)).astype(
+        np.float32)).to(dev)
+    seq = torch.from_numpy(lens).to(dev)
+
+    def fwd_bwd():
+        xi = x.detach().requires_grad_()
+        out, _ = gru(xi, sequence_length=seq)
+        out.square().sum().backward()
+        gru.zero_grad(set_to_none=True)
+        return out.detach()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fwd_bwd()
+    torch.cuda.synchronize()
+    gru_ms = (time.perf_counter() - t0) * 1e3
+    gru_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    past = torch.arange(T, device=dev)[None, :] >= seq[:, None]
+    if out[past].abs().max() != 0:
+        raise AssertionError("17a gru: outputs past a length are not zero")
+    # the 2 shortest sequences against the CPU's float64
+    two = np.argsort(lens, kind="stable")[:2].tolist()
+    T2 = int(lens[two].max())
+    cpu = _cpu_twin(gru, lambda: gru_on("cpu"))
+    outs = []
+    for m, d in ((gru, dev), (cpu, "cpu")):
+        xi = x[two, :T2].detach().to(d)
+        xi = (xi.double() if d == "cpu" else xi).requires_grad_()
+        o, h = m(xi, sequence_length=seq[two].to(d))
+        (o.square().sum() + h.sum()).backward()
+        outs.append((o.detach(), xi.grad))
+    out_gap = _gap(outs[0][0], outs[1][0])[0]
+    x_rel = float((outs[0][1].cpu().double() - outs[1][1]).norm()
+                  / outs[1][1].norm())
+    w_rel, worst = _grads_rel(gru, cpu)
+    if out_gap > CPU64_TOL["out_abs"] or max(x_rel, w_rel) > \
+            CPU64_TOL["grad_rel"]:
+        raise AssertionError(f"17a gru: card against CPU float64: outputs "
+                             f"{out_gap}, input gradient {x_rel}, weights "
+                             f"{w_rel} ({worst})")
+    marks = {"gru": time.perf_counter() - t0}
+    result = {"gru": {"batch": c["batch"], "lengths": lens.tolist(),
+                      "fwd_bwd_ms": gru_ms, "peak_memory_gb": gru_peak,
+                      "zeros_past_lengths": True,
+                      "vs_cpu_float64": {"out_abs": out_gap,
+                                         "x_grad_rel": x_rel,
+                                         "weight_grad_rel": w_rel,
+                                         "worst": worst}}}
+    del gru, cpu, x, outs
+    free_memory()
+    # rnnt_loss at B 8, T 250, U 50, V 1024, then B 2, T 40 against float64
+    r = RNNT_CASE
+    g = torch.Generator().manual_seed(18)
+
+    def rnnt_inputs(B, T, U, V):
+        logits = torch.randn(B, T, U + 1, V, generator=g)
+        labels = torch.randint(1, V, (B, U), generator=g)
+        il = torch.randint(T // 2, T + 1, (B,), generator=g)
+        ll = torch.randint(U // 2, U + 1, (B,), generator=g)
+        il[0], ll[0] = T, U
+        return logits, labels, il, ll
+
+    big = [a.to(dev) for a in rnnt_inputs(r["B"], r["T"], r["U"], r["V"])]
+
+    def rnnt_step():
+        xi = big[0].detach().requires_grad_()
+        loss = F.rnnt_loss(xi, *big[1:])
+        loss.backward()
+        return loss.detach()
+
+    loss, rnnt_peak, _ = memory_above(rnnt_step)
+    rnnt_ms, rnnt_device_ms = host_and_device_ms(rnnt_step, n=3)
+    if not torch.isfinite(loss):
+        raise AssertionError(f"17a rnnt_loss: {loss}")
+    small = rnnt_inputs(2, 40, r["U"], r["V"])
+    got = []
+    for d, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+        xi = small[0].to(d, dt).clone().requires_grad_()
+        loss_s = F.rnnt_loss(xi, *[a.to(d) for a in small[1:]],
+                             reduction="sum")
+        loss_s.backward()
+        got.append((loss_s.detach(), xi.grad))
+    rnnt_rel = _gap(got[0][0], got[1][0])[1]
+    rnnt_grad = _gap(got[0][1], got[1][1])[1]
+    if rnnt_rel > CPU64_TOL["loss_rel"] or rnnt_grad > CPU64_TOL["grad_rel"]:
+        raise AssertionError(f"17a rnnt_loss: card against CPU float64: "
+                             f"loss {rnnt_rel}, gradient {rnnt_grad}")
+    result["rnnt"] = {**r, "fwd_bwd_ms": rnnt_ms,
+                      "fwd_bwd_device_ms": rnnt_device_ms,
+                      "loss": float(loss),
+                      "peak_above_inputs_gb": rnnt_peak / 1e9,
+                      "vs_cpu_float64": {"B": 2, "T": 40,
+                                         "loss_rel": rnnt_rel,
+                                         "grad_rel_to_max": rnnt_grad}}
+    del big
+    free_memory()
+    marks["rnnt"] = time.perf_counter() - t0
+    result["functional_vs_cpu"] = functional_on_card(dev)
+    marks["functional"] = time.perf_counter() - t0
+    # the two attention entries: their kernels launched, bitwise equal
+    q, k, v = (torch.randn(*NONCAUSAL_SHAPES[torch.float32], device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(s)) for s in (1, 2, 3))
+    fa.reset_device_launches()
+    sdpa = [F.scaled_dot_product_attention(q, k, v) for _ in range(calls)]
+    k1 = fa.device_launches()["flash_fwd"]
+    want = fa.flash_attention(q, k, v)
+    plain = F.scaled_dot_product_attention(q.cpu(), k.cpu(), v.cpu())
+    atol, rtol = fa.FLASH_PARITY_TOL[torch.float32]
+    sdpa_gap = _gap(sdpa[0], plain)[0]
+    if k1 != calls or not all(torch.equal(o, want) for o in sdpa) or \
+            sdpa_gap > atol + rtol * float(plain.abs().max()):
+        raise AssertionError(f"17a sdpa: K1 {k1} launches for {calls} "
+                             f"calls, against the plain route {sdpa_gap}")
+    args = paged_case(dev, torch.bfloat16, 1, PAGED_TIMED[
+        "paged_attention"][2], seed=PAGED_TIMED["paged_attention"][3])
+    pa.reset_device_launches()
+    paged = [F.paged_attention(*args, kernel="pallas")
+             for _ in range(calls)]
+    k4 = sum(pa.device_launches().values())
+    want = pa.paged_attention(*args)
+    if k4 != calls or not all(torch.equal(o, want) for o in paged):
+        raise AssertionError(f"17a paged_attention: K4 {k4} launches for "
+                             f"{calls} calls or outputs unequal")
+    result["attention"] = {"sdpa_k1_launches": k1, "sdpa_calls": calls,
+                           "sdpa_vs_plain": sdpa_gap,
+                           "paged_k4_launches": k4, "paged_calls": calls,
+                           "bitwise_equal_to_ops": True}
+    marks["attention"] = time.perf_counter() - t0
+    result["seconds_at"] = marks
+    log("rnn, rnnt, functional: " + json.dumps(result))
+    return result
+
+
+def yolo_heads(dev, seed=0):
+    """Phase 18's seeded head values ``[8, 255, s, s]`` per stride."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = 3 * (5 + YOLO["classes"])
+    return [torch.randn(YOLO["batch"], C, s, s, device=dev, generator=g)
+            for s, _, _ in YOLO_HEADS]
+
+
+def yolo_postprocess(heads, img):
+    """yolo_box per head at conf 0.005, the top 1000 (box, class) pairs
+    above 0.01 per image, category-aware NMS at 0.45, 100 kept: per
+    image, ``(kept pair indices, boxes, scores, classes)`` of the pairs."""
+    from paddle_tpu_torch.vision import ops
+
+    boxes, scores = [], []
+    for x, (_, mask, down) in zip(heads, YOLO_HEADS):
+        anchors = [a for m in mask for a in YOLO_ANCHORS[2 * m:2 * m + 2]]
+        b, s = ops.yolo_box(x, img, anchors, YOLO["classes"], YOLO["conf"],
+                            downsample_ratio=down)
+        boxes.append(b)
+        scores.append(s)
+    boxes, scores = torch.cat(boxes, 1), torch.cat(scores, 1)
+    C = YOLO["classes"]
+    flat = scores.flatten(1)
+    top, idx = flat.topk(YOLO["pre_nms"], dim=1)
+    top = torch.where(top > YOLO["score"], top,
+                      torch.full_like(top, float("-inf")))
+    out = []
+    for n in range(boxes.shape[0]):
+        b, c = boxes[n][idx[n] // C], idx[n] % C
+        keep = ops.nms(b, YOLO["nms"], top[n], c, top_k=YOLO["keep"])
+        out.append((keep, b, top[n], c))
+    return out
+
+
+def yolo_targets(dev, seed=0):
+    """50 seeded ground-truth boxes per image (cx, cy, w, h in pixels of
+    the 608 image) and their classes."""
+    g = torch.Generator().manual_seed(seed)
+    B, G, S = YOLO["batch"], YOLO["gt"], YOLO["image"]
+    wh = torch.rand(B, G, 2, generator=g) * 0.5 * S + 8
+    cxy = torch.rand(B, G, 2, generator=g) * (S - wh) + wh / 2
+    lab = torch.randint(0, YOLO["classes"], (B, G), generator=g)
+    return torch.cat([cxy, wh], -1).to(dev), lab.to(dev)
+
+
+def phase_yolov3(dev):
+    """18: YOLOv3-608's three heads (``YOLO_HEADS``) at batch 8: the
+    post-process (``yolo_postprocess``) timed with its peak memory, each
+    image's NMS picks on the card bitwise equal to the port's CPU NMS on
+    the card's own boxes; ``yolo_loss`` over the three heads with 50
+    ground-truth boxes an image, forward and backward, timed with its
+    peak memory, its loss and each head's input gradient against the
+    CPU's float64."""
+    from paddle_tpu_torch.vision import ops
+
+    heads = yolo_heads(dev)
+    img = torch.full((YOLO["batch"], 2), YOLO["image"], device=dev)
+    res, peak, _ = memory_above(lambda: yolo_postprocess(heads, img))
+    post_ms, post_device_ms = host_and_device_ms(
+        lambda: yolo_postprocess(heads, img), n=3)
+    kept = []
+    for n, (keep, b, s, c) in enumerate(res):
+        cpu = ops.nms(b.cpu(), YOLO["nms"], s.cpu(), c.cpu(),
+                      top_k=YOLO["keep"])
+        if not torch.equal(keep.cpu(), cpu):
+            raise AssertionError(f"18 nms: image {n}: the card's picks "
+                                 "differ from the CPU's")
+        kept.append(int(keep.numel()))
+    gt, lab = yolo_targets(dev)
+
+    def loss_of(hs, g_, l_):
+        total = 0
+        for x, (_, mask, down) in zip(hs, YOLO_HEADS):
+            total = total + ops.yolo_loss(
+                x, g_, l_, YOLO_ANCHORS, mask, YOLO["classes"],
+                YOLO["ignore"], down).sum()
+        return total
+
+    def fwd_bwd(hs, g_, l_):
+        hs = [h.detach().requires_grad_() for h in hs]
+        loss = loss_of(hs, g_, l_)
+        loss.backward()
+        return loss.detach(), [h.grad for h in hs]
+
+    (loss, grads), loss_peak, _ = memory_above(
+        lambda: fwd_bwd(heads, gt, lab))
+    loss_ms, loss_device_ms = host_and_device_ms(
+        lambda: fwd_bwd(heads, gt, lab), n=3)
+    want, want_grads = fwd_bwd([h.cpu().double() for h in heads],
+                               gt.cpu().double(), lab.cpu())
+    loss_rel = _gap(loss, want)[1]
+    # each head's input gradient, relative to its largest entry
+    grad_rel = [_gap(c, w)[1] for c, w in zip(grads, want_grads)]
+    if not torch.isfinite(loss) or loss_rel > CPU64_TOL["loss_rel"] or \
+            max(grad_rel) > CPU64_TOL["grad_rel"]:
+        raise AssertionError(f"18 yolo_loss {float(loss)} against the CPU's "
+                             f"float64 {float(want)}; input gradients "
+                             f"{grad_rel}")
+    result = {"batch": YOLO["batch"], "postprocess_ms": post_ms,
+              "postprocess_device_ms": post_device_ms,
+              "postprocess_peak_above_inputs_gb": peak / 1e9,
+              "kept_per_image": kept, "nms_equal_cpu": True,
+              "loss_fwd_bwd_ms": loss_ms,
+              "loss_fwd_bwd_device_ms": loss_device_ms,
+              "loss_peak_above_inputs_gb": loss_peak / 1e9,
+              "loss": float(loss),
+              "loss_vs_cpu_float64_rel": loss_rel,
+              "input_grad_vs_cpu_float64_rel": grad_rel}
+    del heads, grads, want_grads
+    free_memory()
+    log("yolov3: " + json.dumps(result))
+    return result
+
+
+def rpn_inputs(dev, seed=0):
+    """Faster R-CNN R50-C4's RPN at an 800 x 1333 image: a 50 x 84 map at
+    stride 16, 15 anchors (sizes 32-512, ratios 0.5 / 1 / 2), seeded
+    scores and deltas, unit variances."""
+    (H, W), stride, batch = DETECT["rpn_map"], 16, DETECT["rpn_batch"]
+    sizes, ratios = (32, 64, 128, 256, 512), (0.5, 1.0, 2.0)
+    base = []
+    for s in sizes:
+        for r in ratios:
+            w, h = s / math.sqrt(r), s * math.sqrt(r)
+            base.append([-w / 2, -h / 2, w / 2, h / 2])
+    base = torch.tensor(base)                                    # [15, 4]
+    ys, xs = torch.meshgrid(torch.arange(H) * stride + stride / 2,
+                            torch.arange(W) * stride + stride / 2,
+                            indexing="ij")
+    shift = torch.stack([xs, ys, xs, ys], -1)[:, :, None]       # [H, W, 1, 4]
+    anchors = (shift + base).float()
+    g = torch.Generator().manual_seed(seed)
+    A = len(base)
+    scores = torch.randn(batch, A, H, W, generator=g)
+    deltas = torch.randn(batch, 4 * A, H, W, generator=g) * 0.2
+    img = torch.tensor([[H * 16.0, W * 16.0 - 11]] * batch)
+    return [t.to(dev) for t in (scores, deltas, img, anchors,
+                                torch.ones_like(anchors))]
+
+
+def ssd300_priors(dev):
+    """SSD300's six maps (arXiv:1512.02325): 8732 prior boxes and their
+    variances, ``[8732, 4]`` each."""
+    from paddle_tpu_torch.vision import ops
+
+    maps = [38, 19, 10, 5, 3, 1]
+    mins = [30, 60, 111, 162, 213, 264]
+    maxs = [60, 111, 162, 213, 264, 315]
+    ars = [[2.0], [2.0, 3.0], [2.0, 3.0], [2.0, 3.0], [2.0], [2.0]]
+    steps = [8, 16, 32, 64, 100, 300]
+    image = torch.empty(1, 3, 300, 300, device=dev)
+    boxes, var = [], []
+    for m, lo, hi, ar, st in zip(maps, mins, maxs, ars, steps):
+        fm = torch.empty(1, 1, m, m, device=dev)
+        b, v = ops.prior_box(fm, image, [lo], [hi], ar, flip=True,
+                             clip=True, steps=(st, st))
+        boxes.append(b.reshape(-1, 4))
+        var.append(v.reshape(-1, 4))
+    return torch.cat(boxes), torch.cat(var)
+
+
+def phase_detection_heads(dev):
+    """18a: each op timed (host clock and CUDA events, median of 3 after its
+    first call), its peak memory above its inputs
+    held within ``DETECTION_MEM_CAP`` beyond its outputs, and its result
+    against the port's CPU run of the same inputs (float64 for the smooth
+    ops; exactly for indices and counts): the R50-C4 RPN's
+    generate_proposals, roi_align over its RoIs on a 1024-channel map;
+    roi_pool at Fast R-CNN's VGG16 conv5; psroi_pool at R-FCN's 3969
+    channels; distribute_fpn_proposals on 2000 RoIs; DCNv2's deformable
+    convolution forward and backward; SSD300's prior_box and box_coder."""
+    from paddle_tpu_torch.vision import ops
+
+    result = {}
+
+    def run(name, fn, check):
+        out, peak, out_bytes = memory_above(fn)
+        ms, device = host_and_device_ms(fn, n=3)
+        above = peak - out_bytes
+        if above > DETECTION_MEM_CAP:
+            raise AssertionError(f"18a {name}: {above / 2**30:.2f} GiB above "
+                                 "its inputs and outputs")
+        gaps = check(out)
+        result[name] = {"ms": ms, "device_ms": device,
+                        "peak_above_inputs_gb": peak / 1e9,
+                        "outputs_gb": out_bytes / 1e9,
+                        "above_inputs_and_outputs_gb": above / 1e9,
+                        **gaps}
+        log(f"18a {name}: {json.dumps(result[name])}")
+        return out
+
+    def close64(got, want, tol=1e-5, what=""):
+        err, rel = _gap(got, want)
+        if rel > tol:
+            raise AssertionError(f"18a {what}: card against CPU float64 "
+                                 f"{err} ({rel} of the largest)")
+        return rel
+
+    # the RPN: proposals, then RoIAlign over them on a 1024-channel map
+    rpn = rpn_inputs(dev)
+    kw = dict(pre_nms_top_n=6000, post_nms_top_n=1000, nms_thresh=0.7,
+              min_size=0.0)
+
+    def proposals_check(out):
+        cpu = ops.generate_proposals(*[a.cpu() for a in rpn], **kw)
+        if not torch.equal(out[2].cpu(), cpu[2]):
+            raise AssertionError(f"18a generate_proposals: counts "
+                                 f"{out[2].tolist()} against {cpu[2]}")
+        return {"rois_per_image": out[2].tolist(),
+                "rois_vs_cpu": _gap(out[0], cpu[0])[0]}
+
+    rois, _, num = run("generate_proposals",
+                       lambda: ops.generate_proposals(*rpn, **kw),
+                       proposals_check)
+    feat = torch.randn(DETECT["rpn_batch"], DETECT["align_channels"],
+                       *DETECT["rpn_map"], device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(1))
+    akw = dict(output_size=14, spatial_scale=1 / 16, sampling_ratio=0,
+               aligned=True)
+
+    def align_check(out):
+        # the first 32 RoIs of each image in float64 on the CPU
+        n0, n1 = (min(32, int(n)) for n in num)
+        pick = torch.cat([torch.arange(n0), int(num[0]) + torch.arange(n1)])
+        want = ops.roi_align(feat.cpu().double(), rois[pick].cpu().double(),
+                             torch.tensor([n0, n1]), **akw)
+        return {"vs_cpu_float64_rel": close64(out[pick.to(dev)], want,
+                                              what="roi_align"),
+                "rois": int(rois.shape[0])}
+
+    run("roi_align", lambda: ops.roi_align(feat, rois, num, **akw),
+        align_check)
+    del feat
+    free_memory()
+    g = torch.Generator().manual_seed(2)
+
+    def boxes(n, w, h, lo=16.0):
+        xy = torch.rand(n, 2, generator=g) * torch.tensor([w, h]) * 0.8
+        wh = lo + torch.rand(n, 2, generator=g) * torch.tensor([w, h]) * 0.5
+        return torch.cat([xy, xy + wh], 1)
+
+    # Fast R-CNN's RoIPool on VGG16's conv5 (600 x 1000 image, stride 16)
+    C5, H5, W5 = DETECT["conv5"]
+    n_pool = DETECT["pool_rois"]
+    conv5 = torch.randn(1, C5, H5, W5, generator=g)
+    r_pool = boxes(n_pool, W5 * 16, H5 * 16)
+    args = [conv5.to(dev), r_pool.to(dev),
+            torch.tensor([n_pool], device=dev)]
+    # maxima over bins whose edges come from rounded corners: the CPU's
+    # float32 run takes the same edges, and the same elements
+    def pool_check(out):
+        if not torch.equal(out.cpu(), ops.roi_pool(
+                *[a.cpu() for a in args], 7, 1 / 16)):
+            raise AssertionError("18a roi_pool: the card's maxima differ "
+                                 "from the CPU's")
+        return {"equal_cpu_float32": True}
+
+    run("roi_pool", lambda: ops.roi_pool(*args, 7, 1 / 16), pool_check)
+    # R-FCN's position-sensitive pool: 81 classes x 7 x 7 channels
+    C_ps, n_ps = DETECT["rfcn"]
+    score_map = torch.randn(1, C_ps, H5, W5, generator=g)
+    r_ps = boxes(n_ps, W5 * 16, H5 * 16)
+    args = [score_map.to(dev), r_ps.to(dev),
+            torch.tensor([n_ps], device=dev)]
+    m = min(64, n_ps)  # the first 64 RoIs in float64 on the CPU
+    run("psroi_pool", lambda: ops.psroi_pool(*args, 7, 1 / 16),
+        lambda out: {"vs_cpu_float64_rel": close64(
+            out[:m], ops.psroi_pool(args[0].cpu().double(),
+                                    r_ps[:m].double(), torch.tensor([m]),
+                                    7, 1 / 16),
+            what="psroi_pool")})
+    # FPN levels 2-5 over 2000 RoIs of an 800 x 1333 image
+    r_fpn = boxes(DETECT["fpn_rois"], 1333, 800, lo=4.0).to(dev)
+
+    def fpn_check(out):
+        cpu = ops.distribute_fpn_proposals(r_fpn.cpu(), 2, 5, 4, 224)
+        if not torch.equal(out[1].cpu(), cpu[1]) or any(
+                not torch.equal(a.cpu(), b) for a, b in zip(out[2], cpu[2])):
+            raise AssertionError("18a distribute_fpn_proposals: restore "
+                                 "index or counts differ from the CPU's")
+        return {"per_level": [int(n) for n in out[2]]}
+
+    run("distribute_fpn_proposals",
+        lambda: ops.distribute_fpn_proposals(r_fpn, 2, 5, 4, 224), fpn_check)
+    # DCNv2: 3 x 3, 256 -> 256, with a mask, forward and backward
+    # offsets on a 1/64 grid: a tap's position is then exact in float32
+    # and float64 alike, so both take the same bilinear corners (the
+    # offsets' gradient jumps where a position crosses a pixel)
+    N, C, H, W = DETECT["dcn"]
+    dcn = [torch.randn(N, C, H, W, generator=g),
+           (torch.randn(N, 18, H, W, generator=g) * 128).round() / 64,
+           torch.randn(C, C, 3, 3, generator=g) * 0.02,
+           torch.randn(C, generator=g),
+           torch.rand(N, 9, H, W, generator=g)]
+
+    def dcn_step(ins):
+        ins = [t.detach().requires_grad_() for t in ins]
+        out = ops.deform_conv2d(ins[0], ins[1], ins[2], ins[3], padding=1,
+                                mask=ins[4])
+        out.square().sum().backward()
+        return (out.detach(), *[t.grad for t in ins])
+
+    card_in = [t.to(dev) for t in dcn]
+
+    def dcn_check(out):
+        want = dcn_step([t.double() for t in dcn])
+        rels = [close64(o, w, 1e-5, f"deform_conv2d {i}")
+                for i, (o, w) in enumerate(zip(out, want))]
+        return {"vs_cpu_float64_rel": max(rels)}
+
+    run("deform_conv2d", lambda: dcn_step(card_in), dcn_check)
+    del card_in
+    free_memory()
+    # SSD300: 8732 priors, decoded for a batch of 8
+    deltas = (torch.randn(DETECT["ssd_batch"], 8732, 4, generator=g)
+              * 0.5).to(dev)
+
+    def ssd():
+        pb, pv = ssd300_priors(dev)
+        return ops.box_coder(pb, pv, deltas, "decode_center_size"), pb
+
+    def ssd_check(out):
+        if out[1].shape[0] != 8732:
+            raise AssertionError(f"18a ssd300: {out[1].shape[0]} priors")
+        pb, pv = ssd300_priors("cpu")
+        want = ops.box_coder(pb.double(), pv.double(),
+                             deltas.cpu().double(), "decode_center_size")
+        return {"priors": 8732, "vs_cpu_float64_rel": close64(
+            out[0], want, what="prior_box + box_coder")}
+
+    run("prior_box + box_coder", ssd, ssd_check)
+    log("detection heads: " + json.dumps(result))
+    return result
+
+
 def nccl_world_1():
     """12c: ``init_parallel_env()`` in a child process at world 1."""
     t1 = time.perf_counter()
@@ -6436,6 +7367,12 @@ def main():
                          phase_ernie_static_training, dev)
     static_cf = timed("16c static control flow", phase_static_control_flow,
                       dev)
+    free_memory()
+    lstm = timed("17 lstm lm", phase_lstm_lm, dev)
+    rnn_fn = timed("17a gru, rnnt, functional", phase_rnn_rnnt_functional,
+                   dev)
+    yolo = timed("18 yolov3", phase_yolov3, dev)
+    heads = timed("18a detection heads", phase_detection_heads, dev)
     runs = {"bfloat16": ("14b", bert_bf16), "float32": ("14", bert)}
     for name, row in flash.items():  # the encoder path's instances
         if "_noncausal_" not in name:
@@ -6459,6 +7396,16 @@ def main():
                     static_io["k1_launches_per_run"]
             paths["ernie static training (phase 16b, per run)"] = \
                 static_train["launches_per_run"][kern]
+            if kern == "flash_fwd":
+                paths["F.scaled_dot_product_attention (phase 17a, "
+                      f"{rnn_fn['attention']['sdpa_calls']} calls)"] = \
+                    rnn_fn["attention"]["sdpa_k1_launches"]
+    for row in paged:  # the functional entry's launches of K4's row
+        if row["name"] == "paged_attention":
+            row["launches_by_path"][
+                "F.paged_attention(kernel='pallas') (phase 17a, "
+                f"{rnn_fn['attention']['paged_calls']} calls)"] = \
+                rnn_fn["attention"]["paged_k4_launches"]
     world_dir = tempfile.mkdtemp(prefix="chip_smoke_world_")
     t0 = time.perf_counter()
     world = two_ranks(dev, world_dir)
@@ -6643,6 +7590,20 @@ def main():
         f"continued {static_train['resumed_loss']!r} == "
         f"{static_train['continued_loss']!r}; control flow "
         f"{json.dumps(static_cf)}")
+    log(f"lstm lm on {smi}: {LSTM_LM['vocab']} x {LSTM_LM['hidden']} x "
+        f"{LSTM_LM['layers']} layers, float32, batch {lstm['batch']} x "
+        f"{lstm['steps']} through TrainStep's graph: p50 step "
+        f"{lstm['step_p50_ms']:.2f} ms, {lstm['tokens_per_s']:.0f} tokens/s, "
+        f"device {lstm['device_ms_per_step']:.2f} ms a step, "
+        f"{lstm['host_kernel_launches_per_step']:.0f} kernels launched from "
+        f"the host a step, peak memory {lstm['peak_memory_gb']:.2f} GB; "
+        f"losses {lstm['losses'][0]:.4f} -> {lstm['losses'][-1]:.4f}; graph "
+        f"vs eager {json.dumps(lstm['graph_vs_eager'])}; card vs CPU "
+        f"float64 {json.dumps(lstm['card_vs_cpu_float64'])}; cuDNN "
+        f"yardstick {json.dumps(lstm['yardstick'])}")
+    log(f"gru, rnnt, functional on {smi}: {json.dumps(rnn_fn)}")
+    log(f"yolov3 on {smi}: {json.dumps(yolo)}")
+    log(f"detection heads on {smi}: {json.dumps(heads)}")
     r0 = dist["ranks"][0]
     peak = max(r["peak_memory_gb"] for r in dist["ranks"])
     staged = {k: v for k, v in r0["collective"].items() if "staged" in k}

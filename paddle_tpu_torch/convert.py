@@ -18,8 +18,11 @@ either way. Layout: the reference's Linear stores its weight ``[in, out]``,
 torch's ``[out, in]``, so every 2-D weight of a Linear is transposed; a
 fused layer's packed ``qkv_proj`` is one Linear whose output columns are
 ``[3, heads, head_dim]`` in both packages, so the transpose is all it
-takes. A tied weight (BERT's LM head shares the word embeddings') is one
-parameter listed once, under the embeddings' name, in both packages.
+takes. The recurrent layers' weights (``weight_ih_l0 [gates * H, in]``,
+...) are stored alike in both packages and are not Linear weights, so they
+are carried as they are. A tied weight (BERT's LM head shares the word
+embeddings') is one parameter listed once, under the embeddings' name, in
+both packages.
 
 A model sharded for tensor parallelism (``fleet.distributed_model``:
 parameters carrying ``mp_shard``) takes a full reference state as this

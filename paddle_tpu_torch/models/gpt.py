@@ -48,10 +48,9 @@ from ..distributed.meta_parallel.mp_ops import (_c_identity, _c_lookup_table,
                                                 _c_softmax_with_cross_entropy,
                                                 _mp_allreduce)
 from ..nn.moe import MoEMLP, validate_moe_config
-from ..ops.attention import (attention, output_dropout,
-                             scaled_dot_product_attention)
+from ..ops.attention import attention, output_dropout
 from ..ops.counter_rng import hashed_dropout, new_key
-from ..ops.flash_attention import select_flash_kernel
+from ..ops.flash_attention import flash_attention, select_flash_kernel
 from ..ops.paged_attention import (paged_attention_route, paged_view,
                                    position_mask)
 
@@ -227,11 +226,9 @@ class GPTAttention(nn.Module):
         h = qkv.shape[-1] // (3 * self.head_dim)  # this rank's heads
         q, k, v = qkv.view(B, T, 3, h, self.head_dim).unbind(2)
         if cache is None:
-            out = scaled_dot_product_attention(
-                q, k, v, is_causal=True,
-                dropout_p=0.0 if dropout else self.dropout_p,
-                training=self.training, generator=self.generator,
-                kernel=self.kernel)
+            out = flash_attention(q, k, v, causal=True, kernel=self.kernel)
+            out = output_dropout(out, 0.0 if dropout else self.dropout_p,
+                                 self.training, self.generator)
             out = out.reshape(B, T, h * self.head_dim)
             if dropout is not None and self.training:
                 out = dropout(out, self.dropout_p)

@@ -1,6 +1,7 @@
-"""Dropouts, resizing, shuffles, patches, padding and one_hot (counterpart
-of paddle_tpu/ops/nn_ops.py's dropout, resize and shuffle ops and
-ops/manipulation.py's ``pad``).
+"""``linear``, ``embedding``, ``sequence_mask``, dropouts, resizing,
+shuffles, patches, padding and one_hot (counterpart of
+paddle_tpu/ops/nn_ops.py's linear, embedding, sequence_mask, dropout,
+resize and shuffle ops and ops/manipulation.py's ``pad``).
 
 Every dropout here draws its keep-mask from the port's counter-based hash
 (``ops.counter_rng.hashed_dropout``): the same eagerly, in a CUDA graph's
@@ -19,9 +20,38 @@ import torch.nn.functional as F
 from ...ops.counter_rng import hashed_dropout, new_key
 from .conv import channels_last, ntuple
 
-__all__ = ["dropout", "dropout2d", "dropout3d", "alpha_dropout",
+__all__ = ["linear", "embedding", "sequence_mask", "dropout", "dropout2d", "dropout3d", "alpha_dropout",
            "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
            "channel_shuffle", "unfold", "fold", "one_hot", "pad"]
+
+
+def linear(x, weight, bias=None, name=None):
+    """``x @ weight + bias`` with ``weight`` in the reference's ``[in,
+    out]`` layout (``nn.Linear`` holds its weight ``[out, in]`` and passes
+    ``.t()``)."""
+    return F.linear(x, weight.t(), bias)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows ``weight[x]``; every lookup of ``padding_idx`` gives zeros (so
+    that row takes no gradient) whatever the row holds. ``sparse``: the
+    weight's gradient is a sparse tensor of the looked-up rows, as the
+    reference's SelectedRows gradient is in an eager step."""
+    out = F.embedding(x, weight, sparse=sparse)
+    if padding_idx is not None:
+        out = out.masked_fill((x == padding_idx).unsqueeze(-1), 0.0)
+    return out
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
+    """``mask[..., j] = j < lengths[...]`` over ``maxlen`` columns. With
+    ``maxlen`` None it is ``max(lengths)``, read on the host as the
+    reference reads it."""
+    if maxlen is None:
+        maxlen = int(lengths.max())
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    cols = torch.arange(int(maxlen), device=lengths.device)
+    return (cols < lengths.unsqueeze(-1)).to(dt)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

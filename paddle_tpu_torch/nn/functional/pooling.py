@@ -1,6 +1,7 @@
 """Pooling (counterpart of the pool ops of paddle_tpu/ops/nn_ops.py: the
 reference's ``reduce_window`` becomes ``F.max_pool*d`` / ``F.avg_pool*d``
-and the adaptive pools ``F.adaptive_*``).
+and the adaptive pools ``F.adaptive_*``), the max pools with their indices
+and the max unpools.
 
 Padding takes the convolutions' forms (``conv.resolve_pairs``): an int,
 one per spatial dimension, ``(lo, hi)`` pairs, or ``"SAME"`` / ``"VALID"``
@@ -28,7 +29,9 @@ from .conv import (from_channels_first, ntuple, pad_pairs, resolve_pairs,
 __all__ = ["max_pool1d", "max_pool2d", "max_pool3d", "avg_pool1d",
            "avg_pool2d", "avg_pool3d", "adaptive_avg_pool1d",
            "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-           "adaptive_max_pool2d"]
+           "adaptive_max_pool2d", "max_pool2d_with_index",
+           "max_pool3d_with_index", "max_unpool1d", "max_unpool2d",
+           "max_unpool3d"]
 
 _MAX = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 _AVG = {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}
@@ -165,3 +168,81 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
 
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
     return _adaptive(2, "max", x, output_size, "NCHW", return_mask)
+
+
+def _max_pool_index(n, x, kernel_size, stride, padding):
+    """``(pooled, flat indices)`` of an ``NC{spatial}`` input padded by
+    ``padding`` on every side (with -inf): each index is the maximum's flat
+    position in its unpadded input plane (clipped into it), int32, as the
+    reference computes it."""
+    ks = ntuple(kernel_size, n)
+    st = ntuple(stride if stride is not None else kernel_size, n)
+    p = ntuple(padding, n)
+    xp = F.pad(x, [q for pi in reversed(p) for q in (pi, pi)],
+               value=float("-inf"))
+    out, idx = _MAX[n](xp, ks, st, 0, return_indices=True)
+    coords, rem = [], idx
+    for d in reversed(range(n)):
+        coords.append(rem % xp.shape[2 + d])
+        rem = rem // xp.shape[2 + d]
+    flat = torch.zeros_like(idx)
+    for d, c in enumerate(reversed(coords)):
+        size = x.shape[2 + d]
+        flat = flat * size + (c - p[d]).clamp(0, size - 1)
+    return out, flat.to(torch.int32)
+
+
+def max_pool2d_with_index(x, kernel_size, stride=None, padding=0,
+                          name=None):
+    return _max_pool_index(2, x, kernel_size, stride, padding)
+
+
+def max_pool3d_with_index(x, kernel_size, stride=None, padding=0,
+                          name=None):
+    return _max_pool_index(3, x, kernel_size, stride, padding)
+
+
+def _max_unpool(n, x, indices, kernel_size, stride, padding, data_format,
+                output_size):
+    """Each value of ``x`` written at its flat index of a zero output plane
+    of ``output_size`` (default ``(in - 1) * stride - 2 * padding +
+    kernel``); an index outside the plane is dropped. Channels first only,
+    as in Paddle."""
+    if data_format != ("NCL", "NCHW", "NCDHW")[n - 1]:
+        raise ValueError(f"max_unpool{n}d takes data_format "
+                         f"{('NCL', 'NCHW', 'NCDHW')[n - 1]!r} only, got "
+                         f"{data_format!r}")
+    ks = ntuple(kernel_size, n)
+    st = ntuple(stride if stride is not None else kernel_size, n)
+    p = ntuple(padding, n)
+    if output_size is None:
+        out_sp = tuple((x.shape[2 + d] - 1) * st[d] - 2 * p[d] + ks[d]
+                       for d in range(n))
+    else:
+        out_sp = tuple(int(s) for s in output_size[-n:])
+    N, C = x.shape[:2]
+    size = math.prod(out_sp)
+    # an index outside the plane writes to a spare last slot, dropped: the
+    # reference's scatter drops it
+    idx = indices.reshape(N, C, -1).long()
+    idx = torch.where((idx >= 0) & (idx < size), idx, size)
+    out = x.new_zeros(N, C, size + 1).scatter(2, idx, x.reshape(N, C, -1))
+    return out[..., :size].reshape(N, C, *out_sp)
+
+
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    return _max_unpool(1, x, indices, kernel_size, stride, padding,
+                       data_format, output_size)
+
+
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    return _max_unpool(2, x, indices, kernel_size, stride, padding,
+                       data_format, output_size)
+
+
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    return _max_unpool(3, x, indices, kernel_size, stride, padding,
+                       data_format, output_size)

@@ -11,7 +11,6 @@ layout; the reference stores ``[in, out]``, and ``convert`` transposes).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ...ops.counter_rng import new_key
@@ -81,10 +80,7 @@ class Embedding(ParamLayer, nn.Embedding):
         self._zero_padding_row()
 
     def forward(self, x):
-        out = F.embedding(x, self.weight, sparse=self.sparse)
-        if self.padding_idx is not None:
-            out = out.masked_fill((x == self.padding_idx).unsqueeze(-1), 0.0)
-        return out
+        return PF.embedding(x, self.weight, self.padding_idx, self.sparse)
 
 
 class Dropout(nn.Module):

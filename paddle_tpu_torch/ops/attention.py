@@ -1,12 +1,15 @@
 """Attention entry points (counterparts of ``pallas_ops._attention_xla`` and
-``nn_ops.scaled_dot_product_attention``).
+of the output dropout in ``nn_ops.scaled_dot_product_attention``).
 
 :func:`attention` is plain masked attention, which the reference runs
 outside any Pallas kernel: serving prefill computes it over the paged view,
 and every call the flash kernels cannot take falls back to it.
-:func:`scaled_dot_product_attention` is what the model's cache-less
-forward calls: the flash dispatcher, then dropout on the output. Layout
-``[batch, seq, heads, head_dim]`` as in the reference.
+:func:`output_dropout` is what the model's cache-less forward applies
+after the flash dispatcher, as the reference's GPT does: dropout on the
+attention output, so the kernels carry no dropout. The functional
+``nn.functional.scaled_dot_product_attention`` drops the probabilities
+instead, as Paddle does. Layout ``[batch, seq, heads, head_dim]`` as in
+the reference.
 """
 from __future__ import annotations
 
@@ -41,24 +44,6 @@ def attention_logits(q, k, mask=None, causal=False, scale=None):
         else:
             logits = logits + mask.float()
     return logits
-
-
-def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 dropout_p=0.0, is_causal=False,
-                                 training=True, generator=None, kernel=None):
-    """Attention through ``flash_attention.flash_attention`` (``kernel``
-    picks its route), then, when training with ``dropout_p > 0``, dropout
-    on the attention OUTPUT as in the reference, so the kernels carry no
-    dropout. The keep-mask is drawn from ``generator`` (a
-    ``torch.Generator`` on the output's device; None draws from torch's
-    default generator) and kept values are scaled by ``1 / (1 -
-    dropout_p)``."""
-    # imported here: flash_attention imports this module's attention()
-    from .flash_attention import flash_attention
-
-    out = flash_attention(query, key, value, mask=attn_mask,
-                          causal=is_causal, kernel=kernel)
-    return output_dropout(out, dropout_p, training, generator)
 
 
 def output_dropout(out, dropout_p, training, generator=None):

@@ -1446,3 +1446,88 @@ def test_static_training_step_equals_train_step(cuda):
                         torch.from_numpy(labels).to(cuda)).detach())
             for _ in range(3)]
     assert got == want
+
+
+# ------------------------------------------- recurrent, detection, functional
+def test_rnnt_wavefront_on_the_card_matches_the_cpu(cuda):
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator().manual_seed(3)
+    B, T, U, V = 3, 40, 12, 30
+    x = torch.randn(B, T, U + 1, V, generator=g)
+    lab = torch.randint(1, V, (B, U), generator=g)
+    il, ll = torch.tensor([40, 31, 17]), torch.tensor([12, 9, 0])
+    outs = []
+    for dev in ("cpu", cuda):
+        xi = x.detach().to(dev).requires_grad_()
+        loss = F.rnnt_loss(xi, lab.to(dev), il.to(dev), ll.to(dev),
+                           reduction="sum")
+        loss.backward()
+        outs.append((loss.detach().cpu(), xi.grad.cpu()))
+    (lc, gc), (lg, gg) = outs
+    torch.testing.assert_close(lg, lc, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(gg, gc, atol=1e-5, rtol=1e-4)
+
+
+def test_nms_on_the_card_equals_the_cpu(cuda):
+    from paddle_tpu_torch.vision import ops
+
+    g = torch.Generator().manual_seed(5)
+    xy = torch.rand(3000, 2, generator=g) * 600
+    boxes = torch.cat([xy, xy + 8 + torch.rand(3000, 2, generator=g) * 90],
+                      1)
+    scores = torch.rand(3000, generator=g).mul(50).round()  # ties
+    cats = torch.randint(0, 5, (3000,), generator=g)
+    for kw in (dict(), dict(category_idxs=cats, top_k=100)):
+        cpu = ops.nms(boxes, 0.5, scores, **kw)
+        card = ops.nms(boxes.to(cuda), 0.5, scores.to(cuda),
+                       **{k: v.to(cuda) if torch.is_tensor(v) else v
+                          for k, v in kw.items()})
+        assert torch.equal(card.cpu(), cpu)
+
+
+def test_roi_ops_on_the_card_match_the_cpu(cuda):
+    from paddle_tpu_torch.vision import ops
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 18, 24, 30, generator=g)
+    xy = torch.rand(40, 2, generator=g) * 400 - 20
+    rois = torch.cat([xy, xy + 16 + torch.rand(40, 2, generator=g) * 200],
+                     1)
+    num = torch.tensor([25, 15], dtype=torch.int32)
+    cases = [(ops.roi_align, dict(output_size=7, spatial_scale=1 / 16,
+                                  sampling_ratio=0)),
+             (ops.roi_align, dict(output_size=(5, 4), spatial_scale=1 / 16,
+                                  sampling_ratio=2, aligned=False)),
+             (ops.roi_pool, dict(output_size=3, spatial_scale=1 / 16)),
+             (ops.psroi_pool, dict(output_size=3, spatial_scale=1 / 16))]
+    for fn, kw in cases:
+        cpu = fn(x, rois, num, **kw)
+        card = fn(x.to(cuda), rois.to(cuda), num.to(cuda), **kw)
+        torch.testing.assert_close(card.cpu(), cpu, atol=1e-5, rtol=1e-5)
+
+
+def test_functional_attention_routes_launch_their_kernels(cuda):
+    from paddle_tpu_torch.nn import functional as F
+
+    g = torch.Generator().manual_seed(9)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=g).to(cuda)
+               for _ in range(3))
+    fa.reset_device_launches()
+    out = F.scaled_dot_product_attention(q, k, v)
+    assert fa.device_launches()["flash_fwd"] == 1
+    assert torch.equal(out, fa.flash_attention(q, k, v))
+    args = _case(cuda, torch.float32, 1, 64, 16, [20, 9, 16, 30], 4)
+    pa.reset_device_launches()
+    got = F.paged_attention(*args, kernel="pallas")
+    assert sum(pa.device_launches().values()) == 1
+    assert torch.equal(got, pa.paged_attention(*args))
+    pa.reset_device_launches()
+    F.paged_attention(*args, kernel="xla")
+    assert pa.device_launches() == {}
+    # probability dropout is not in the kernels: refused, not run plain
+    with pytest.raises(NotImplementedError, match="dropout_p"):
+        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    torch.testing.assert_close(
+        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
+                                       training=False), out)

@@ -25,8 +25,8 @@ from paddle_tpu_torch import convert  # noqa: E402
 from paddle_tpu_torch import jit as tjit  # noqa: E402
 from paddle_tpu_torch import optimizer as topt  # noqa: E402
 from paddle_tpu_torch.models import gpt as tgpt  # noqa: E402
-from paddle_tpu_torch.ops.attention import \
-    scaled_dot_product_attention  # noqa: E402
+from paddle_tpu_torch.ops.attention import output_dropout  # noqa: E402
+from paddle_tpu_torch.ops.flash_attention import flash_attention  # noqa: E402
 
 # one intra-op thread: the suite's parallel workers share the CPU, and
 # a torch thread pool in each would oversubscribe it
@@ -178,17 +178,21 @@ def test_trainstep_steps_each_optimizer_exactly_once():
 def test_attention_dropout_scale_and_keep_rate():
     # torch's generator is not the reference's threefry: only the
     # distribution is compared (ROADMAP known divergences)
+    # the model's cache-less attention: the flash route, then dropout on
+    # its output, as the reference's GPT applies it
+    def attend(x, dropout_p, training=True, generator=None):
+        out = flash_attention(x, x, x, causal=True)
+        return output_dropout(out, dropout_p, training, generator)
+
     x = torch.ones(4, 256, 4, 64)
     g = torch.Generator().manual_seed(0)
-    out = scaled_dot_product_attention(x, x, x, dropout_p=0.25,
-                                       is_causal=True, generator=g)
+    out = attend(x, 0.25, generator=g)
     kept = out != 0
     assert abs(kept.float().mean().item() - 0.75) < 0.01
     np.testing.assert_allclose(out[kept].numpy(), 1 / 0.75, rtol=1e-5)
     # no dropout outside training, and none at p = 0
     for kw in (dict(dropout_p=0.25, training=False), dict(dropout_p=0.0)):
-        torch.testing.assert_close(scaled_dot_product_attention(
-            x, x, x, is_causal=True, **kw), torch.ones_like(x))
+        torch.testing.assert_close(attend(x, **kw), torch.ones_like(x))
 
 
 def test_recompute_replays_the_attention_dropout_masks():

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Where a GPT, BERT or ResNet training step of paddle_tpu_torch spends its
-time, through ``TrainStep``'s CUDA graph and as the same step run eagerly.
+"""Where a GPT, BERT, ResNet or LSTM training step of paddle_tpu_torch
+spends its time, through ``TrainStep``'s CUDA graph and as the same step
+run eagerly.
 
 Run on a machine with one NVIDIA GPU, from the repository root:
 
     python3 tools/torch_train_profile.py [--preset gpt3-1.3B] [--batch 4]
         [--seq-len 2048] [--steps 2]
         [--route both|graph|eager|fit|all|bert|bert-bf16|resnet|
-                 ernie-static|ernie-static-train|ernie-static-both]
+                 ernie-static|ernie-static-train|ernie-static-both|lstm]
         [--trace train_trace.json]
 
 Builds the training step of ``chip_smoke.py`` phase 7 through its
@@ -29,7 +30,9 @@ kernels' device time). "ernie-static" is phase 16's run
 16 x 128, ``static.Executor.run`` with the numpy feed and fetch) and
 "ernie-static-train" phase 16b's (``ernie_static_training_setup``: the
 same model recorded with AdamW's ``minimize``), one after the other for
-"ernie-static-both". Per route: 3 warm-up steps (for a graph: the eager
+"ernie-static-both". "lstm" is phase 17's step (``lstm_lm_setup``: the
+large PTB LSTM language model, float32, batch 20 x 35, SGD with the
+global-norm clip, through the graph). Per route: 3 warm-up steps (for a graph: the eager
 call, the capture and a replay), 5 steps timed on the host clock, then
 ``--steps`` more traced with ``torch.profiler``. Prints the card
 (nvidia-smi name and power limit), and per route the step time, the
@@ -168,7 +171,7 @@ def main():
                     choices=("both", "graph", "eager", "fit", "all", "bert",
                              "bert-bf16", "bert-both", "resnet",
                              "ernie-static", "ernie-static-train",
-                             "ernie-static-both"))
+                             "ernie-static-both", "lstm"))
     ap.add_argument("--trace", default=None,
                     help="write the chrome trace of the window here")
     args = ap.parse_args()
@@ -176,10 +179,10 @@ def main():
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from chip_smoke import (RESNET_FULL, bert_training_setup,
+    from chip_smoke import (LSTM_LM, RESNET_FULL, bert_training_setup,
                             ernie_static_setup, ernie_static_training_setup,
-                            fit_model, free_memory, resnet_training_setup,
-                            training_setup)
+                            fit_model, free_memory, lstm_lm_setup,
+                            resnet_training_setup, training_setup)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -226,6 +229,14 @@ def main():
         routes["resnet"] = (model, opt, train, x, y)
         return lambda: train(x, y)
 
+    def lstm_route():
+        """Phase 17's step through the graph."""
+        routes.clear()
+        free_memory()
+        _, _, train, x, y = lstm_lm_setup(dev)
+        routes["lstm"] = train
+        return lambda: train(x, y)
+
     def ernie_static_route(train):
         """Phase 16's Executor run (or 16b's, ``train``), one Program at a
         time, under a scope of its own."""
@@ -262,8 +273,11 @@ def main():
     shapes = {"bert": ("float32", "bert-base float32, batch 16 x 128"),
               "bert-bf16": ("bfloat16", "bert-base bf16, batch 16 x 512")}
     print(f"card: {smi}")
-    out = {"card": smi, "preset": args.preset, "batch": args.batch,
-           "seq_len": args.seq_len}
+    out = {"card": smi}
+    if {"eager", "graph", "fit"} & set(order):
+        # the GPT routes' configuration; the other routes name their own
+        out.update(preset=args.preset, batch=args.batch,
+                   seq_len=args.seq_len)
     prof = None
     for route in order:
         if route.startswith("ernie-static"):
@@ -272,6 +286,12 @@ def main():
             what = ("ernie classifier float32 (BASELINE config 5), 16 x "
                     "128, static.Executor.run, "
                     + ("AdamW step" if train else "inference"))
+        elif route == "lstm":
+            step = lstm_route()
+            c = LSTM_LM
+            what = (f"lstm lm float32 ({c['vocab']} x {c['hidden']} x "
+                    f"{c['layers']} layers, dropout {c['dropout']}), batch "
+                    f"{c['batch']} x {c['steps']}")
         elif route == "resnet":
             step = resnet_route()
             what = (f"resnet50 float32, batch {RESNET_FULL['batch']} x 3 x "
@@ -286,7 +306,8 @@ def main():
             what = (f"{args.preset} {kind}, batch {args.batch} x "
                     f"{args.seq_len}")
         res, prof = profile(step, args.steps)
-        out[route] = res
+        top = res.pop("top")
+        out[route] = {"config": what, **res}
         print(f"{what}, {route}: step {res['step_ms']:.1f} ms (host clock, 5 "
               f"steps), device {res['device_ms_per_step']:.1f} ms, busy "
               f"{res['device_busy_share']:.1%}, "
@@ -300,7 +321,7 @@ def main():
             print(f"  {ms:9.2f} ms  {ms / res['device_ms_per_step']:6.1%}"
                   f"  {fam}")
         print("top kernels per step:")
-        for ms, n, name in res.pop("top"):
+        for ms, n, name in top:
             print(f"  {ms:9.2f} ms  {n:6d}/step  {name[:90]}")
         print(f"host operators per step: {res['host_ops_per_step']}")
         if route == "resnet":
