@@ -385,6 +385,64 @@ Phases, in order; any failure exits non-zero:
              outputs, and checked against the port's CPU run of the same
              inputs (float64 for the smooth ops; exactly for indices,
              counts and roi_pool's maxima, against its float32 run).
+19. elastic training  tools/elastic_gpt_trainer.py under python -m
+             paddle_tpu_torch.distributed.launch --elastic --nproc_per_node
+             2: two ranks on cuda:0, each with gpt3-1.3B at full width and 2
+             layers, bf16, AdamW(multi_precision=True), batch 2 a rank x
+             2048, CheckpointHook(elastic=ElasticTrainContext, shard=True,
+             reshard=True). Two kinds of world: data parallel (--dp: each
+             rank calls init_parallel_env(backend="gloo") on the launcher's
+             PADDLE_COORDINATOR, wraps the model in DataParallel and runs
+             an eager step on a batch of its own, the gradients averaged
+             over gloo), and replicas (the same batch on every rank through
+             TrainStep's graph, which captures no gloo collective, in step
+             through the fenced store barrier). First 19a-19b, data
+             parallel, alone on the card (saves at steps 3 and 7 of 11);
+             then side by side the uninterrupted data-parallel run (the
+             ranks' losses differ and their states after every step agree:
+             the gradients were exchanged), 19c and 19d;
+19a.         kill_at_step on rank 1 at step 5: the launcher restarts it on a
+             fresh PADDLE_COORDINATOR; rank 0's next collective fails, it
+             restores checkpoint 3 in place and forms the world again on
+             that coordinator: every loss and every state after a step
+             bitwise the uninterrupted run's at its rank and step;
+19b.         rank 1 killed again at step 9 with its budget spent: the
+             launcher shrinks the world to one (world epoch 1) on a third
+             coordinator, whose rank resumes through load_resharded at step
+             8 (checkpoint 7, no step lost or repeated): its losses and
+             states bitwise a one-rank run resumed here from checkpoint 7;
+             this process, holding the old world's epoch, tries a save on
+             the live store and is fenced, the checkpoint directory
+             unchanged;
+19c.         the replicas: rank 1 killed at step 3 is restarted and rank 0
+             restores checkpoint 2 in place (its graph kept: one capture a
+             process); then rank_preempt on rank 0 at step 4: both ranks'
+             emergency manifests at step 5 name preempt_target 5,
+             coordinated 2; every loss bitwise a TrainStep run here;
+19d.         the replicas: step_hang on rank 1 at step 4 with a 10 s
+             watchdog (it times a rank's steps, not its wait for peers; no
+             checkpoint, as a save takes longer than the deadline): it
+             exits 98 with its thread stacks in its worker log, the
+             launcher respawns it, rank 0 (nothing to go back to) restarts
+             afresh too, and the run ends at step 6, every loss the
+             TrainStep run's.
+             Every leg: captures (at most 1 a process), K1-K3 launched on
+             the card by every process that finished, the kill-to-first-
+             step times, a process start's phases, the save and restore
+             times and the fault counters;
+20. supervised serving  ReplicaSupervisor over 2 replicas of gpt3-1.3B
+             bf16 (full width and depth) sharing one model, rng_seed 7:
+             16 requests (prompts of 16-256 tokens, 32 new; 12 greedy, 4
+             at temperature 0.8) and then 8 more, undisturbed and then
+             with replica_kill armed in the first 16: every request's
+             tokens bitwise the undisturbed run's, one restart, the
+             respawn's decode graph captured once (in the second wave,
+             while its sibling replays), K4 launched on the card by each
+             replica, allocated memory after the respawn
+             within one engine's pools of before the kill, the time from
+             the kill to a replayed request's first token;
+20a.         the autoscaler at 2 layers: one replica to two under a burst
+             of 24 queued requests, back to one when idle.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -401,9 +459,11 @@ runs and phase 17a's F.scaled_dot_product_attention calls under
 "launches_by_path"; phase 17a's F.paged_attention calls under K4's decode
 row's), each counted on the
 card by the kernel itself; "launches_by_path" adds the MoE paths' windows
-(9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance) and phase
-10's launches per step by policy. The per-shard row's are phase 13's
-rank 0's (the 16-head instance), with rank 1's beside them.
+(9, 9b, 9c) and, for K1-K3, phase 11's fit (its bf16 instance), phase
+10's launches per step by policy and phase 19's uninterrupted ranks;
+K4's decode row adds phase 20's supervised window. The per-shard row's
+are phase 13's rank 0's (the 16-head instance), with rank 1's beside
+them.
 
 Before it prints a result it stops the DataLoader's fork server, the
 resource tracker and any worker still running, and fails if any other
@@ -427,6 +487,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -7250,6 +7311,765 @@ def child_processes():
     return out
 
 
+# -- phases 19-20a: resilience ------------------------------------------------
+
+ELASTIC_TRAINER = REPO / "tools" / "elastic_gpt_trainer.py"
+# 19a-19b, data parallel: steps, the checkpoint interval (saves at steps 3
+# and 7) and the kills (rank 1 at step 5, then at step 9)
+ELASTIC_STEPS, ELASTIC_SAVE_INTERVAL, ELASTIC_KILLS = 11, 4, "1:5,9"
+# 19c, the replicas: steps, the checkpoint interval (a save at step 2),
+# rank 1 killed at step 3, rank 0 preempted at step 4 (the fleet saves at 5)
+REPLICA_STEPS, REPLICA_SAVE_INTERVAL, REPLICA_KILL = 7, 3, "1:3"
+REPLICA_PREEMPT = "rank_preempt:step=4,rank=0"
+
+
+def elastic_events(work):
+    try:
+        with open(os.path.join(work, "events.jsonl")) as f:
+            return [json.loads(ln) for ln in f if ln.strip()]
+    except OSError:
+        return []
+
+
+def start_leg(work, steps, kill_at="", fault="", max_restarts=3,
+              save_interval=ELASTIC_SAVE_INTERVAL, deadline=0.0, dp=False,
+              trainer_args=()):
+    """Start one run of ``tools/elastic_gpt_trainer.py`` under ``python -m
+    paddle_tpu_torch.distributed.launch --elastic --nproc_per_node 2``:
+    two ranks on ``cuda:0`` (gpt3-1.3B at 2 layers, bf16, batch 2 a rank,
+    2048 tokens), data parallel over gloo with ``dp``, else replicas
+    through ``TrainStep``. ``fault`` goes to ``FLAGS_fault_inject``.
+    Returns a handle for :func:`finish_leg`."""
+    os.makedirs(work, exist_ok=True)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--elastic", "--nproc_per_node", "2",
+           "--max_restarts", str(max_restarts), "--restart_backoff", "0.2",
+           "--terminate_grace", "3", "--log_dir", os.path.join(work, "log"),
+           str(ELASTIC_TRAINER), "--work", work, "--steps", str(steps),
+           "--save-interval", str(save_interval), *trainer_args]
+    if dp:
+        cmd.append("--dp")
+    if kill_at:
+        cmd += ["--kill-at", kill_at]
+    if deadline:
+        cmd += ["--step-deadline", str(deadline)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("FLAGS_fault_inject", None)
+    if fault:
+        env["FLAGS_fault_inject"] = fault
+    launcher_log = os.path.join(work, "launcher.log")
+    with open(launcher_log, "w") as out:
+        proc = subprocess.Popen(cmd, env=env, cwd=str(REPO), stdout=out,
+                                stderr=subprocess.STDOUT)
+    ended = []  # when the launcher exited, whenever the leg is waited for
+    threading.Thread(target=lambda: ended.append(
+        (proc.wait(), time.perf_counter())[1]), daemon=True).start()
+    return proc, work, launcher_log, time.perf_counter(), ended
+
+
+def finish_leg(handle, timeout=900):
+    """Wait for a :func:`start_leg` run: the launcher's exit code, the
+    trainers' event records, the launcher's log and the seconds from its
+    start to its exit."""
+    proc, work, launcher_log, t0, ended = handle
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    deadline = time.monotonic() + 5
+    while not ended and time.monotonic() < deadline:
+        time.sleep(0.01)
+    with open(launcher_log) as f:
+        text = f.read()
+    end = ended[0] if ended else time.perf_counter()
+    return rc, elastic_events(work), text, end - t0
+
+
+def elastic_leg(work, steps, during=None, **kw):
+    """:func:`start_leg`, ``during(proc, work)`` while it runs, then
+    :func:`finish_leg`."""
+    handle = start_leg(work, steps, **kw)
+    try:
+        if during is not None:
+            during(handle[0], work)
+    finally:
+        out = finish_leg(handle)
+    return out
+
+
+def worker_logs(work):
+    d = os.path.join(work, "log")
+    return {n: open(os.path.join(d, n), errors="replace").read()
+            for n in sorted(os.listdir(d))} if os.path.isdir(d) else {}
+
+
+def launcher_counters(text):
+    """The launcher's own ``fault`` counters, from its last log line."""
+    m = re.search(r"fault counters (\{.*\})", text)
+    return json.loads(m.group(1)) if m else {}
+
+
+def check_leg(what, rc, ev, text, work):
+    if rc != 0:
+        tails = {n: t[-1500:] for n, t in worker_logs(work).items()}
+        raise AssertionError(f"{what}: the launcher exited {rc}:\n"
+                             f"{text[-3000:]}\n{json.dumps(tails)}")
+    bad = [e for e in ev if e["ev"] == "step"
+           and not math.isfinite(e["loss"])]
+    if bad:
+        raise AssertionError(f"{what}: non-finite losses {bad[:3]}")
+
+
+def check_log_lines(what, text, lines):
+    for line in lines:
+        if line not in text:
+            raise AssertionError(f"{what}: no {line!r} in the launcher's "
+                                 f"log:\n{text[-3000:]}")
+
+
+def check_losses(what, ev, want_bits):
+    """Every step record of ``ev`` has the loss bits of ``want_bits`` at
+    its step (the replicas: one batch for every rank)."""
+    off = [(e["rank"], e["pid"], e["step"]) for e in ev if e["ev"] == "step"
+           and e["loss_bits"] != want_bits[e["step"]]]
+    if off:
+        raise AssertionError(f"{what}: losses not bitwise the TrainStep "
+                             f"run's at (rank, pid, step) {off}")
+
+
+def process_summary(ev):
+    """Per process: rank, restart count, world, its coordinator, its
+    steps, the ``TrainStep`` captures it reached, its in-place restores
+    (and the coordinators it formed the world again on), the phases of
+    its start, and its final record's K1-K3 launches and fault
+    counters."""
+    out = {}
+    for e in ev:
+        p = out.setdefault(e["pid"], {"pid": e["pid"], "rank": e["rank"],
+                                      "steps": [], "captures": 0,
+                                      "restored": [], "reformed_on": []})
+        if e["ev"] == "start":
+            p.update(restart=e["restart"], world=e["world"], gen=e["gen"],
+                     epoch=e["epoch"], first_step=e["step"], t_start=e["t"],
+                     coordinator=e["coordinator"], start_s={
+                         "imports": e["t_imported"] - e["t_exec"],
+                         "device": e["t_device"] - e["t_imported"],
+                         "model": e["t_built"] - e["t_device"],
+                         "restore": e["t_restored"] - e["t_built"],
+                         "world": e["t_formed"] - e["t_restored"]})
+        elif e["ev"] == "step":
+            p["steps"].append(e["step"])
+            p["captures"] = max(p["captures"], e["captures"])
+            p.setdefault("t_first_step", e["t"])
+        elif e["ev"] == "restored":
+            p["restored"].append(e["step"])
+            p["reformed_on"].append(e["coordinator"])
+            p.setdefault("t_restored", e["t"])
+            p.setdefault("restored_s", {k: e[k] for k in (
+                "wait_s", "restore_s", "form_s")})
+        elif e["ev"] == "final":
+            p["final"] = {k: e[k] for k in ("step", "status", "digest")}
+            p["flash_launches"] = e.get("flash_launches")
+            p["fault"] = {k: v for k, v in e["fault"].items()
+                          if k.startswith("elastic.") and v}
+    return out
+
+
+def check_processes(what, procs, on_card):
+    """At most one capture a process; on the card, every process that
+    finished launched each of K1-K3 (the card's count)."""
+    for pid, p in procs.items():
+        if p["captures"] > 1:
+            raise AssertionError(f"{what}: process {pid} (rank {p['rank']})"
+                                 f" captured {p['captures']} graphs")
+        fl = p.get("flash_launches")
+        if on_card and "final" in p and not (
+                fl and all(v > 0 for v in fl.values())):
+            raise AssertionError(f"{what}: process {pid} launched K1-K3 "
+                                 f"{fl} on the card")
+
+
+def step_time(ev, pid, step):
+    return max(e["t"] for e in ev if e["ev"] == "step" and e["pid"] == pid
+               and e["step"] == step)
+
+
+def save_seconds(ev):
+    return sorted(e["seconds"] for e in ev if e["ev"] == "saved")
+
+
+def complete_checkpoints(ckpt_dir):
+    """(step, world size) of every checkpoint all of whose ranks
+    committed."""
+    from paddle_tpu_torch.incubate import checkpoint as ckpt
+
+    out = []
+    for s in ckpt.list_steps(ckpt_dir):
+        d = os.path.join(ckpt_dir, f"ckpt-{s:08d}")
+        try:
+            with open(os.path.join(d, "MANIFEST.json")) as f:
+                w = int(json.load(f)["world_size"])
+        except OSError:
+            continue
+        if all(os.path.exists(os.path.join(
+                d, f"MANIFEST-rank{r:05d}.json")) for r in range(1, w)):
+            out.append((s, w))
+    return out
+
+
+def elastic_zombie(proc, work):
+    """During 19b: once the launcher has shrunk the world (the store's
+    world epoch moved to 1), this process acts as a rank of the old world
+    (epoch 0, rank 1 of 2) on the launcher's store and tries a periodic
+    save through ``CheckpointHook``: the fence refuses it, and the
+    checkpoint directory shows nothing new."""
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        ElasticTrainContext, GenerationFence, world_epoch)
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.incubate.checkpoint import CheckpointHook
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+
+    cfg = GPTConfig.preset("gpt2-tiny", vocab_size=96)
+    tiny = GPTForPretraining(GPTModel(cfg, device=torch.device(
+        "cuda", 0) if torch.cuda.is_available() else "cpu"))
+    deadline = time.monotonic() + 480
+    start = None
+    while start is None and time.monotonic() < deadline \
+            and proc.poll() is None:
+        start = next((e for e in elastic_events(work)
+                      if e["ev"] == "start"), None)
+        time.sleep(0.05)
+    if start is None:
+        ZOMBIE["error"] = "no rank ever started"
+        return
+    host, _, port = start["master"].rpartition(":")
+    store = TCPStore(host, int(port))
+    while world_epoch(store) < 1 and time.monotonic() < deadline \
+            and proc.poll() is None:
+        time.sleep(0.02)
+    ckpt_dir = os.path.join(work, "ckpt")
+
+    def listing():
+        return sorted((r, f, os.path.getsize(os.path.join(r, f)))
+                      for r, _, fs in os.walk(ckpt_dir) for f in fs)
+
+    before = listing()
+    ctx = ElasticTrainContext(store=store, rank=1, world=2, gen=0)
+    ctx.fence = GenerationFence(store, gen=0, rank=1)
+    hook = CheckpointHook(ckpt_dir, tiny, save_interval=1, async_save=False,
+                          rank=1, world_size=2, shard=True,
+                          install_sigterm=False, elastic=ctx)
+    from paddle_tpu_torch.profiler import registry
+
+    fenced = registry.counters("fault")["elastic.fenced_zombies"]
+    ZOMBIE.update(status=hook.on_step_end(ELASTIC_STEPS),
+                  fenced_zombies=registry.counters("fault")[
+                      "elastic.fenced_zombies"] - fenced,
+                  world_epoch=world_epoch(store),
+                  unchanged=listing() == before)
+    hook.close()
+    del store
+
+
+ZOMBIE = {}
+
+
+def elastic_yardsticks(dev, ckpt_dir, rehearsal=None):
+    """The runs phase 19's legs are held to, here in one process with the
+    trainer's own model, step and batches: the replicas' ``TrainStep`` run
+    from seed 0 (the loss bits of steps 0 to ``REPLICA_STEPS - 1``), and
+    the data-parallel world of one resumed from ``ckpt_dir``'s checkpoint
+    7 merged to world 1, an eager step on rank 0's batches (per step from
+    8 on: the loss bits and the state's digest)."""
+    from paddle_tpu_torch.incubate import checkpoint as ckpt
+    from paddle_tpu_torch.jit import TrainStep
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import elastic_gpt_trainer as trainer
+
+    shape = ("gpt3-1.3B", 2048, None) if rehearsal is None else (
+        rehearsal["preset"], rehearsal["seq_len"], rehearsal["vocab"])
+
+    def built():
+        return trainer.build(shape[0], 2, shape[1], shape[2], dev, 1e-4)
+
+    def bits(loss):
+        return int(np.float32(loss.float().item()).view(np.uint32))
+
+    cfg, model, crit, opt = built()
+    train = TrainStep(trainer.step_of(model, crit, opt), model, opt)
+    replicas = {s: bits(train(*trainer.batch_of(
+        s, cfg.vocab_size, 2, cfg.seq_len, dev)))
+        for s in range(REPLICA_STEPS)}
+    del train, model, opt
+    free_memory()
+    cfg, model, crit, opt = built()
+    state, man = ckpt.load_resharded(ckpt_dir, world_size=1, step=7)
+    if state is None:
+        raise AssertionError("elastic shrink: checkpoint 7 unreadable")
+    ckpt.restore_training_state(model, opt, state)
+    del state
+    step = trainer.step_of(model, crit, opt)
+    shrunk = {}
+    for s in range(int(man["step"]) + 1, ELASTIC_STEPS):
+        loss = step(*trainer.batch_of(s, cfg.vocab_size, 2, cfg.seq_len,
+                                      dev, shard=0))
+        shrunk[s] = (bits(loss), trainer.state_digest(model, opt))
+    del step, model, opt
+    free_memory()
+    return replicas, shrunk
+
+
+def check_data_parallel(ev_u, ev, procs, shrunk, text):
+    """19a-19b's checks (see the module's docstring); returns their
+    numbers."""
+    want = {(e["rank"], e["step"]): (e["loss_bits"], e["digest"])
+            for e in ev_u if e["ev"] == "step"}
+    batches = {(e["rank"], e["step"]): e["batch"] for e in ev_u
+               if e["ev"] == "step"}
+    if sorted(want) != [(r, s) for r in (0, 1)
+                        for s in range(ELASTIC_STEPS)]:
+        raise AssertionError(f"19 (uninterrupted): steps {sorted(want)}")
+    for s in range(ELASTIC_STEPS):
+        if batches[0, s] == batches[1, s] or want[0, s][1] != want[1, s][1]:
+            raise AssertionError(
+                f"19 (uninterrupted): at step {s} the ranks' batches "
+                f"{batches[0, s]}, {batches[1, s]} and states "
+                f"{want[0, s][1][:12]}, {want[1, s][1][:12]}: want "
+                "batches of their own and one state (averaged gradients)")
+    off = [(e["rank"], e["pid"], e["step"]) for e in ev
+           if e["ev"] == "step" and e["world"] == 2
+           and want[e["rank"], e["step"]] != (e["loss_bits"], e["digest"])]
+    if off:
+        raise AssertionError("19a: losses or states not bitwise the "
+                             f"uninterrupted run's at (rank, pid, step) "
+                             f"{off}")
+    check_log_lines("19a/19b", text, (
+        "rank 1 died: rc=137 (restart 1/1)", "exhausted its restart budget",
+        "elastic resize 2 -> 1"))
+    by = sorted(procs.values(), key=lambda p: p["t_start"])
+    r1 = [p for p in by if p["rank"] == 1]
+    r0 = [p for p in by if p["rank"] == 0 and p["world"] == 2]
+    w1 = [p for p in by if p["world"] == 1]
+    if len(r1) != 2 or len(r0) != 1 or len(w1) != 1:
+        raise AssertionError(f"19a/19b: processes {by}")
+    r0, survivor = r0[0], w1[0]
+    if r1[1]["restart"] != 1 or r1[1]["first_step"] != 4 or \
+            r0["restored"] != [4]:
+        raise AssertionError(
+            f"19a: rank 1 respawned at step {r1[1]['first_step']} (restart "
+            f"{r1[1]['restart']}), rank 0 restored in place at "
+            f"{r0['restored']}; want both at step 4 (checkpoint 3)")
+    coords = [r0["coordinator"], r1[1]["coordinator"],
+              survivor["coordinator"]]
+    if r1[0]["coordinator"] != coords[0] or \
+            r0["reformed_on"] != [coords[1]] or len(set(coords)) != 3:
+        raise AssertionError(
+            f"19a/19b: coordinators: the first world's {coords[0]} and "
+            f"{r1[0]['coordinator']}, the respawn's {coords[1]}, rank 0 "
+            f"formed again on {r0['reformed_on']}, the world of one's "
+            f"{coords[2]}; want one, then a fresh one both ranks join, "
+            "then another")
+    if survivor["first_step"] != 8 or survivor["epoch"] != 1 or \
+            survivor["steps"] != list(range(8, ELASTIC_STEPS)):
+        raise AssertionError(f"19b: the world of one {survivor}; want "
+                             "epoch 1, steps 8.. from checkpoint 7")
+    got = {e["step"]: (e["loss_bits"], e["digest"]) for e in ev
+           if e["ev"] == "step" and e["world"] == 1}
+    if got != shrunk or survivor["final"]["digest"] != \
+            shrunk[ELASTIC_STEPS - 1][1]:
+        raise AssertionError(f"19b: the world of one's steps {got} are not "
+                             f"the one-rank run resumed here {shrunk}")
+    kill1 = step_time(ev, r1[0]["pid"], 5)
+    kill2 = step_time(ev, r1[1]["pid"], 9)
+    a = {"restart_first_step_s": r1[1]["t_first_step"] - kill1,
+         "rank0_world_formed_again_after_s": r0["t_restored"] - kill1,
+         "rank0_rejoin_s": r0["restored_s"],
+         "respawn_start_s": r1[1]["start_s"],
+         "coordinators": coords}
+    b = {"shrink_first_step_s": survivor["t_first_step"] - kill2,
+         "survivor_start_s": survivor["start_s"]}
+    return a, b
+
+
+def phase_elastic(dev, rehearsal=None):
+    """19-19d: see the module's docstring. ``rehearsal`` (``{"preset",
+    "seq_len", "vocab"}``) runs the trainers on the CPU at that size."""
+    free_memory()
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    res = {}
+    on_card = rehearsal is None
+    targs = () if rehearsal is None else (
+        "--device", "cpu", "--preset", rehearsal["preset"], "--seq-len",
+        str(rehearsal["seq_len"]), "--vocab", str(rehearsal["vocab"]))
+    try:
+        # 19a + 19b, alone on the card: data parallel, rank 1 killed at
+        # step 5 (restarted), then at step 9 with its budget spent (the
+        # world shrinks to one)
+        work = os.path.join(root, "kill_shrink")
+        ZOMBIE.clear()
+        rc, ev, text, secs = elastic_leg(
+            work, ELASTIC_STEPS, kill_at=ELASTIC_KILLS, max_restarts=1,
+            dp=True, during=elastic_zombie, trainer_args=targs)
+        log(f"elastic 19a-19b (alone): {secs:.1f} s")
+        check_leg("19a/19b", rc, ev, text, work)
+        ckpt_dir = os.path.join(work, "ckpt")
+        complete = complete_checkpoints(ckpt_dir)
+        if [s for s, w in complete if w == 2 and s >= 8] or \
+                (7, 2) not in complete:
+            raise AssertionError(f"19b: complete checkpoints {complete}")
+        if ZOMBIE.get("status") != "fenced" or not ZOMBIE.get("unchanged"):
+            raise AssertionError(f"19b: the old world's save {ZOMBIE}")
+
+        # beside each other: the uninterrupted data-parallel run (no
+        # checkpoint: a save changes nothing the run computes), 19c (the
+        # replicas: rank 1 killed at step 3, then rank 0 preempted) and
+        # 19d (the replicas: rank 1's step 4 wedged, the watchdog's
+        # deadline 10 s; no checkpoint, as a save takes longer than that),
+        # and this process's yardsticks
+        work_u = os.path.join(root, "uninterrupted")
+        work_c = os.path.join(root, "restart_preempt")
+        work_d = os.path.join(root, "hang")
+        legs = [start_leg(work_u, ELASTIC_STEPS, save_interval=1000,
+                          dp=True, trainer_args=targs)]
+        legs.append(start_leg(work_c, REPLICA_STEPS, kill_at=REPLICA_KILL,
+                              fault=REPLICA_PREEMPT,
+                              save_interval=REPLICA_SAVE_INTERVAL,
+                              trainer_args=targs))
+        legs.append(start_leg(work_d, 6,
+                              fault="step_hang:step=4,rank=1,secs=600",
+                              save_interval=1000, deadline=10.0,
+                              trainer_args=targs))
+        try:
+            t0 = time.perf_counter()
+            replicas, shrunk = elastic_yardsticks(dev, ckpt_dir, rehearsal)
+            log("elastic yardsticks (beside 19c, 19d and the uninterrupted "
+                f"run): {time.perf_counter() - t0:.1f} s")
+        finally:
+            (rc_u, ev_u, text_u, secs_u), preempted, hanged = (
+                finish_leg(h) for h in legs)
+
+        check_leg("19 (uninterrupted)", rc_u, ev_u, text_u, work_u)
+        procs_u = process_summary(ev_u)
+        check_processes("19 (uninterrupted)", procs_u, on_card)
+        if len(procs_u) != 2:
+            raise AssertionError(f"19 (uninterrupted): {procs_u}")
+        res["uninterrupted"] = {
+            "seconds": secs_u, "launches": {p["rank"]: p["flash_launches"]
+                                            for p in procs_u.values()},
+            "start_s": {p["rank"]: p["start_s"] for p in procs_u.values()}}
+        log("elastic (uninterrupted, data parallel): "
+            + json.dumps(res["uninterrupted"]))
+
+        procs = process_summary(ev)
+        check_processes("19a/19b", procs, on_card)
+        a, b = check_data_parallel(ev_u, ev, procs, shrunk, text)
+        survivor = next(p for p in procs.values() if p["world"] == 1)
+        b.update(complete_checkpoints=complete, zombie=dict(ZOMBIE))
+        res["restart"], res["shrink"] = a, b
+        res["kill_shrink"] = {
+            "seconds": secs, "save_s": save_seconds(ev),
+            "fault": {"launcher": launcher_counters(text),
+                      "survivor": survivor["fault"]},
+            "survivor_launches": survivor["flash_launches"]}
+        log(f"elastic 19a: {json.dumps(a)}; 19b: {json.dumps(b)}; "
+            + json.dumps(res["kill_shrink"]))
+
+        rc, ev, text, secs = preempted
+        check_leg("19c", rc, ev, text, work_c)
+        check_losses("19c", ev, replicas)
+        procs = process_summary(ev)
+        check_processes("19c", procs, on_card)
+        check_log_lines("19c", text, ("rank 1 died: rc=137 (restart 1/",))
+        by = sorted(procs.values(), key=lambda p: p["t_start"])
+        r1 = [p for p in by if p["rank"] == 1]
+        r0 = [p for p in by if p["rank"] == 0]
+        if len(r1) != 2 or len(r0) != 1 or r1[1]["first_step"] != 3 or \
+                r0[0]["restored"] != [3] or \
+                (on_card and r0[0]["captures"] != 1):
+            raise AssertionError(
+                f"19c: processes {by}; want rank 1 respawned and rank 0 "
+                "restored in place at step 3 (checkpoint 2), rank 0's "
+                "graph kept (one capture)")
+        d = os.path.join(work_c, "ckpt", "ckpt-00000005")
+        mans = []
+        for name in ("MANIFEST.json", "MANIFEST-rank00001.json"):
+            with open(os.path.join(d, name)) as f:
+                mans.append(json.load(f))
+        got = [(m["step"], m["user"].get("emergency"),
+                m["user"].get("coordinated"), m["user"].get("preempt_target"))
+               for m in mans]
+        finals = [p for p in by if "final" in p]
+        if got != [(5, True, 2, 5)] * 2 or sorted(
+                p["final"]["status"] for p in finals) != ["preempted"] * 2:
+            raise AssertionError(f"19c: manifests {got}, processes {by}")
+        kill = step_time(ev, r1[0]["pid"], 3)
+        res["preempt"] = {
+            "seconds": secs, "manifests": got,
+            "restart_first_step_s": r1[1]["t_first_step"] - kill,
+            "rank0_restored_after_s": r0[0]["t_restored"] - kill,
+            "rank0_rejoin_s": r0[0]["restored_s"],
+            "captures": {p["pid"]: p["captures"] for p in by},
+            "save_s": save_seconds(ev),
+            "emergency_save_s": sorted(e["seconds"] for e in ev
+                                       if e["ev"] == "preempted"),
+            "fault": {"launcher": launcher_counters(text),
+                      **{p["rank"]: p["fault"] for p in finals}},
+            "launches": {p["rank"]: p["flash_launches"] for p in finals}}
+        log("elastic 19c: " + json.dumps(res["preempt"]))
+
+        rc, ev, text, secs = hanged
+        check_leg("19d", rc, ev, text, work_d)
+        check_losses("19d", ev, replicas)
+        procs = process_summary(ev)
+        check_processes("19d", procs, on_card)
+        logs = worker_logs(work_d)
+        if "rank 1 hung: step watchdog escalated" not in text or \
+                "WATCHDOG" not in logs.get("workerlog.1", "") or \
+                "--- thread" not in logs.get("workerlog.1", ""):
+            raise AssertionError(f"19d: launcher log {text[-2000:]}")
+        respawned = [p for p in procs.values()
+                     if p["rank"] == 1 and p.get("restart") == 1]
+        finals = [p for p in procs.values() if "final" in p]
+        if not respawned or sorted(p["rank"] for p in finals) != [0, 1] or \
+                any(p["final"]["step"] != 6 for p in finals) or \
+                respawned[0]["first_step"] != 0:
+            raise AssertionError(f"19d: processes {procs}")
+        hang_t = max(e["t"] for e in ev if e["ev"] == "step"
+                     and e["rank"] == 1 and e["step"] == 4
+                     and e["pid"] != respawned[0]["pid"])
+        res["hang"] = {
+            "seconds": secs,
+            "hang_to_first_step_s": respawned[0]["t_first_step"] - hang_t,
+            "rank0_restarted": any(p["rank"] == 0 and p.get("restart")
+                                   for p in procs.values()),
+            "fault": {"launcher": launcher_counters(text),
+                      **{p["rank"]: p["fault"] for p in finals}},
+            "launches": {p["rank"]: p["flash_launches"] for p in finals}}
+        log("elastic 19d: " + json.dumps(res["hang"]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return res
+
+
+WAVE = 16  # phase 20's first wave (the kill lands in it); 8 follow
+
+
+def supervised_requests(vocab, n=WAVE + 8, seed=3, longest=256):
+    """Phase 20's mix: prompts of 16-256 tokens, 32 new tokens; every
+    fourth sampled at temperature 0.8, the rest greedy; no seed (the
+    supervisor pins one per request)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        prompt = rng.integers(0, vocab, int(
+            rng.integers(16, longest + 1))).tolist()
+        out.append((prompt, dict(max_new_tokens=32, temperature=0.8)
+                    if i % 4 == 3 else dict(max_new_tokens=32)))
+    return out
+
+
+def supervised_run(dev, model, reqs, fault=None):
+    """One ``ReplicaSupervisor`` of 2 replicas sharing ``model``
+    (``rng_seed`` 7): each replica warmed with one request per prompt
+    bucket of the mix (its graphs captured; K4's launches on the card
+    counted per replica), then the first ``WAVE`` of ``reqs`` served with
+    ``fault`` armed, then the rest."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import explainer, registry
+    from paddle_tpu_torch.serving import GenerationEngine, ReplicaSupervisor
+    from paddle_tpu_torch.testing import faults
+
+    def factory():
+        return GenerationEngine(model, max_batch_size=8, block_size=16,
+                                rng_seed=7, device=dev)
+
+    sup = ReplicaSupervisor(factory, replicas=2, restart_backoff=0.05,
+                            monitor_interval=0.02, max_queue_size=64)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    allocated = torch.cuda.memory_allocated if on_card else (lambda: 0)
+    out = {}
+    try:
+        eng = sup._replicas[0].server.engine
+        pool_bytes = sum(k.nbytes + v.nbytes for k, v in eng._kv)
+        buckets = sorted({eng.bucket_for(len(p)) for p, _ in reqs})
+        # held here, replica 0's engine would outlive its death (the kill
+        # lands on whichever replica takes the armed step) and read as a
+        # leak in the memory check below
+        del eng
+        rng = np.random.default_rng(5)
+        k4 = []
+        for rep in sup._replicas:
+            if on_card:
+                pa.reset_device_launches()
+            for b in buckets:
+                rep.server.generate(rng.integers(
+                    0, 90, b - 1).tolist(), max_new_tokens=4)
+            k4.append(sum(pa.device_launches().values()) if on_card else 0)
+        deaths = []
+        orig = sup._handle_death
+
+        def spy(rep, now):
+            t = time.monotonic()
+            orig(rep, now)
+            deaths.append((rep.rid, t, list(sup._held)))
+
+        sup._handle_death = spy
+        sync()
+        mem0 = allocated()
+        c0 = registry.counters("serving")
+        e0 = len(explainer.events())
+        if on_card:
+            pa.reset_device_launches()
+        if fault:
+            faults.configure(fault)
+        try:
+            handles = [sup.submit(p, **o) for p, o in reqs[:WAVE]]
+            for h in handles:
+                h.result(timeout=600)
+        finally:
+            faults.reset()
+        # the second wave: the least-loaded placement gives the respawned
+        # replica work, so it captures its decode graph while its sibling
+        # replays its own
+        second = [sup.submit(p, **o) for p, o in reqs[WAVE:]]
+        for h in second:
+            h.result(timeout=600)
+        handles += second
+        sync()
+        mem1 = allocated()
+        c1 = registry.counters("serving")
+        bad = [h for h in handles if h.status != "done"
+               or len(h.tokens) != h.max_new_tokens]
+        if bad:
+            raise AssertionError(f"supervised serving: unfinished {bad}")
+        kills = [e for e in explainer.events()[e0:]
+                 if e["kind"] == "fault_injected"
+                 and e.get("op") == "replica_kill"]
+        out = {"tokens": [list(h.tokens) for h in handles],
+               "k4_warmup_per_replica": k4,
+               "k4_window": sum(pa.device_launches().values())
+               if on_card else 0,
+               "counters": {k: c1[k] - c0.get(k, 0) for k in (
+                   "replica_restarts", "requeued_requests",
+                   "decode_compiles", "prefill_compiles", "replicas_retired")},
+               "memory_before_gb": mem0 / 1e9, "memory_after_gb": mem1 / 1e9,
+               "pool_gb": pool_bytes / 1e9, "stats": sup.stats()}
+        if deaths:
+            rid, t_dead, held = deaths[0]
+            # the explainer's clock is the wall's; the requests' monotonic
+            t_kill = kills[0]["ts"] - (time.time() - time.monotonic()) \
+                if kills else t_dead
+            firsts = [h.first_tok_ts for h in held
+                      if h.first_tok_ts is not None]
+            out.update(dead_replica=rid, orphans=len(held),
+                       kill_to_replayed_first_token_s=min(firsts) - t_kill
+                       if firsts else None)
+    finally:
+        sup.shutdown()
+    return out
+
+
+def phase_supervisor(dev, rehearsal=None):
+    """20 and 20a: see the module's docstring. ``rehearsal`` (``{"preset",
+    "vocab"}``) runs them on the CPU at that size."""
+    from paddle_tpu_torch.models.gpt import (GPTConfig, GPTForPretraining,
+                                             GPTModel)
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine, ReplicaSupervisor
+
+    free_memory()
+    over = {"dtype": "bfloat16"} if rehearsal is None else {
+        "vocab_size": rehearsal["vocab"]}
+    preset = "gpt3-1.3B" if rehearsal is None else rehearsal["preset"]
+    cfg = GPTConfig.preset(preset, **over)
+    model = GPTForPretraining(GPTModel(
+        cfg, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0)))
+    reqs = supervised_requests(cfg.vocab_size, longest=min(
+        256, cfg.seq_len - 40))
+    t0 = time.perf_counter()
+    calm = supervised_run(dev, model, reqs)
+    calm_s = time.perf_counter() - t0
+    free_memory()
+    t0 = time.perf_counter()
+    hit = supervised_run(dev, model, reqs, fault="replica_kill:nth=24")
+    hit_s = time.perf_counter() - t0
+    same = [i for i, (a, b) in enumerate(zip(calm["tokens"], hit["tokens"]))
+            if a == b]
+    c = hit["counters"]
+    if len(same) != len(reqs):
+        raise AssertionError(f"20: {len(same)} of {len(reqs)} requests "
+                             "equal the undisturbed run's")
+    # on the card the respawned engine captures its decode graph once
+    if c["replica_restarts"] != 1 or not hit.get("orphans") or \
+            c["decode_compiles"] != int(dev.type == "cuda"):
+        raise AssertionError(f"20: counters {c}, orphans "
+                             f"{hit.get('orphans')}")
+    if dev.type == "cuda" and (not all(
+            n > 0 for n in hit["k4_warmup_per_replica"])
+            or hit["k4_window"] <= 0):
+        raise AssertionError(f"20: K4 launches {hit['k4_warmup_per_replica']}"
+                             f", {hit['k4_window']}")
+    if abs(hit["memory_after_gb"] - hit["memory_before_gb"]) > \
+            hit["pool_gb"]:
+        raise AssertionError(
+            f"20: memory {hit['memory_before_gb']:.3f} GB before the kill, "
+            f"{hit['memory_after_gb']:.3f} after the respawn; one engine's "
+            f"pools are {hit['pool_gb']:.3f} GB")
+    res = {"undisturbed_s": calm_s, "with_kill_s": hit_s,
+           "requests_equal": len(same),
+           **{k: v for k, v in hit.items() if k != "tokens"}}
+    del calm, hit
+    free_memory()
+    # 20a: the autoscaler at 2 layers, one replica to two and back
+    small = GPTForPretraining(GPTModel(
+        GPTConfig.preset(preset, n_layer=2, **over), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0)))
+    c0 = registry.counters("serving")
+    sup = ReplicaSupervisor(
+        lambda: GenerationEngine(small, max_batch_size=2, block_size=16,
+                                 rng_seed=7, device=dev),
+        replicas=1, min_replicas=1, max_replicas=2, scale_up_queue_depth=4,
+        scale_interval=0.1, monitor_interval=0.02, max_queue_size=64)
+    try:
+        rng = np.random.default_rng(8)
+        t0 = time.perf_counter()
+        burst = [sup.submit(rng.integers(0, 90, 64).tolist(),
+                            max_new_tokens=48) for _ in range(24)]
+        most = 1
+        while not all(h.done for h in burst):
+            most = max(most, sup.replicas())
+            time.sleep(0.01)
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("20a: the burst never finished")
+        t_up = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while sup.replicas() > 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        down = sup.replicas()
+        c1 = registry.counters("serving")
+        scale = {k: c1[k] - c0.get(k, 0) for k in ("scale_ups",
+                                                   "scale_downs")}
+        if most < 2 or down != 1 or scale["scale_ups"] < 1 or \
+                scale["scale_downs"] < 1 or \
+                registry.gauge("serving.replicas") != 1:
+            raise AssertionError(f"20a: most {most} replicas, {down} when "
+                                 f"idle, {scale}")
+        res["autoscale"] = {"most_replicas": most, "burst_s": t_up,
+                            "idle_replicas": down, **scale}
+    finally:
+        sup.shutdown()
+    del small, model
+    free_memory()
+    return res
+
+
 def stop_children():
     """Stop the DataLoader's workers and fork server and multiprocessing's
     resource tracker (they would end a moment after this process), then
@@ -7629,6 +8449,22 @@ def main():
         f"{json.dumps(mesh['peak_memory_gb'])} GB; K4 "
         f"{json.dumps(mesh['launches'])} for {mesh['decode_steps']} steps; "
         f"13b {json.dumps(mesh_small['checks'])}")
+    elastic = timed("19 elastic training", phase_elastic, dev)
+    supervised = timed("20 supervised serving", phase_supervisor, dev)
+    for name, row in flash.items():
+        if name in FLASH_KERNELS:
+            row["launches_by_path"].update({
+                f"elastic trainer rank {r} (phase 19, data parallel, 11 "
+                f"steps)": n[name]
+                for r, n in elastic["uninterrupted"]["launches"].items()})
+    for row in paged:
+        if row["name"] == "paged_attention":
+            row["launches_by_path"]["supervised serving (phase 20, both "
+                                    "replicas, with the kill)"] = \
+                supervised["k4_window"]
+    log(f"elastic training on {smi}: " + json.dumps(
+        {k: elastic[k] for k in ("restart", "shrink", "preempt", "hang")}))
+    log(f"supervised serving on {smi}: " + json.dumps(supervised))
     left = stop_children()
     if left:
         raise AssertionError(f"processes still running at the end: {left}")

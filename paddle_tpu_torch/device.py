@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 
 import torch
 
@@ -36,6 +37,16 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {str(device)!r} "
                          "(expected cuda or cpu)")
     return dev
+
+
+# One CUDA graph capture at a time in a process: torch registers its
+# default CUDA generator with every graph it captures, and two captures at
+# once (two engines' first steps on two server threads, as a
+# ReplicaSupervisor's replicas take them) corrupt that registry, so that
+# freeing the graphs aborts the process. A capture beside another
+# thread's replays or eager work is safe. Reentrant: a capture may call
+# code that takes it again.
+capture_lock = threading.RLock()
 
 
 @contextlib.contextmanager

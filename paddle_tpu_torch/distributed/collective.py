@@ -103,10 +103,14 @@ _next_gid = [1]
 
 
 def _default_group():
+    """The world's group. Rebuilt when the world's process group is not
+    the one it was built over: a world torn down and formed again (an
+    elastic survivor's ``destroy_process_group`` and ``init_parallel_env``)
+    at the same size must not keep the destroyed group."""
     g = _groups.get(0)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if g is None or g.nranks != world:
-        pg = dist.group.WORLD if dist.is_initialized() else None
+    pg = dist.group.WORLD if dist.is_initialized() else None
+    if g is None or g.nranks != world or (world > 1 and g.pg is not pg):
         g = _groups[0] = Group(range(world), 0, pg, axis_name="world")
     return g
 

@@ -14,6 +14,11 @@ gradient), so ``loss.backward()`` leaves synchronised gradients and a
 plain training loop needs nothing more. ``apply_collective_grads``
 averages whatever gradient the hooks did not (the reference's explicit
 call): called after the backward, it finds nothing left to do.
+
+A ``DataParallel`` over the world (no group given, no fleet) follows the
+world: when a rank tears its process group down and forms it again at the
+same size, as an elastic survivor does after a sibling's restart, the
+next backward averages over the new group.
 """
 from __future__ import annotations
 
@@ -29,7 +34,7 @@ class _GradSync:
     """The backward hooks of one model over one group."""
 
     def __init__(self, module, group):
-        self.group = group
+        self._group = group  # a Group, or a callable giving the current one
         self.synced: set = set()
         for p in module.parameters():
             if p.requires_grad:
@@ -44,6 +49,10 @@ class _GradSync:
 
         return hook
 
+    @property
+    def group(self):
+        return self._group() if callable(self._group) else self._group
+
 
 def _averaged(grad, group):
     if grad.is_sparse:  # sparse rows cannot ride an all-reduce
@@ -56,8 +65,9 @@ def _averaged(grad, group):
 def sync_gradients(module, group):
     """Average ``module``'s gradients over ``group`` in every backward
     (hooks, as above). Returns the handle; a group of one process adds no
-    hook."""
-    if group is None or group.nranks <= 1:
+    hook. ``group`` may be a callable giving the group at each backward."""
+    now = group() if callable(group) else group
+    if now is None or now.nranks <= 1:
         return None
     sync = _GradSync(module, group)
     module._grad_sync = sync
@@ -89,11 +99,16 @@ class DataParallel(nn.Module):
             from .fleet import get_hybrid_communicate_group
 
             hcg = get_hybrid_communicate_group()
+            # no fleet: the world, as it is at each backward
             group = hcg.get_data_parallel_group() if hcg is not None \
-                else collective.get_group(0)
-        self.group = group
-        broadcast_parameters(layers, group)
+                else collective.get_group
+        self._group = group
+        broadcast_parameters(layers, self.group)
         self._sync = sync_gradients(layers, group)
+
+    @property
+    def group(self):
+        return self._group() if callable(self._group) else self._group
 
     def forward(self, *inputs, **kwargs):
         if self._sync is not None:

@@ -13,9 +13,12 @@ retry counted in ``fault.store.retries``. The fault points
 
 The process group's own rendezvous is torch's c10d store
 (``parallel_env.init_parallel_env``: ``env://``, or ``file://`` in the
-tests, so that test processes never race for a port). This store is the
-API the elastic endpoints and the serving fleet consume (ROADMAP queue 1
-items 8 and 9).
+tests, so that test processes never race for a port). This store
+carries ``fleet.elastic``'s keys (generations, leases, preemption,
+fences, resize requests), ``distributed.launch``'s node records and
+per-generation coordinators, and the serving ``ReplicaSupervisor``'s
+generations; the serving fleet's endpoints wait for ROADMAP queue 1 item
+9.
 
 The library is built at first use with ``g++`` into the port's ``build/``
 directory as ``tcpstore-<hash>.so``, the hash covering the source and the

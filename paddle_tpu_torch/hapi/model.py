@@ -21,8 +21,14 @@ returned is the mean over the data-parallel group, the global batch's, as
 the reference reports it. Build the optimizer before the first batch and
 keep the same order of batches on every rank.
 
+``fit(elastic=ctx)`` takes a ``distributed.fleet.elastic.
+ElasticTrainContext``: a global step with a boundary tick after each
+batch, a peer's preemption taken as this rank's, a failed fence check
+ending training with nothing saved, and the emergency checkpoint written
+only while the fence holds.
+
 Not ported: the reference's pipeline branch of ``train_batch`` (ROADMAP
-queue 1 item 7) and ``fit(elastic=...)`` (item 8), which raises.
+queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -254,12 +260,11 @@ class Model:
           epoch.
         - SIGTERM while training (on the main thread): an emergency
           checkpoint at the next batch boundary, then ``fit`` returns.
+        - ``elastic``: an ``ElasticTrainContext``. Each batch ticks its
+          step boundary; a preemption announced by any rank takes this
+          rank's emergency checkpoint too; a failed fence check stops
+          training and nothing more is written to ``save_dir``.
         """
-        if elastic is not None:
-            raise NotImplementedError(
-                "fit(elastic=...) needs the elastic training context "
-                "(fleet/elastic.py), which is not ported yet (ROADMAP "
-                "queue 1 item 8)")
         from .callbacks import CallbackList, ProgBarLogger
 
         loader = train_data if isinstance(train_data, DataLoader) else \
@@ -284,7 +289,8 @@ class Model:
         try:
             return self._fit_loop(loader, cbs, eval_data, batch_size,
                                   start_epoch, epochs, eval_freq, save_dir,
-                                  save_freq, max_ckpt_to_keep)
+                                  save_freq, max_ckpt_to_keep,
+                                  elastic=elastic)
         finally:
             # a raising batch or callback must not leave the process deaf
             # to SIGTERM
@@ -292,9 +298,12 @@ class Model:
                 signal.signal(signal.SIGTERM, old_sigterm)
 
     def _fit_loop(self, loader, cbs, eval_data, batch_size, start_epoch,
-                  epochs, eval_freq, save_dir, save_freq, max_ckpt_to_keep):
+                  epochs, eval_freq, save_dir, save_freq, max_ckpt_to_keep,
+                  elastic=None):
         cbs.on_train_begin()
         history = []
+        fenced = False
+        global_step = 0
         for epoch in range(start_epoch, epochs):
             if self.stop_training:
                 break
@@ -320,13 +329,26 @@ class Model:
                 if self._optimizer is not None:
                     logs["lr"] = float(self._optimizer.get_lr())
                 cbs.on_train_batch_end(step, logs)
+                if elastic is not None:
+                    global_step += 1
+                    elastic.step_boundary(global_step)
+                    if elastic.preempt_requested:
+                        self._preempt_requested = True  # a peer's notice
+                    if not elastic.fence_check("train loop"):
+                        fenced = True  # resized out: stop, write nothing
+                        break
                 if self._preempt_requested:
                     break
             history.append(dict(logs))
+            if fenced:
+                self.stop_training = True
+                cbs.on_epoch_end(epoch, logs)
+                break
             if self._preempt_requested:
                 # the emergency checkpoint at the batch boundary just
                 # closed, then a clean return inside the grace period
-                if save_dir:
+                if save_dir and (elastic is None or
+                                 elastic.fence_check("emergency ckpt")):
                     self._save_epoch_ckpt(save_dir, epoch, max_ckpt_to_keep,
                                           emergency=True, step=step)
                 self.stop_training = True
@@ -341,7 +363,9 @@ class Model:
                                     for k, v in eval_logs.items()
                                     if v is not None})
                 cbs.on_eval_end(eval_logs)
-            if save_dir and (epoch + 1) % save_freq == 0:
+            if save_dir and (epoch + 1) % save_freq == 0 and (
+                    elastic is None
+                    or elastic.fence_check("epoch checkpoint")):
                 self._save_epoch_ckpt(save_dir, epoch, max_ckpt_to_keep)
         cbs.on_train_end()
         return history

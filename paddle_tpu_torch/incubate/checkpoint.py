@@ -55,9 +55,20 @@ records.
 
 Fault injection: ``truncate_checkpoint`` (``testing.faults``) tears a
 payload right after its commit, so loads exercise the skip-and-fall-back
-path. Not ported yet: the elastic training context of ``CheckpointHook``
-(ROADMAP queue 1 item 8), with the fault points ``kill_at_step``,
-``rank_preempt`` and ``step_hang`` that fire there.
+path; ``CheckpointHook.on_step_end`` fires ``kill_at_step``,
+``rank_preempt`` and ``step_hang``, in that order, before its step
+boundary.
+
+Elastic training: ``CheckpointHook(elastic=ctx)`` takes a
+``distributed.fleet.elastic.ElasticTrainContext``. Each step boundary
+re-arms the step watchdog; a local SIGTERM is announced through the
+store, or a peer's notice adopted, so every rank writes its emergency
+shard at the fleet's target step after a coordinated barrier (the
+manifest records the local step, ``coordinated`` and
+``preempt_target``); and the generation fence runs before every save, so
+a rank of a stale world returns "fenced" and writes nothing. With
+``reshard=True``, ``restore`` resumes a checkpoint written at another
+world size (``load_resharded``).
 """
 from __future__ import annotations
 
@@ -533,19 +544,21 @@ class CheckpointHook:
     On SIGTERM the handler only sets a flag; the next ``on_step_end``
     writes a synchronous emergency checkpoint and reports "preempted", so
     the save lands on a step boundary with consistent parameter and
-    optimizer state."""
+    optimizer state. ``rank``, ``world_size`` and ``shard`` are
+    :class:`CheckpointManager`'s; ``reshard=True`` lets :meth:`restore`
+    resume from a checkpoint written at another world size; ``elastic``
+    is an ``ElasticTrainContext`` (or anything of its shape), wired as
+    the module's docstring says."""
 
     def __init__(self, dir, network, optimizer=None, save_interval=100,
-                 max_to_keep=3, async_save=True, reshard=False,
-                 install_sigterm=True, elastic=None):
-        if elastic is not None:
-            raise NotImplementedError(
-                "CheckpointHook(elastic=...) needs the elastic training "
-                "context (fleet/elastic.py), which is not ported yet "
-                "(ROADMAP queue 1 item 8)")
+                 max_to_keep=3, async_save=True, rank=None, world_size=None,
+                 shard=False, reshard=False, install_sigterm=True,
+                 elastic=None):
         self.manager = CheckpointManager(dir, max_to_keep=max_to_keep,
-                                         async_save=async_save)
+                                         async_save=async_save, rank=rank,
+                                         world_size=world_size, shard=shard)
         self.reshard = bool(reshard)
+        self.elastic = elastic
         self._net = network
         self._opt = optimizer
         self.save_interval = max(1, int(save_interval))
@@ -601,18 +614,56 @@ class CheckpointHook:
 
     def on_step_end(self, step, epoch=None, user_meta=None):
         """Call once per completed step. Returns "preempted" after an
-        emergency save (the caller should exit), "saved" after a periodic
-        save, else "ok"."""
+        emergency save (the caller should exit), "fenced" when this rank's
+        world was resized past it (the caller exits without saving),
+        "saved" after a periodic save, else "ok"."""
+        if _faults.ACTIVE:
+            _faults.fire("kill_at_step", step=step)
+            _faults.fire("rank_preempt", step=step)
+            # step_hang sleeps with the watchdog still armed for this
+            # step: it fires before the boundary tick below
+            _faults.fire("step_hang", step=step)
+        el = self.elastic
+        coordinator = getattr(el, "coordinator", None) if el else None
+        if el is not None:
+            el.step_boundary(step)
+        if coordinator is not None:
+            if self._preempt.is_set() and not coordinator.triggered:
+                # a stale rank must not make the new world take a
+                # fleet-wide emergency checkpoint on its behalf
+                if not el.fence_check("preemption announce"):
+                    return "fenced"
+                # local SIGTERM: every rank saves at one step
+                coordinator.announce(step)
+            elif coordinator.triggered:
+                self._preempt.set()  # a peer announced; adopt it here
         if self._preempt.is_set():
-            self._save(step, epoch, {"emergency": True, **(user_meta or {})},
-                       block=True)
+            if coordinator is not None and not coordinator.should_save(step):
+                return "ok"  # the fleet's target is a later boundary
+            if el is not None and not el.fence_check("emergency save"):
+                return "fenced"
+            meta = {"emergency": True, **(user_meta or {})}
+            coordinated = None
+            if coordinator is not None:
+                # the barrier is keyed by the fleet's target step, so a
+                # rank that adopted the notice a boundary late meets its
+                # peers there; the manifest keeps the local step, the
+                # state actually saved, beside the target
+                coordinated = coordinator.barrier(coordinator.save_step(step))
+                meta["coordinated"] = coordinated
+                meta["preempt_target"] = coordinator.save_step(step)
+            self._save(step, epoch, meta, block=True)
             _counters["emergency_saves"] += 1
             _explain.record(
                 "checkpoint_save", op="emergency",
-                why=f"SIGTERM: emergency checkpoint at step boundary {step}",
+                why=f"SIGTERM: emergency checkpoint at step boundary {step}"
+                    + (f" ({coordinated} ranks coordinated)"
+                       if coordinated is not None else ""),
                 step=step)
             return "preempted"
         if (step + 1) % self.save_interval == 0:
+            if el is not None and not el.fence_check("periodic save"):
+                return "fenced"
             self._save(step, epoch, user_meta)
             return "saved"
         return "ok"

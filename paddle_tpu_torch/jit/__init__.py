@@ -39,7 +39,8 @@ models communicate through a gloo process group on CUDA tensors is
 refused when it is built: a gloo collective waits on the host, which a
 CUDA graph cannot capture (NCCL, one card per rank, can).
 
-Graphs are kept per signature and share one memory pool. The signature
+Graphs are kept per signature and share one memory pool; a capture holds
+``device.capture_lock`` (one capture at a time in a process). The signature
 also covers the storage of every parameter, buffer, gradient, optimizer
 slot and scalar: a restore that rebinds storage (``p.data = ...``, a slot
 replaced) makes the next call capture again instead of replaying stale
@@ -72,7 +73,7 @@ import itertools
 import numpy as np
 import torch
 
-from ..device import collector_paused
+from ..device import capture_lock, collector_paused
 from ..profiler import explainer as _explain
 from ..profiler import registry as _registry
 from ..testing import faults as _faults
@@ -329,7 +330,7 @@ class TrainStep:
             graph.register_generator_state(gen)
         steps = [o._opt_step for o in self._opts]
         try:
-            with collector_paused(), \
+            with capture_lock, collector_paused(), \
                     torch.cuda.graph(graph, pool=self._pool), \
                     self._dense_embeddings():
                 out = self._checked(lambda: self._fn(*static))

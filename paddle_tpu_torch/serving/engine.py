@@ -105,7 +105,7 @@ import numpy as np
 import torch
 
 from ..convert import _leaf, _linear_weight_names
-from ..device import collector_paused, resolve_device
+from ..device import capture_lock, collector_paused, resolve_device
 from ..distributed import collective
 from ..distributed.spmd import ServingMesh, _axes, local_shard, shard_model
 from ..ops.paged_attention import (_mesh_mp_degree, paged_sharded,
@@ -219,7 +219,9 @@ class StepGraph:
 
     ``graph=False`` runs the body directly on a CUDA device too (an engine
     whose steps hold gloo collectives, which a graph cannot capture); each
-    such call counts in ``serving.uncaptured_steps``."""
+    such call counts in ``serving.uncaptured_steps``. A capture, its
+    warm-up included, holds ``device.capture_lock``: one at a time in a
+    process."""
 
     def __init__(self, body, device, counter="decode_compiles", pool=None,
                  graph=True):
@@ -237,6 +239,10 @@ class StepGraph:
         return self._graph is not None
 
     def capture(self):
+        with capture_lock:
+            self._capture()
+
+    def _capture(self):
         dev = self._device
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))

@@ -69,14 +69,17 @@ Points and their sites in this package:
     store_flaky          distributed.store.TCPStore ops        fails, op
     store_slow           distributed.store.TCPStore ops        delay, op
     store_partition      distributed.store.TCPStore ops        secs
+    kill_at_step         incubate/checkpoint CheckpointHook    step, rank
+                         .on_step_end (1st)
+    rank_preempt         CheckpointHook.on_step_end (2nd)      step, rank
+    step_hang            CheckpointHook.on_step_end (3rd)      step, secs
     ===================  ====================================  ============
 
-The remaining points parse, arm and fire like the reference's, but no site
-in this package fires them yet: ``kill_at_step``, ``rank_preempt`` and
-``step_hang`` (the elastic ``CheckpointHook``), ``pod_kill`` and
-``router_drop`` (the serving fleet). The ``net_*`` data-plane points of
-the reference's ``testing/netfaults.py`` are not ported: arming one
-raises.
+``pod_kill`` and ``router_drop`` parse, arm and fire like the reference's,
+but their sites are in the serving fleet (``serving/{pod_worker,router}``,
+ROADMAP queue 1 item 9), which is not ported. The ``net_*`` data-plane
+points of the reference's ``testing/netfaults.py`` come with it too (their
+sites are the fleet's wire): arming one raises.
 
 Each firing bumps ``fault.injected.<point>`` in the registry and records a
 ``fault_injected`` explainer event.

@@ -268,8 +268,32 @@ def test_checkpoint_hook_resume_is_bitwise(tmp_path):
     start, got = run(6, start_model=5, restore=True)
     assert start == 3
     assert all(torch.equal(got[s], want[s]) for s in range(3, 6))
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ckpt.CheckpointHook(str(tmp_path), _port_model(), elastic=object())
+    # the elastic context is accepted and wired: one step boundary ticks
+    # it once and runs the fence once before the periodic save
+    spy = _ElasticSpy()
+    hook = ckpt.CheckpointHook(str(tmp_path / "elastic"), _port_model(),
+                               save_interval=1, install_sigterm=False,
+                               elastic=spy)
+    assert hook.on_step_end(0) == "saved"
+    assert spy.ticks == [0] and spy.fences == ["periodic save"]
+    hook.close()
+
+
+class _ElasticSpy:
+    """Duck-types ``ElasticTrainContext`` and records what it is asked."""
+
+    coordinator = None
+    preempt_requested = False
+
+    def __init__(self):
+        self.ticks, self.fences = [], []
+
+    def step_boundary(self, step):
+        self.ticks.append(step)
+
+    def fence_check(self, what=""):
+        self.fences.append(what)
+        return True
 
 
 def test_emergency_save_on_preempt(tmp_path):

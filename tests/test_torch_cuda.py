@@ -1531,3 +1531,46 @@ def test_functional_attention_routes_launch_their_kernels(cuda):
     torch.testing.assert_close(
         F.scaled_dot_product_attention(q, k, v, dropout_p=0.1,
                                        training=False), out)
+
+
+def test_supervised_replica_kill_replays_on_the_card(cuda):
+    """A ReplicaSupervisor on the card (gpt2-tiny, two replicas sharing
+    one model): replica_kill mid-flight, the respawn's tokens equal the
+    undisturbed run's, and K4 runs on the card."""
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import GenerationEngine, ReplicaSupervisor
+    from paddle_tpu_torch.testing import faults
+
+    cfg = tgpt.GPTConfig.preset("gpt2-tiny", vocab_size=96, n_head=2)
+    model = tgpt.GPTForPretraining(tgpt.GPTModel(
+        cfg, device=cuda,
+        generator=torch.Generator(device=cuda).manual_seed(0)))
+    g = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(1, 96, (int(n),), generator=g).tolist()
+               for n in torch.randint(5, 40, (8,), generator=g)]
+
+    def run(fault=None):
+        sup = ReplicaSupervisor(
+            lambda: GenerationEngine(model, max_batch_size=4, rng_seed=7,
+                                     device=cuda),
+            replicas=2, restart_backoff=0.05, monitor_interval=0.02)
+        pa.reset_device_launches()
+        if fault:
+            faults.configure(fault)
+        try:
+            reqs = [sup.submit(p, max_new_tokens=8,
+                               temperature=0.8 if i % 4 == 3 else 0.0)
+                    for i, p in enumerate(prompts)]
+            return [list(r.result(120).tokens) for r in reqs], \
+                sum(pa.device_launches().values())
+        finally:
+            faults.reset()
+            sup.shutdown()
+
+    want, _ = run()
+    c0 = registry.counters("serving")["replica_restarts"]
+    got, k4 = run("replica_kill:nth=6")
+    assert got == want
+    assert registry.counters("serving")["replica_restarts"] == c0 + 1
+    assert k4 > 0

@@ -16,7 +16,8 @@ against paddle_tpu on the CPU.
   run, a torn file skipped, the SIGTERM emergency checkpoint; a
   ``save_dir`` written by the reference's ``fit`` resumed by the port with
   equal parameters, and the other way round.
-- ``nan_loss`` fires at ``train_batch``; ``fit(elastic=...)`` raises.
+- ``nan_loss`` fires at ``train_batch``; ``fit(elastic=...)`` ticks the
+  context and checks its fence.
 """
 import json
 import os
@@ -509,7 +510,24 @@ def test_nan_loss_fires_at_train_batch_and_training_goes_on(reference_fit):
 
 def test_fit_elastic_raises_and_summary(reference_fit):
     m = _port_model(reference_fit["init"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        m.fit(_dataset(io), elastic=object())
+
+    class Spy:  # duck-types ElasticTrainContext
+        preempt_requested = False
+
+        def __init__(self):
+            self.ticks, self.fences = [], []
+
+        def step_boundary(self, step):
+            self.ticks.append(step)
+
+        def fence_check(self, what=""):
+            self.fences.append(what)
+            return True
+
+    # accepted and wired: one batch, one boundary tick, one fence check
+    spy = Spy()
+    m.fit(_dataset(io), batch_size=8, epochs=1, shuffle=False, verbose=0,
+          elastic=spy)
+    assert spy.ticks == [1] and spy.fences == ["train loop"]
     n = sum(p.numel() for p in m.network.parameters())
     assert m.summary() == f"GPTForPretraining: {n:,} parameters"
