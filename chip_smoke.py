@@ -442,7 +442,35 @@ Phases, in order; any failure exits non-zero:
              within one engine's pools of before the kill, the time from
              the kill to a replayed request's first token;
 20a.         the autoscaler at 2 layers: one replica to two under a burst
-             of 24 queued requests, back to one when idle.
+             of 24 queued requests, back to one when idle;
+21. pipeline phase 12's two-rank world at pp = 2: phase 7's model
+             (gpt3-1.3B bf16, full width and depth, 12 blocks a stage,
+             the others freed), AdamW with master weights, phase 7's
+             batch in 4 microbatches, 3 GPipe steps through
+             hapi.Model.train_batch (which builds a PipelineSpmdStep):
+             losses within MP_LOSS_TOL of phase 7's, K1-K3 launched
+             3 x 4 x 12 times on each rank's card, the bytes sent across
+             the boundary a step (both ranks) equal to 2 x M x mb x T x
+             d_model x 2, the tied word embedding bitwise equal on both
+             ranks;
+21a. 1f1b    the same through fleet.HybridParallelEngine's 1F1B schedule:
+             the same checks, against phase 7's and 21's losses, at most
+             2pp - 1 microbatches in flight on a stage, each rank's peak
+             memory beside 21's;
+21b. zero    gpt3-1.3B width at 4 layers, batch 4 x 2048 split over
+             sharding = 2: 3 steps at each group_sharded_parallel level
+             (os, os_g, p_g_os) and one of os_g with offload, within
+             MP_LOSS_TOL of an unsharded dp = 2 run in the same world; the
+             bytes each rank holds, counted from its tensors: optimizer
+             state halved (none on the card with offload), gradients
+             halved from os_g, 2-d parameters halved at p_g_os;
+21c. ep      phase 9c's MoE model at ep = 2 (4 of 8 experts a rank, the
+             batch split over ep), 3 steps: losses within MP_LOSS_TOL of
+             an ep = 1 run of the same weights and batch in this process,
+             aux losses within MOE_AUX_STEP0_REL of it (relative) at step
+             0 and MOE_AUX_LATER_REL after, block 0's expert counts at
+             step 0 equal to it, the all-to-all bytes a step equal to 4 x layers x E x G x
+             C x H x 2, K1-K3 launched on each rank's card.
 
 A kernel's time ("ms") is device time: calls captured in a CUDA graph
 and replayed (``device_ms``), so the host's cost per call does not count;
@@ -5863,6 +5891,414 @@ def phase_distributed(dev, world, phase7_losses, setup_kw=None,
     return result
 
 
+# ------------------- pipeline, ZeRO and expert parallelism (21-21c) --
+PP_M = 4  # microbatches a step in 21 and 21a (1 row of 2048 each)
+# 21c's aux loss against the ep = 1 run, relative. At step 0 both runs
+# hold the same weights and batch, and the ep ranks all-reduce the [E]
+# sums of f and P before the product, so only the order of the sums
+# differs: an H100 read 0.023484081 against 0.023484079 (7.9e-8). A mean
+# of the ranks' local aux losses is another number, and fails it. Later
+# steps follow weights that the bf16 updates moved apart: it read
+# 0.0383454 against 0.0383840 (1.0e-3), then 0.0581708 against 0.0593080
+# (1.9e-2).
+MOE_AUX_STEP0_REL = 1e-5
+MOE_AUX_LATER_REL = 5e-2
+
+
+def _hybrid_fleet(**degrees):
+    from paddle_tpu_torch.distributed import fleet
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = dict(degrees)
+    s.pipeline_configs = {"accumulate_steps": PP_M}
+    fleet.init(is_collective=True, strategy=s)
+    return s, fleet.get_hybrid_communicate_group()
+
+
+def _sent_bytes():
+    from paddle_tpu_torch.profiler import registry
+
+    return registry.counters("collective").get("send.bytes", 0)
+
+
+def _staged():
+    from paddle_tpu_torch.profiler import registry
+
+    return {k: v for k, v in registry.counters("collective").items()
+            if "staged" in k}
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.int16).cpu()
+                          .numpy().tobytes()).hexdigest()
+
+
+def pp_rank_leg(kind, steps, setup_kw):
+    """21 (``kind`` "gpipe") or 21a ("1f1b") on one rank of the two-rank
+    world: ``fleet.init(pp_degree=2)`` with ``PP_M`` microbatches, phase
+    7's model (gpt3-1.3B bf16, full width and depth, seed 0; ``setup_kw``
+    cuts it in a rehearsal), AdamW with master weights, phase 7's batch,
+    ``steps`` steps. GPipe goes through ``hapi.Model.train_batch`` on the
+    pp mesh (which builds a ``PipelineSpmdStep``); 1F1B through
+    ``fleet.HybridParallelEngine``."""
+    from paddle_tpu_torch import hapi
+    from paddle_tpu_torch.distributed import fleet, parallel_env
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import registry
+
+    dev = parallel_env.device()
+    cuda = dev.type == "cuda"
+    t0 = time.perf_counter()
+    strategy, hcg = _hybrid_fleet(pp_degree=2)
+    model_kw = {k: v for k, v in setup_kw.items()
+                if k not in ("batch", "learning_rate")}
+    cfg, model = pretraining_model(dev, **model_kw)
+    tokens, labels = pretraining_batch(dev, cfg.vocab_size,
+                                       setup_kw.get("batch", 4), cfg.seq_len)
+    opt = AdamW(learning_rate=setup_kw.get("learning_rate", 1e-4),
+                multi_precision=True, parameters=model.parameters())
+    crit = GPTPretrainingCriterion()
+    if kind == "gpipe":
+        m = hapi.Model(model)
+        m.prepare(optimizer=opt, loss=crit)
+
+        def step():
+            return m.train_batch([tokens], [labels])[0]
+    else:
+        engine = fleet.HybridParallelEngine(model, opt, hcg, strategy, crit)
+
+        def step():
+            return float(engine.train_batch([tokens, labels]))
+    build_s = time.perf_counter() - t0
+    registry.reset("collective")
+    if cuda:
+        fa.reset_device_launches()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s, sent = [], [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        before = _sent_bytes()
+        losses.append(step())
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t1)
+        sent.append(_sent_bytes() - before)
+    counts = flash_device_counts() if cuda else None
+    runner = m._pp_step.runner if kind == "gpipe" else engine.runner
+    out = {"rank": hcg.get_stage_id(), "kind": kind, "losses": losses,
+           "step_s": step_s, "build_s": build_s, "launches": counts,
+           "sent_bytes_per_step": sent, "staged": _staged(),
+           "step_type": type(m._pp_step).__name__ if kind == "gpipe"
+           else type(engine).__name__,
+           "live_inputs_max": runner.live_max,
+           "layers_held": len(runner.my_blocks), "n_layer": cfg.n_layer,
+           "stage_param_gb": runner.stage_param_bytes / 1e9,
+           "tied_embedding_sha256": _digest(
+               model.gpt.embeddings.word_embeddings.weight),
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if cuda else None}
+    del model, opt, runner
+    if kind == "gpipe":
+        del m
+    else:
+        del engine
+    free_memory()
+    return out
+
+
+def zero_rank_leg(level, steps, offload=False, model_kw=None, batch=4):
+    """21b on one rank: gpt3-1.3B width at 4 layers bf16 (seed 0), AdamW
+    with master weights, the batch of 4 x 2048 split over sharding = 2;
+    ``level`` None is the unsharded yardstick (dp = 2 in the same world),
+    else ``group_sharded_parallel(level, offload)``. Returns the losses
+    (the whole batch's), step times, peak memory and the bytes of the
+    tensors this rank holds on the card after the last backward
+    (parameters, gradients, optimizer state)."""
+    from paddle_tpu_torch.distributed import (collective, fleet,
+                                              parallel_env, spmd)
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dev = parallel_env.device()
+    cuda = dev.type == "cuda"
+    kw = dict(n_layer=4, **(model_kw or {}))
+    if level is None:
+        _hybrid_fleet(dp_degree=2)
+    else:
+        _hybrid_fleet(sharding_degree=2)
+    cfg, model = pretraining_model(dev, **kw)
+    tokens, labels = pretraining_batch(dev, cfg.vocab_size, batch,
+                                       cfg.seq_len)
+    opt = AdamW(learning_rate=1e-4, multi_precision=True,
+                parameters=model.parameters())
+    n_elem = sum(p.numel() for p in model.parameters())
+    bytes_2d = sum(p.numel() * p.element_size() for p in model.parameters()
+                   if p.dim() >= 2)
+    if level is None:
+        fleet.distributed_model(model)
+    else:
+        model, opt, _ = group_sharded_parallel(model, opt, level,
+                                               offload=offload)
+    crit = GPTPretrainingCriterion()
+    x, y = spmd.shard_batch(tokens), spmd.shard_batch(labels)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s, held = [], [], None
+    for i in range(steps):
+        t1 = time.perf_counter()
+        loss = crit(model(x), y)
+        loss.backward()
+        if i == steps - 1 and level is not None:
+            held = opt.held_bytes()
+        opt.step()
+        opt.clear_grad()
+        loss = loss.detach().float()
+        collective.all_reduce(loss, collective.ReduceOp.AVG)
+        losses.append(float(loss))
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t1)
+    inner = getattr(model, "_layers", model)
+    out = {"level": level, "offload": offload, "losses": losses,
+           "step_s": step_s, "held": held, "param_elements": n_elem,
+           "bytes_2d_whole": bytes_2d,
+           "bytes_2d_held": sum(p.numel() * p.element_size()
+                                for p in inner.parameters() if p.dim() >= 2),
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if cuda else None}
+    del model, opt, inner
+    free_memory()
+    return out
+
+
+def moe_ep_rank_leg(steps, model_kw):
+    """21c on one rank: phase 9c's MoE model (``MOE``, gpt3-1.3B width, 4
+    layers, 2 of them MoE) at ep = 2 (4 experts of each bank a rank), the
+    batch of 4 x 2048 split over ep, AdamW with master weights, ``steps``
+    eager steps; the losses and aux losses, block 0's per-expert token
+    counts at step 0, the all-to-all bytes of each step."""
+    from paddle_tpu_torch.distributed import (collective, fleet,
+                                              parallel_env, spmd)
+    from paddle_tpu_torch.models.gpt import GPTPretrainingCriterion
+    from paddle_tpu_torch.nn.moe import MoEMLP
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import registry
+
+    dev = parallel_env.device()
+    cuda = dev.type == "cuda"
+    _hybrid_fleet(ep_degree=2)
+    cfg, model = pretraining_model(dev, **dict(MOE, n_layer=4, **model_kw))
+    fleet.distributed_model(model)
+    tokens, labels = pretraining_batch(dev, cfg.vocab_size, 4, cfg.seq_len)
+    opt = AdamW(learning_rate=1e-4, multi_precision=True,
+                parameters=model.parameters())
+    crit = GPTPretrainingCriterion()
+    x, y = spmd.shard_batch(tokens), spmd.shard_batch(labels)
+    moe = [b.mlp for b in model.gpt.blocks if isinstance(b.mlp, MoEMLP)]
+    if cuda:
+        fa.reset_device_launches()
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, auxes, step_s, a2a, counts = [], [], [], [], None
+    for i in range(steps):
+        t1 = time.perf_counter()
+        before = registry.counters("collective").get("all_to_all.bytes", 0)
+        loss = crit(model(x), y)
+        aux = model.moe_aux_loss()
+        (loss + aux).backward()
+        opt.step()
+        opt.clear_grad()
+        if i == 0:
+            counts = moe[0].last_stats["expert_tokens"].tolist()
+        loss = loss.detach().float()
+        collective.all_reduce(loss, collective.ReduceOp.AVG)
+        losses.append(float(loss))
+        auxes.append(float(aux.detach()))
+        if cuda:
+            torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t1)
+        a2a.append(registry.counters("collective").get(
+            "all_to_all.bytes", 0) - before)
+    out = {"losses": losses, "aux_losses": auxes, "step_s": step_s,
+           "counts_step0": counts, "a2a_bytes_per_step": a2a,
+           "experts_held": int(moe[0].w1.shape[0]), "moe_layers": len(moe),
+           "rows": tuple(x.shape), "staged": _staged(),
+           "launches": flash_device_counts() if cuda else None,
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9
+           if cuda else None}
+    del model, opt, moe
+    free_memory()
+    return out
+
+
+def moe_ep1_run(dev, steps, model_kw):
+    """21c's yardstick in this process: phase 9c's model and step
+    (``training_setup``) uncaptured, the same weights and batch at ep 1."""
+    from paddle_tpu_torch.nn.moe import MoEMLP
+
+    cfg, model, opt, step_fn, tokens, labels = training_setup(
+        dev, graph=False, **dict(MOE, **model_kw))
+    moe = [b.mlp for b in model.gpt.blocks if isinstance(b.mlp, MoEMLP)]
+    losses, auxes, counts = [], [], None
+    for i in range(steps):
+        total = step_fn(tokens, labels)
+        aux = float(model.moe_aux_loss().detach())
+        if i == 0:
+            counts = moe[0].last_stats["expert_tokens"].tolist()
+        losses.append(float(total.detach()) - aux)
+        auxes.append(aux)
+    from paddle_tpu_torch.nn.moe.gate import moe_capacity
+
+    E = cfg.moe_num_experts
+    cap = moe_capacity(cfg.seq_len, E, cfg.moe_top_k,
+                       cfg.moe_capacity_factor)
+    elem = torch.tensor([], dtype=cfg.torch_dtype).element_size()
+    out = {"losses": losses, "aux_losses": auxes, "counts_step0": counts,
+           "shape": (E, tokens.shape[0] // 2, cap, cfg.d_model),
+           "moe_layers": len(moe), "element_size": elem}
+    del model, opt, step_fn
+    free_memory()
+    return out
+
+
+def phase_parallel_axes(dev, world, phase7_losses, setup_kw=None,
+                        model_kw=None):
+    """21, 21a, 21b, 21c on ``world`` (``two_ranks``): see the module's
+    docstring. ``setup_kw`` / ``model_kw`` cut the models in a rehearsal
+    on the CPU."""
+    setup_kw = setup_kw or {}
+    model_kw = model_kw or {}
+    free_memory()
+    res = {}
+    t0 = time.perf_counter()
+    gp = world.run(pp_rank_leg, "gpipe", MP_STEPS, setup_kw)
+    res["gpipe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f1 = world.run(pp_rank_leg, "1f1b", MP_STEPS, setup_kw)
+    res["1f1b_s"] = time.perf_counter() - t0
+    cuda = dev.type == "cuda"
+    n_layer = gp[0]["n_layer"]
+    batch = setup_kw.get("batch", 4)
+    seq = setup_kw.get("seq_len", 2048)
+    d_model = model_kw.get("d_model", 2048)
+    mb = batch // PP_M
+    want_sent = 2 * PP_M * mb * seq * d_model * 2
+    for name, legs in (("gpipe", gp), ("1f1b", f1)):
+        if legs[0]["tied_embedding_sha256"] != \
+                legs[1]["tied_embedding_sha256"]:
+            raise AssertionError(f"21 {name}: the tied word embedding "
+                                 "differs between the two stages")
+        for r in legs:
+            gaps = [abs(a - b) for a, b in zip(r["losses"], phase7_losses)]
+            if not all(np.isfinite(r["losses"])) or max(gaps) > MP_LOSS_TOL:
+                raise AssertionError(
+                    f"21 {name}: rank {r['rank']}'s losses {r['losses']} "
+                    f"against phase 7's {phase7_losses}: gaps {gaps} > "
+                    f"{MP_LOSS_TOL}")
+            r["loss_gaps"] = gaps
+            if r["layers_held"] != n_layer // 2:
+                raise AssertionError(f"21 {name}: rank {r['rank']} holds "
+                                     f"{r['layers_held']} blocks")
+            want_k = MP_STEPS * PP_M * n_layer // 2
+            for kern in FLASH_KERNELS if cuda else ():
+                if r["launches"][kern] != want_k:
+                    raise AssertionError(
+                        f"21 {name}: rank {r['rank']} counted "
+                        f"{r['launches'][kern]} {kern} launches, want "
+                        f"{MP_STEPS} x {PP_M} x {n_layer // 2}")
+        sent = [a + b for a, b in zip(legs[0]["sent_bytes_per_step"],
+                                      legs[1]["sent_bytes_per_step"])]
+        if any(s != want_sent for s in sent):
+            raise AssertionError(f"21 {name}: boundary bytes a step {sent}, "
+                                 f"predicted {want_sent}")
+        res[name] = {"ranks": legs, "sent_bytes_per_step": sent,
+                     "sent_bytes_predicted": want_sent}
+    if gp[0]["step_type"] != "PipelineSpmdStep":
+        raise AssertionError("21: hapi did not build a PipelineSpmdStep")
+    live = [r["live_inputs_max"] for r in f1]
+    if max(live) > 2 * 2 - 1:
+        raise AssertionError(f"21a: {live} live microbatch inputs > 2pp-1")
+    gaps = [abs(a - b) for a, b in zip(f1[0]["losses"], gp[0]["losses"])]
+    if max(gaps) > MP_LOSS_TOL:
+        raise AssertionError(f"21a: 1F1B losses {f1[0]['losses']} against "
+                             f"GPipe's {gp[0]['losses']}")
+    res["1f1b_vs_gpipe_gaps"] = gaps
+
+    # 21b ZeRO
+    t0 = time.perf_counter()
+    plain = world.run(zero_rank_leg, None, MP_STEPS, False, model_kw)
+    levels = {lv: world.run(zero_rank_leg, lv, MP_STEPS, False, model_kw)
+              for lv in ("os", "os_g", "p_g_os")}
+    offload = world.run(zero_rank_leg, "os_g", 1, True, model_kw)
+    res["zero_s"] = time.perf_counter() - t0
+    for lv, legs in (*levels.items(), ("os_g offload", offload)):
+        for r in legs:
+            gaps = [abs(a - b) for a, b in zip(r["losses"],
+                                               plain[0]["losses"])]
+            if max(gaps) > MP_LOSS_TOL or not all(np.isfinite(r["losses"])):
+                raise AssertionError(f"21b {lv}: losses {r['losses']} "
+                                     f"against unsharded "
+                                     f"{plain[0]['losses']}")
+            r["loss_gaps"] = gaps
+            h, n = r["held"], r["param_elements"]
+            opt_whole = n * 12  # two float32 moments + a float32 master
+            grads_whole = n * 2  # bf16 gradients
+            want_opt = 0 if r["offload"] else opt_whole // 2
+            want_grads = grads_whole if lv == "os" else grads_whole // 2
+            want_2d = r["bytes_2d_whole"] // (2 if lv == "p_g_os" else 1)
+            if h["optimizer"] != want_opt or h["grads"] != want_grads or \
+                    r["bytes_2d_held"] != want_2d:
+                raise AssertionError(
+                    f"21b {lv}: held {h}, 2-d parameters "
+                    f"{r['bytes_2d_held']}; want optimizer {want_opt}, "
+                    f"grads {want_grads}, 2-d parameters {want_2d}")
+    res["zero"] = {"unsharded": plain, **levels, "os_g offload": offload}
+
+    # 21c expert parallelism: the ep 1 yardstick here, then the ranks
+    t0 = time.perf_counter()
+    ep1 = moe_ep1_run(dev, MP_STEPS, dict(n_layer=4, **model_kw))
+    ep2 = world.run(moe_ep_rank_leg, MP_STEPS, model_kw)
+    res["moe_s"] = time.perf_counter() - t0
+    E, G, C, H = ep1["shape"]
+    want_a2a = 4 * ep1["moe_layers"] * E * G * C * H * ep1["element_size"]
+    for r in ep2:
+        gaps = [abs(a - b) for a, b in zip(r["losses"], ep1["losses"])]
+        if max(gaps) > MP_LOSS_TOL:
+            raise AssertionError(f"21c: losses {r['losses']} against ep 1's "
+                                 f"{ep1['losses']}")
+        rel = [abs(a - b) / abs(b)
+               for a, b in zip(r["aux_losses"], ep1["aux_losses"])]
+        limits = [MOE_AUX_STEP0_REL] + [MOE_AUX_LATER_REL] * (len(rel) - 1)
+        if any(g > lim for g, lim in zip(rel, limits)):
+            raise AssertionError(
+                f"21c: aux losses {r['aux_losses']} against ep 1's "
+                f"{ep1['aux_losses']}: relative gaps {rel} over {limits}")
+        r["aux_rel_gaps"] = rel
+        if r["counts_step0"] != ep1["counts_step0"]:
+            raise AssertionError(f"21c: expert counts {r['counts_step0']} "
+                                 f"against ep 1's {ep1['counts_step0']}")
+        if any(b != want_a2a for b in r["a2a_bytes_per_step"]):
+            raise AssertionError(f"21c: all-to-all bytes "
+                                 f"{r['a2a_bytes_per_step']}, predicted "
+                                 f"{want_a2a}")
+        if r["experts_held"] != E // 2:
+            raise AssertionError(f"21c: {r['experts_held']} experts a rank")
+        for kern in FLASH_KERNELS if cuda else ():
+            if not r["launches"][kern]:
+                raise AssertionError(f"21c: {kern} never launched")
+    res["moe"] = {"ep2": ep2, "ep1": ep1, "a2a_predicted": want_a2a}
+    log("parallel axes: " + json.dumps(res, default=str))
+    return res
+
+
 # ------------------------------------------ serving on a mesh (13, 13b) --
 MESH_BATCH = 8
 
@@ -8238,6 +8674,8 @@ def main():
                      plain)
         mesh_small = timed("13b mesh spec, swap, handoff", phase_mesh_small,
                            dev, world)
+        axes = timed("21-21c pipeline, zero, ep", phase_parallel_axes, dev,
+                     world, trained["losses"][:3])
     finally:
         world.close()
         shutil.rmtree(world_dir, ignore_errors=True)
@@ -8258,7 +8696,13 @@ def main():
             **{f"recompute {pol} (per step)": r["launches_per_step"][name]
                for pol, r in policies.items()},
             **{f"mp=2 rank {r['rank']} (gloo, eager)": r["launches"][name]
-               for r in dist["ranks"]}}
+               for r in dist["ranks"]},
+            **{f"pp=2 {kind} stage {r['rank']} (phase {ph}, gloo, eager)":
+               r["launches"][name] for kind, ph in (("gpipe", "21"),
+                                                    ("1f1b", "21a"))
+               for r in axes[kind]["ranks"]},
+            **{f"ep=2 rank {i} (phase 21c, gloo, eager)": r["launches"][name]
+               for i, r in enumerate(axes["moe"]["ep2"])}}
     log(f"serving on {smi}: {served['tokens_per_s']:.1f} tokens/s, p50 TTFT "
         f"{served['ttft_p50_ms']:.1f} ms, p50 decode step "
         f"{served['decode_step_p50_ms']:.2f} ms (CUDA graph)")
@@ -8449,6 +8893,29 @@ def main():
         f"{json.dumps(mesh['peak_memory_gb'])} GB; K4 "
         f"{json.dumps(mesh['launches'])} for {mesh['decode_steps']} steps; "
         f"13b {json.dumps(mesh_small['checks'])}")
+    for kind, ph in (("gpipe", "21"), ("1f1b", "21a")):
+        rs = axes[kind]["ranks"]
+        log(f"pipeline {kind} (phase {ph}) on {smi}: gpt3-1.3B bf16 at pp=2 "
+            f"x {PP_M} microbatches, two ranks on cuda:0 over gloo: steps "
+            f"{[[round(x, 3) for x in r['step_s']] for r in rs]} s, losses "
+            f"{rs[0]['losses']} (gaps to phase 7 {rs[0]['loss_gaps']}), "
+            f"boundary bytes a step {axes[kind]['sent_bytes_per_step']} "
+            f"(predicted {axes[kind]['sent_bytes_predicted']}), peak "
+            f"{[round(r['peak_memory_gb'], 2) for r in rs]} GB, live inputs "
+            f"{[r['live_inputs_max'] for r in rs]}, K1-K3 "
+            f"{[r['launches'] for r in rs]}, host staged "
+            f"{rs[0]['staged']}")
+    zero = axes["zero"]
+    log(f"zero (phase 21b) on {smi}: " + json.dumps({
+        lv: {"step_s": [round(x, 3) for x in legs[0]["step_s"]],
+             "peak_gb": [round(r["peak_memory_gb"], 2) for r in legs],
+             "held": legs[0]["held"], "losses": legs[0]["losses"]}
+        for lv, legs in zero.items()}))
+    log(f"expert parallel (phase 21c) on {smi}: " + json.dumps({
+        k: [r[k] for r in axes["moe"]["ep2"]]
+        for k in ("losses", "aux_losses", "aux_rel_gaps", "step_s",
+                  "a2a_bytes_per_step", "peak_memory_gb", "launches")})
+        + f"; ep 1 {json.dumps(axes['moe']['ep1'])}")
     elastic = timed("19 elastic training", phase_elastic, dev)
     supervised = timed("20 supervised serving", phase_supervisor, dev)
     for name, row in flash.items():

@@ -28,7 +28,17 @@ A model sharded for tensor parallelism (``fleet.distributed_model``:
 parameters carrying ``mp_shard``) takes a full reference state as this
 rank's slices (``state_from_paddle_tpu``), and
 ``merged_state_to_paddle_tpu`` gathers every rank's slices back into the
-full reference state (a collective: every mp rank calls it).
+full reference state (a collective: every mp rank calls it). An MoE
+model at expert parallelism (banks carrying ``ep_shard``) takes this ep
+rank's experts of a full reference state the same way, and
+``merged_state_to_paddle_tpu`` gathers the ``[E, ...]`` banks back over the
+fleet's ep group. A pipeline step, an engine and ZeRO give their whole
+state themselves (``PipelineSpmdStep.state_dict`` /
+``export_optimizer_state``, ``HybridParallelEngine.state_dict``,
+``save_group_sharded_model``); :func:`slice_stage_state`,
+:func:`slice_expert_state` and :func:`slice_zero_state` cut a whole
+reference state into one rank's part for those forms, and
+:func:`merge_stage_states` puts stages' parts back together.
 """
 from __future__ import annotations
 
@@ -109,6 +119,8 @@ def state_from_paddle_tpu(np_state, model):
                        f"{extra[:5]}{' ...' if len(extra) > 5 else ''}")
     linear = _linear_weight_names(model)
     shards = _mp_shards(model)
+    experts = {name: p.ep_shard for name, p in model.named_parameters()
+               if getattr(p, "ep_shard", None) is not None}
     out = {}
     for name, target in own.items():
         arr = _leaf(src[name])
@@ -118,6 +130,10 @@ def state_from_paddle_tpu(np_state, model):
             dim, layout, rank, n = shards[name]
             arr = _local_shard(torch.from_numpy(np.array(arr)), dim, rank, n,
                                layout).numpy()
+        if name in experts:
+            dim, rank, n = experts[name]
+            arr = _local_shard(torch.from_numpy(np.array(arr)), dim, rank,
+                               n).numpy()
         if tuple(arr.shape) != tuple(target.shape):
             raise ValueError(f"shape mismatch for {name!r}: model holds "
                              f"{tuple(target.shape)}, state gives "
@@ -152,6 +168,8 @@ def merged_state_to_paddle_tpu(model, group=None):
 
     group = mp_group(group)
     shards = _mp_shards(model)
+    experts = {name: p.ep_shard for name, p in model.named_parameters()
+               if getattr(p, "ep_shard", None) is not None}
     full = {}
     for name, t in model.state_dict().items():
         t = t.detach()
@@ -160,10 +178,81 @@ def merged_state_to_paddle_tpu(model, group=None):
             parts = []
             collective.all_gather(parts, t.contiguous(), group=group)
             t = spmd.merge_shards(parts, dim, layout)
+        if name in experts:
+            t = collective.all_gather_axis(t.contiguous(), "ep",
+                                           experts[name][0])
         full[name] = t.cpu()
     linear = _linear_weight_names(model)
     return {name: t.t() if name in linear else t
             for name, t in full.items()}
+
+
+def slice_stage_state(np_state, model, pp, stage):
+    """The entries of a whole reference state that pipeline stage
+    ``stage`` of ``pp`` holds: its blocks of the trunk
+    (``model.pipeline_parts`` / the uniform block stack) and every other
+    entry (each stage keeps the embeddings, the final norm and the head)."""
+    from .distributed.pp_spmd import model_parts
+
+    _, blocks, _, _ = model_parts(model, pp, None)
+    Ls = len(blocks) // pp
+    names = {id(p): n for n, p in model.named_parameters()}
+    foreign = {names[id(p)] for j, b in enumerate(blocks)
+               if j // Ls != stage for p in b.parameters()}
+    own = dict(model.state_dict())
+    return {k: v for k, v in np_state.items()
+            if _own_name(k, own) not in foreign}
+
+
+def merge_stage_states(parts):
+    """One state from the stages' parts (each entry from the first part
+    that holds it)."""
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out.setdefault(k, v)
+    return out
+
+
+def slice_expert_state(np_state, model, ep, rank):
+    """A whole reference state with every expert bank (``w1``, ``b1``,
+    ``w2``, ``b2`` of an ``MoEMLP``) cut to expert rank ``rank``'s
+    ``E/ep`` experts; other entries as they are."""
+    from .nn.moe import MoEMLP
+
+    banks = {f"{n}.{b}" for n, m in model.named_modules()
+             if isinstance(m, MoEMLP) for b in ("w1", "b1", "w2", "b2")}
+    own = dict(model.state_dict())
+    out = {}
+    for k, v in np_state.items():
+        if _own_name(k, own) in banks:
+            a = _leaf(v)
+            c = a.shape[0] // ep
+            v = a[rank * c:(rank + 1) * c]
+        out[k] = v
+    return out
+
+
+def slice_zero_state(np_opt_state, optimizer, n, rank):
+    """A whole optimizer state (``"<slot>/p<i>"``) cut to ZeRO rank
+    ``rank`` of ``n``: each slot's block along its parameter's first
+    dimension ``n`` divides (the port's layout, as
+    ``sharding.GroupShardedOptimizer`` cuts it)."""
+    from .distributed.sharding import _shard_dim
+
+    params = optimizer._parameter_list
+    out = {}
+    for k, v in np_opt_state.items():
+        if isinstance(v, (torch.Tensor, np.ndarray)) and "/p" in k:
+            t = torch.as_tensor(np.asarray(_leaf(v)))
+            d = _shard_dim(tuple(params[int(k.rpartition("/p")[2])].shape),
+                           n)
+            if d is not None:
+                c = t.shape[d] // n
+                t = t.narrow(d, rank * c, c)
+            v = t
+        out[k] = v
+    return out
 
 
 def load_paddle_tpu_state(model, np_state):
@@ -230,26 +319,34 @@ def optimizer_state_from_paddle_tpu(np_opt_state, optimizer, model):
     return out
 
 
-def state_to_paddle_tpu(model):
+def state_to_paddle_tpu(model, state=None):
     """``model``'s state in the reference's names and layout: its
-    ``state_dict()`` with every Linear weight transposed to ``[in, out]``
-    (found by module type: a square weight cannot be told by its shape).
-    The tensors alias the live ones (Linear weights as transposed views);
+    ``state_dict()`` (or ``state``, a whole state in the port's layout
+    under ``model``'s names, as a pipeline step or a ZeRO facade gathers
+    it) with every Linear weight transposed to ``[in, out]`` (found by
+    module type: a square weight cannot be told by its shape). The
+    tensors alias the given ones (Linear weights as transposed views);
     ``framework.save`` snapshots them."""
     linear = _linear_weight_names(model)
+    state = model.state_dict() if state is None else state
     return {name: t.t() if name in linear else t
-            for name, t in model.state_dict().items()}
+            for name, t in state.items()}
 
 
-def optimizer_state_to_paddle_tpu(optimizer, model):
-    """``optimizer.state_dict()`` in the reference's layout: the slots of a
-    Linear weight of ``model`` transposed to ``[in, out]`` as the weight
-    is. Keys (``"<accumulator>/p<i>"``, ``_opt_step``, ``LR_Scheduler``)
-    are the reference's already, for every optimizer of the port."""
-    params = optimizer._parameter_list
+def optimizer_state_to_paddle_tpu(optimizer, model, state=None,
+                                  params=None):
+    """``optimizer.state_dict()`` (or ``state``, a whole optimizer state
+    in the port's layout) in the reference's layout: the slots of a Linear
+    weight of ``model`` transposed to ``[in, out]`` as the weight is; slot
+    ``"<accumulator>/p<i>"`` belongs to ``params[i]`` (default: the
+    optimizer's parameter list). Keys (``"<accumulator>/p<i>"``,
+    ``_opt_step``, ``LR_Scheduler``) are the reference's already, for
+    every optimizer of the port."""
+    params = optimizer._parameter_list if params is None else params
     linear = _linear_weight_ids(model)
     out = {}
-    for key, value in optimizer.state_dict().items():
+    state = optimizer.state_dict() if state is None else state
+    for key, value in state.items():
         if isinstance(value, torch.Tensor):
             i = int(key.rpartition("/p")[2])
             if id(params[i]) in linear:

@@ -12,7 +12,8 @@ Two forms, as in the reference:
 2. The axis-name functional form (``psum(x, "mp")``, ``all_gather_axis``,
    ...), which the reference has only inside ``shard_map``. Here an axis
    name is one dimension of the fleet mesh (``fleet.init`` names them
-   ``"dp"``, ``"pp"``, ``"sharding"``, ``"mp"``), so the forms run eagerly
+   ``"dp"``, ``"pp"``, ``"sharding"``, ``"ep"``, ``"mp"``; a tuple of
+   them names their joint group), so the forms run eagerly
    over that dimension's group of this rank and return new tensors;
    ``meta_parallel.mp_ops`` is built on them.
 
@@ -23,6 +24,13 @@ group of ranks that differ only along it. Counters (registry scope
 the local input), and ``host_staged`` (+ ``host_staged.<op>``): calls that
 went through host memory because gloo refused a CUDA tensor for that op
 (tried once per op and process, then staged every time; never silent).
+Point-to-point transfers (``send``, ``recv``, ``ppermute`` and
+:func:`p2p`, which posts a set of sends and receives together, as a
+pipeline stage's tick does) never give gloo a CUDA tensor: gloo's send and
+receive hand the tensor's data pointer to its transport without looking at
+the device, so each CUDA tensor goes through a pinned host buffer, counted
+in ``host_staged`` (+ ``host_staged.p2p``). ``p2p`` tallies ``send`` and
+``recv`` per tensor (the bytes that cross between ranks).
 ``reduce`` gives every rank the result, as the reference's does; the
 reference's ``ReduceOp.PROD`` sums (it has no product reducer), the port's
 multiplies.
@@ -38,7 +46,7 @@ from ..profiler import registry as _registry
 
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "all_gather", "reduce_scatter", "broadcast", "reduce", "scatter",
-           "alltoall", "all_to_all", "send", "recv", "wait",
+           "alltoall", "all_to_all", "send", "recv", "p2p", "wait",
            "split_group_mesh", "psum", "pmean", "pmax",
            "all_gather_axis", "reduce_scatter_axis", "ppermute",
            "all_to_all_axis", "axis_index", "axis_group", "set_axis_groups"]
@@ -151,7 +159,10 @@ def set_axis_groups(groups):
 
 
 def axis_group(axis):
-    """The group of an axis name of the fleet mesh (or a ``Group``)."""
+    """The group of an axis name of the fleet mesh, of a tuple of axis
+    names (the ranks that differ only along those axes, as
+    ``("dp", "ep")``; ``fleet.init`` makes the ones the port uses), or a
+    ``Group`` as it is."""
     if isinstance(axis, Group):
         return axis
     if axis is None or axis == "world":
@@ -165,6 +176,7 @@ def axis_group(axis):
 
 # ----------------------------------------------------- running one op ----
 _REFUSAL = re.compile(r"unsupported|not supported|not implemented|"
+                      r"does not support|"
                       r"only supports cpu|must be (on )?cpu|expected.*cpu",
                       re.IGNORECASE)
 _staged: set = set()
@@ -329,6 +341,15 @@ def alltoall(in_tensor_list, out_tensor_list, group=None, sync_op=True):
     outs = [torch.empty_like(t) for t in ins]
     if group.nranks == 1:
         outs[0].copy_(ins[0])
+    elif all(t.shape == ins[0].shape and t.dtype == ins[0].dtype
+             for t in ins):
+        # one all_to_all_single over the stacked chunks: gloo has no
+        # list form, only the single-tensor one
+        x = torch.stack(ins)
+        out = torch.empty_like(x)
+        _run("all_to_all", group, lambda o, i: dist.all_to_all_single(
+            o, i, group=group.pg), [out, x])
+        outs = list(out.unbind(0))
     else:
         n = len(ins)
         _run("all_to_all", group, lambda *ts: dist.all_to_all(
@@ -341,15 +362,62 @@ def alltoall(in_tensor_list, out_tensor_list, group=None, sync_op=True):
 all_to_all = alltoall
 
 
+def _stage_p2p(group, tensors):
+    """Whether ``tensors`` must go through host memory (CUDA over gloo)."""
+    return group.backend == "gloo" and any(t.is_cuda for t in tensors)
+
+
+def _p2p(sends, recvs, group):
+    """Post ``sends`` ``[(tensor, group rank)]`` and ``recvs`` together
+    and wait for all of them (see the module's docstring)."""
+    sends = [(t.contiguous(), d) for t, d in sends]
+    if not sends and not recvs:
+        return
+    staged = _stage_p2p(group, [t for t, _ in [*sends, *recvs]])
+    if staged:
+        s_buf = [t.detach().to("cpu") for t, _ in sends]
+        r_buf = [torch.empty(t.shape, dtype=t.dtype).pin_memory()
+                 for t, _ in recvs]
+    else:
+        s_buf = [t for t, _ in sends]
+        r_buf = [t for t, _ in recvs]
+    ops = [dist.P2POp(dist.isend, b, group.ranks[d], group.pg)
+           for b, (_, d) in zip(s_buf, sends)]
+    ops += [dist.P2POp(dist.irecv, b, group.ranks[s], group.pg)
+            for b, (_, s) in zip(r_buf, recvs)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if staged:
+        for (t, _), b in zip(recvs, r_buf):
+            t.copy_(b)
+        _counters["host_staged"] += 1
+        _counters["host_staged.p2p"] = _counters.get("host_staged.p2p",
+                                                     0) + 1
+
+
+def p2p(sends=(), recvs=(), group=None):
+    """Point to point over ``group``: every ``(tensor, dst)`` of ``sends``
+    and ``(tensor, src)`` of ``recvs`` (ranks in the group) posted
+    together, so two ranks that send to each other cannot deadlock;
+    returns when all are done, the received tensors filled in place.
+    Tallies ``send`` and ``recv`` per tensor."""
+    group = group or _default_group()
+    for t, _ in sends:
+        _tally("send", t)
+    for t, _ in recvs:
+        _tally("recv", t)
+    _p2p(list(sends), list(recvs), group)
+    return _Task()
+
+
 def send(tensor, dst=0, group=None, sync_op=True):
     """Point-to-point send to ``dst`` (a global rank, or an index into
     ``group``). The reference cannot express it outside ``shard_map`` and
     raises; processes can."""
     group = group or _default_group()
     _tally("send", tensor)
-    g_dst = _global_rank(group, dst)
-    _run("send", group, lambda x: dist.send(x, dst=g_dst, group=group.pg),
-         [tensor.contiguous()])
+    _p2p([(tensor, group.ranks.index(_global_rank(group, dst)))], [],
+         group)
     return _Task()
 
 
@@ -357,9 +425,8 @@ def recv(tensor, src=0, group=None, sync_op=True):
     """Point-to-point receive from ``src`` into ``tensor``, in place."""
     group = group or _default_group()
     _tally("recv", tensor)
-    g_src = _global_rank(group, src)
-    _run("recv", group, lambda x: dist.recv(x, src=g_src, group=group.pg),
-         [tensor])
+    _p2p([], [(tensor, group.ranks.index(_global_rank(group, src)))],
+         group)
     return _Task()
 
 
@@ -419,19 +486,15 @@ def ppermute(x, axis, perm):
     out = torch.zeros_like(x)
     if group.nranks == 1:
         return x.clone() if (0, 0) in perm else out
-    ops = []
+    sends, recvs = [], []
     for s, d in perm:
         if s == me and d == me:
             out.copy_(x)
         elif s == me:
-            ops.append(dist.P2POp(dist.isend, x.contiguous(),
-                                  group.ranks[d], group.pg))
+            sends.append((x, d))
         elif d == me:
-            ops.append(dist.P2POp(dist.irecv, out, group.ranks[s],
-                                  group.pg))
-    if ops:
-        for w in dist.batch_isend_irecv(ops):
-            w.wait()
+            recvs.append((out, s))
+    _p2p(sends, recvs, group)
     return out
 
 

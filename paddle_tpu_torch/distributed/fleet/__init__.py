@@ -1,18 +1,29 @@
 """``fleet`` (counterpart of paddle_tpu/distributed/fleet): ``init`` builds
 the hybrid topology over the process group, ``distributed_model`` shards a
 model for it, plus the role makers, ``worker_index`` / ``worker_num``,
-``metrics`` and ``utils.recompute``.
+``metrics``, ``utils.recompute`` and ``HybridParallelEngine``.
 
-``distributed_model`` is the counterpart of the reference's one-compilation
-SPMD branch (``use_spmd``, which returns the model sharded and unwrapped),
-the only form the port has: every parameter annotated with a
-``sharding_spec`` keeps this rank's mp slice and the model's mp-aware
-modules insert the tensor-parallel collectives (``spmd.shard_model``);
-every gradient is averaged over the data-parallel group in the backward
-(``parallel.sync_gradients``); a model that draws hashed dropout masks (a
-GPT) gets one dropout stream on every rank and its data-parallel block of
-the batch's rows (:func:`share_dropout_stream`). Pipeline and expert degrees above 1 raise
-``NotImplementedError`` (ROADMAP queue 1 item 7).
+``distributed_model`` chooses the form as the reference does:
+
+- with ``hybrid_configs["use_spmd"]`` set, or in hybrid mode with no
+  optimizer known (none given and no ``distributed_optimizer`` call), the
+  reference's one-compilation SPMD branch: the model is returned sharded
+  and unwrapped. Every parameter annotated with a ``sharding_spec`` keeps
+  this rank's mp slice (an MoE bank its ep rank's experts) and the model's
+  mp-aware modules insert the tensor-parallel collectives
+  (``spmd.shard_model``); every gradient is averaged over the ranks that
+  split the batch in the backward (``parallel.sync_gradients``); a model
+  that draws hashed dropout masks (a GPT) gets one dropout stream on every
+  rank and its data-parallel block of the batch's rows
+  (:func:`share_dropout_stream`). A pipeline degree above 1 is then
+  driven by ``pp_spmd.PipelineSpmdStep`` or ``hapi.Model.train_batch``,
+  and ``hapi.Model`` takes this form at every degree;
+- in data-parallel mode, ``DataParallel(model)``;
+- in hybrid mode with an optimizer known, a ``HybridParallelEngine`` (the
+  1F1B pipeline, ZeRO stage-1 moments over ``sharding``).
+
+These paths are eager: the captured multi-rank step (NCCL, one card a
+rank) is ROADMAP queue 1 item 7b.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ from . import metrics  # noqa: F401
 from . import utils  # noqa: F401
 from .distributed_strategy import DistributedStrategy  # noqa: F401
 from .topology import CommunicateTopology, HybridCommunicateGroup  # noqa: F401
+from .hybrid_engine import HybridParallelEngine  # noqa: F401
 
 __all__ = ["init", "is_initialized", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group",
@@ -29,7 +41,7 @@ __all__ = ["init", "is_initialized", "distributed_model",
            "is_worker", "is_server", "server_num", "UserDefinedRoleMaker",
            "PaddleCloudRoleMaker", "Role", "DistributedStrategy",
            "CommunicateTopology", "HybridCommunicateGroup",
-           "share_dropout_stream"]
+           "share_dropout_stream", "HybridParallelEngine"]
 
 _fleet_state = {"initialized": False, "hcg": None, "strategy": None,
                 "role_maker": None, "optimizer": None}
@@ -124,22 +136,19 @@ def init(role_maker=None, is_collective=False, strategy=None,
         parallel_env.init_parallel_env()
     strategy = strategy or DistributedStrategy()
     hc = strategy.hybrid_configs
-    for key in ("pp_degree", "ep_degree"):
-        if int(hc.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"fleet.init: {key}={hc[key]} needs pipeline or expert "
-                "parallelism, which is not ported yet (ROADMAP queue 1 "
-                "item 7)")
-    topo = CommunicateTopology(
-        ["data", "pipe", "sharding", "model"],
-        [int(hc.get("dp_degree", 1)), 1, int(hc.get("sharding_degree", 1)),
-         int(hc.get("mp_degree", 1))])
-    hcg = HybridCommunicateGroup(topo)
+    names = ["data", "pipe", "sharding", "model"]
+    dims = [int(hc.get("dp_degree", 1)), int(hc.get("pp_degree", 1)),
+            int(hc.get("sharding_degree", 1)), int(hc.get("mp_degree", 1))]
+    if int(hc.get("ep_degree", 1)) > 1:
+        names.insert(3, "expert")
+        dims.insert(3, int(hc["ep_degree"]))
+    hcg = HybridCommunicateGroup(CommunicateTopology(names, dims))
     from .. import spmd
 
     spmd.enable(hcg)
     _fleet_state.update(initialized=True, hcg=hcg, strategy=strategy,
-                        role_maker=role_maker, optimizer=None)
+                        role_maker=role_maker, optimizer=None,
+                        use_spmd=bool(hc.get("use_spmd", False)))
 
 
 def is_initialized():
@@ -155,22 +164,47 @@ def get_strategy():
 
 
 def distributed_model(model, criterion=None, optimizer=None):
-    """``model`` sharded over the mp group and with its gradients averaged
-    over the data-parallel group (see the module's docstring); returned
-    itself, not wrapped, so its ``state_dict`` keeps its names. Call it
-    before building the optimizer: sharding replaces parameter storage."""
-    from .. import spmd
-    from ..parallel import broadcast_parameters, sync_gradients
-
+    """``model`` for the hybrid topology, in the form the module's
+    docstring sets out. The sharded form is ``model`` itself (its
+    ``state_dict`` keeps its names); call it before building the
+    optimizer there, since sharding replaces parameter storage."""
     hcg = _fleet_state["hcg"]
     if hcg is None:
         raise RuntimeError("call fleet.init() first")
     if getattr(model, "_fleet_distributed", False):
         return model  # a second call would average the gradients twice
+    mode = hcg.get_parallel_mode()
+    opt = optimizer or _fleet_state.get("optimizer")
+    if not _fleet_state.get("use_spmd") and mode == "data_parallel":
+        from ..parallel import DataParallel
+
+        dp = DataParallel(model, group=hcg.get_data_parallel_group())
+        share_dropout_stream(model, hcg.get_data_parallel_rank())
+        model._fleet_distributed = True
+        return dp
+    if not _fleet_state.get("use_spmd") and mode == "hybrid_parallel" \
+            and opt is not None:
+        return HybridParallelEngine(model, opt, hcg,
+                                    _fleet_state["strategy"], criterion)
+    return _shard_in_place(model, hcg)
+
+
+def _shard_in_place(model, hcg):
+    """The SPMD branch: mp slices (and expert banks), gradients averaged
+    over the ranks that split the batch (an expert bank's over dp, see
+    ``parallel``), one dropout stream. A pipeline step takes the
+    gradients over itself, so a model on a mesh with ``pp > 1`` gets no
+    backward hooks."""
+    from .. import spmd
+    from ..parallel import broadcast_parameters, sync_gradients
+
+    if getattr(model, "_fleet_distributed", False):
+        return model
     spmd.shard_model(model, hcg)
     dp = hcg.get_data_parallel_group()
     broadcast_parameters(model, dp)
-    sync_gradients(model, dp)
+    if hcg.get_pipe_parallel_world_size() == 1:
+        sync_gradients(model, hcg.get_batch_group())
     share_dropout_stream(model, dp.rank)
     model._fleet_distributed = True
     return model
@@ -207,11 +241,48 @@ def share_dropout_stream(model, batch_shard):
         mod.set_generator(gen)
 
 
+# the meta-optimizer toggles the reference applies only through its
+# static-mode passes (``distributed/passes``, ROADMAP queue 1 item 11b),
+# with what a dygraph user gets instead
+_PASS_ONLY = (("lars", "use paddle_tpu_torch.optimizer.Lars directly"),
+              ("lamb", "use paddle_tpu_torch.optimizer.Lamb directly"),
+              ("localsgd", "gradients are averaged at every step"),
+              ("fp16_allreduce", "gradients are averaged in their dtype"))
+
+
+class _DistributedOptimizer:
+    """``distributed_optimizer``'s wrapper: ``inner_opt`` is the
+    optimizer, and every other attribute (``step``, ``clear_grad``,
+    ``minimize``, ...) is the optimizer's, read and written there (a write
+    kept on the wrapper would leave the optimizer's own ``_opt_step`` or
+    parameter list stale)."""
+
+    def __init__(self, optimizer):
+        self.__dict__["inner_opt"] = optimizer
+
+    def __getattr__(self, k):
+        return getattr(self.__dict__["inner_opt"], k)
+
+    def __setattr__(self, k, v):
+        setattr(self.__dict__["inner_opt"], k, v)
+
+
 def distributed_optimizer(optimizer, strategy=None):
-    """The optimizer as it is: the gradients it reads are already averaged
-    in the backward. Kept for the reference's API."""
+    """Wrap ``optimizer`` (``inner_opt``) and remember it, so a later
+    ``distributed_model`` in hybrid mode builds the engine with it. The
+    meta-optimizer toggles the reference honours only in static mode warn,
+    as its own do."""
+    strat = strategy or _fleet_state.get("strategy")
+    for flag, instead in _PASS_ONLY:
+        if strat is not None and getattr(strat, flag, False):
+            import warnings
+
+            warnings.warn(
+                f"DistributedStrategy.{flag} is honored only by static "
+                f"mode's passes; this dygraph distributed_optimizer "
+                f"ignores it — {instead}", stacklevel=2)
     _fleet_state["optimizer"] = optimizer
-    return optimizer
+    return _DistributedOptimizer(optimizer)
 
 
 def is_worker():

@@ -2,14 +2,22 @@
 paddle_tpu/distributed/fleet/topology.py).
 
 ``CommunicateTopology`` is the reference's coordinate math, copied: ranks
-in row-major order over ``("data", "pipe", "sharding", "model")``.
-``HybridCommunicateGroup`` builds one ``torch.distributed`` ``DeviceMesh``
-over the world with the dimensions ``("dp", "pp", "sharding", "mp")`` in
-that order, so mesh coordinates are topology coordinates, and returns each
-dimension's group of this rank as a ``collective.Group``. Unlike the
-reference's single controller, which reports rank 0's coordinates, every
-process here has its own: ``get_model_parallel_rank()`` is this rank's
-index in its mp group.
+in row-major order over ``("data", "pipe", "sharding", "model")``, or
+``("data", "pipe", "sharding", "expert", "model")`` with an expert
+dimension (MoE expert parallelism). ``HybridCommunicateGroup`` builds one
+``torch.distributed`` ``DeviceMesh`` over the world with the dimensions
+``("dp", "pp", "sharding", "mp")`` (``"ep"`` before ``"mp"`` when the
+topology has an expert dimension) in that order, so mesh coordinates are
+topology coordinates, and returns each dimension's group of this rank as a
+``collective.Group``. Unlike the reference's single controller, which
+reports rank 0's coordinates, every process here has its own:
+``get_model_parallel_rank()`` is this rank's index in its mp group.
+
+It also makes the joint groups the port's data paths reduce over, named
+by tuples of axes in ``collective``'s table: ``("dp", "sharding")`` (the
+ZeRO ranks are data-parallel ranks too), ``("dp", "ep")`` (the expert
+ranks are data-parallel for the dense trunk) and ``("dp", "sharding",
+"ep")``, the ranks that split a batch (``get_batch_group()``).
 """
 from __future__ import annotations
 
@@ -81,13 +89,14 @@ class CommunicateTopology:
 
 
 class HybridCommunicateGroup:
-    """The dp, pp, sharding and mp groups of this rank over one
+    """The dp, pp, sharding, ep and mp groups of this rank over one
     ``DeviceMesh`` (axis names: data -> "dp", pipe -> "pp", sharding ->
-    "sharding", model -> "mp"). The topology's size must be the world's.
-    Pipeline and expert degrees above 1 raise ``NotImplementedError``
-    (ROADMAP queue 1 item 7)."""
+    "sharding", expert -> "ep", model -> "mp"), and the joint groups of
+    the module's docstring. The topology's size must be the world's."""
 
-    AXES = ("dp", "pp", "sharding", "mp")
+    AXIS_MAP = {"data": "dp", "pipe": "pp", "sharding": "sharding",
+                "expert": "ep", "model": "mp"}
+    JOINT = (("dp", "sharding"), ("dp", "ep"), ("dp", "sharding", "ep"))
 
     def __init__(self, topology: CommunicateTopology):
         self._topo = topology
@@ -99,38 +108,63 @@ class HybridCommunicateGroup:
         names = topology.get_hybrid_group_names()
         self._ep_degree = (topology.get_dim("expert")
                            if "expert" in names else 1)
-        for what, deg in (("pipeline", self._pp_degree),
-                          ("expert", self._ep_degree)):
-            if deg > 1:
-                raise NotImplementedError(
-                    f"{what} parallelism (degree {deg}) is not ported yet "
-                    "(ROADMAP queue 1 item 7)")
+        self.axes = tuple(self.AXIS_MAP[n] for n in names)
+        self._topo_name = dict(zip(self.axes, names))
         world = parallel_env.get_world_size()
         if world != self.nranks:
             raise RuntimeError(
                 f"the hybrid topology has {self.nranks} ranks but the world "
                 f"has {world} processes")
         self.global_rank = parallel_env.get_rank()
-        dims = (self._dp_degree, self._pp_degree, self._sharding_degree,
-                self._mp_degree)
+        dims = tuple(topology.get_dim(n) for n in names)
         if dist.is_initialized():
             from torch.distributed.device_mesh import init_device_mesh
 
             dev = parallel_env.device()
             self.mesh = init_device_mesh(
                 dev.type if dev is not None else "cpu", dims,
-                mesh_dim_names=self.AXES)
+                mesh_dim_names=self.axes)
             groups = {a: collective.split_group_mesh(self.mesh, a)
-                      for a in self.AXES}
+                      for a in self.axes}
         else:  # one process: every group is this process alone
             self.mesh = None
             groups = {a: collective.Group([self.global_rank], 0, None,
                                           axis_name=a)
-                      for a in self.AXES}
+                      for a in self.axes}
+        if "ep" not in groups:
+            groups["ep"] = collective.Group([self.global_rank], 0, None,
+                                            axis_name="ep")
+        for joint in self.JOINT:
+            groups[joint] = self._joint_group(joint, groups)
         collective.set_axis_groups(groups)
         self._groups = groups
-        coord = dict(zip(self.AXES, topology.get_coord(self.global_rank)))
+        coord = dict(zip(self.axes, topology.get_coord(self.global_rank)))
+        coord.setdefault("ep", 0)
         self._coord = coord
+
+    def _joint_group(self, joint, groups):
+        """The group of ranks that differ only along the axes ``joint``
+        (every rank makes every such group, in one order, as torch
+        requires); a single axis's group when only one of them is above
+        degree 1, and a group of this rank alone when none is."""
+        live = [a for a in joint if a in self.axes
+                and self._topo.get_dim(self._topo_name[a]) > 1]
+        if len(live) <= 1:
+            return groups[live[0]] if live else collective.Group(
+                [self.global_rank], 0, None, axis_name="x".join(joint))
+        idx = [self.axes.index(a) for a in live]
+        buckets = {}
+        for r in range(self.nranks):
+            c = self._topo.get_coord(r)
+            key = tuple(v for i, v in enumerate(c) if i not in idx)
+            buckets.setdefault(key, []).append(r)
+        mine = None
+        for key in sorted(buckets):
+            g = collective.new_group(buckets[key])
+            if self.global_rank in g.ranks:
+                mine = g
+        mine.axis = "x".join(live)
+        return mine
 
     # -- degrees -----------------------------------------------------------
     def get_data_parallel_world_size(self):
@@ -162,7 +196,7 @@ class HybridCommunicateGroup:
         return self._coord["sharding"]
 
     def get_expert_parallel_rank(self):
-        return 0
+        return self._coord["ep"]
 
     # -- groups --------------------------------------------------------------
     def get_data_parallel_group(self):
@@ -178,7 +212,12 @@ class HybridCommunicateGroup:
         return self._groups["sharding"]
 
     def get_expert_parallel_group(self):
-        return None
+        return self._groups["ep"]
+
+    def get_batch_group(self):
+        """The ranks that split a batch between them: dp x sharding x ep
+        (a group of this rank alone when all three are 1)."""
+        return self._groups[("dp", "sharding", "ep")]
 
     def get_check_parallel_group(self, sharding=False):
         return collective.get_group(0)
@@ -191,9 +230,10 @@ class HybridCommunicateGroup:
 
     def get_parallel_mode(self):
         if self._mp_degree == 1 and self._pp_degree == 1 and \
-                self._sharding_degree == 1 and self._dp_degree > 1:
+                self._sharding_degree == 1 and self._ep_degree == 1 and \
+                self._dp_degree > 1:
             return "data_parallel"
         if self._mp_degree > 1 or self._pp_degree > 1 or \
-                self._sharding_degree > 1:
+                self._sharding_degree > 1 or self._ep_degree > 1:
             return "hybrid_parallel"
         return "single"

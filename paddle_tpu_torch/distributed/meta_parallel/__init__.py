@@ -1,8 +1,10 @@
 """``meta_parallel`` (counterpart of
 paddle_tpu/distributed/meta_parallel): the tensor-parallel layers, their
-primitives and the named random streams. The pipeline layers wait for
-ROADMAP queue 1 item 7."""
+primitives, the named random streams, and the pipeline layer
+descriptions (``pp_layers``)."""
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401
                         RowParallelLinear, VocabParallelEmbedding)
 from .random_ctrl import (RNGStatesTracker, get_rng_state_tracker,  # noqa: F401
                           model_parallel_random_seed)
+from .pp_layers import (LayerDesc, PipelineLayer,  # noqa: F401
+                        PipelineStageError, SharedLayerDesc)

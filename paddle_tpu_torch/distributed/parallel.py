@@ -15,6 +15,12 @@ plain training loop needs nothing more. ``apply_collective_grads``
 averages whatever gradient the hooks did not (the reference's explicit
 call): called after the backward, it finds nothing left to do.
 
+An expert bank of an MoE layer at ``ep > 1`` (a parameter carrying
+``expert_grad_sync = (dp group, ep)``) is held by one expert rank, which
+receives through the expert all-to-all the gradient of every expert
+rank's mean loss: its gradient is averaged over the dp group alone and
+divided by ``ep``.
+
 A ``DataParallel`` over the world (no group given, no fleet) follows the
 world: when a rank tears its process group down and forms it again at the
 same size, as an elastic survivor does after a sibling's restart, the
@@ -36,15 +42,24 @@ class _GradSync:
     def __init__(self, module, group):
         self._group = group  # a Group, or a callable giving the current one
         self.synced: set = set()
-        for p in module.parameters():
-            if p.requires_grad:
-                p.register_hook(self._hook(p))
+        self._handles = [p.register_hook(self._hook(p))
+                         for p in module.parameters() if p.requires_grad]
+
+    def remove(self):
+        """Take the hooks off (a ZeRO optimizer reduces the gradients
+        itself)."""
+        for h in self._handles:
+            h.remove()
+        self._handles = []
 
     def _hook(self, p):
         key = id(p)
 
         def hook(grad):
             self.synced.add(key)
+            expert = getattr(p, "expert_grad_sync", None)
+            if expert is not None:
+                return _averaged(grad, expert[0]).div_(expert[1])
             return _averaged(grad, self.group)
 
         return hook

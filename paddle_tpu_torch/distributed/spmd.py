@@ -9,15 +9,20 @@ as a plain tensor (not a DTensor: the kernels are bound with ``ctypes``,
 ``TrainStep`` captures plain tensors and ``convert`` speaks them), and
 hands the mp group to the model's mp-aware modules, whose forwards then
 insert the tensor-parallel collectives (``meta_parallel.mp_ops``).
-:func:`shard_batch` keeps this rank's data-parallel rows of a batch.
+:func:`shard_batch` keeps this rank's rows of a batch: its block of the
+ranks that split a batch, dp x sharding x ep jointly (the reference's
+``shard_batch`` splits over ``('dp', 'ep')``, and its SPMD mesh folds
+``sharding`` onto ``dp``).
 
 A ``sharding_spec`` names one mesh axis or None per dimension of the
 parameter in the port's layout (a Linear weight is ``[out, in]``).
 :func:`param_pspec` is the reference's rule, copied: axes the mesh lacks,
 axes of degree 1 and dimensions the degree does not divide are replicated,
 and ZeRO's ``"sharding"`` folds onto ``"dp"``. Only ``"mp"`` slices here:
-ZeRO's parameter sharding waits for ``sharding.py`` (ROADMAP queue 1 item
-7), so a ``"dp"`` entry keeps the parameter whole. A parameter may also
+ZeRO's parameter sharding is a runtime protocol of ``sharding.py``
+(``group_sharded_parallel``), pipeline stages are cut by ``pp_spmd`` and
+the engine, and expert banks by ``nn.moe`` at ``ep > 1``, so a ``"dp"``,
+``"pp"`` or ``"ep"`` entry keeps the parameter whole here. A parameter may also
 carry ``shard_layout = (groups, unit)``: the dimension is ``groups`` equal
 blocks, each split across the ranks in whole ``unit``\\ s (the fused QKV
 projection of a GPT is 3 blocks, q, k and v, split by heads).
@@ -93,6 +98,7 @@ def _axes(mesh):
         return {"dp": mesh.get_data_parallel_world_size(),
                 "pp": mesh.get_pipe_parallel_world_size(),
                 "sharding": mesh.get_sharding_parallel_world_size(),
+                "ep": mesh.get_expert_parallel_world_size(),
                 "mp": mesh.get_model_parallel_world_size()}
     if isinstance(mesh, dict):
         return dict(mesh)
@@ -229,6 +235,7 @@ def shard_model(model, mesh=None):
     if mesh is None:
         raise RuntimeError("shard_model: no mesh (call fleet.init or "
                            "spmd.enable first)")
+    _shard_experts(model, mesh)
     group = _mp_group(mesh)
     n = group.nranks
     if n <= 1:
@@ -263,6 +270,34 @@ def shard_model(model, mesh=None):
     return model
 
 
+def _shard_experts(model, mesh):
+    """At ``ep > 1``: keep this rank's ``E/ep`` experts of every bank
+    annotated ``("ep", ...)`` of each module that declares ``ep_group``
+    (``p.ep_shard = (0, rank, ep)``), set the module's ``ep_group`` and
+    its gate's ``batch_group``, and mark each bank's gradient to be
+    averaged over dp alone (``expert_grad_sync``, see ``parallel``)."""
+    if not hasattr(mesh, "get_expert_parallel_group"):
+        return
+    g = mesh.get_expert_parallel_group()
+    n = g.nranks
+    if n <= 1:
+        return
+    dp = mesh.get_data_parallel_group()
+    with torch.no_grad():
+        for mod in model.modules():
+            if not hasattr(mod, "ep_group") or mod.ep_group is not None:
+                continue
+            for p in mod.parameters(recurse=False):
+                spec = getattr(p, "sharding_spec", None)
+                if spec and spec[0] == "ep" and \
+                        getattr(p, "ep_shard", None) is None:
+                    p.data = local_shard(p.data, 0, g.rank, n)
+                    p.ep_shard = (0, g.rank, n)
+                    p.expert_grad_sync = (dp, n)
+            mod.ep_group = g
+            mod.gate.batch_group = mesh.get_batch_group()
+
+
 def _partial(mod, n):
     raise ValueError(
         f"shard_model: {type(mod).__name__} would be sliced in part over "
@@ -270,16 +305,18 @@ def _partial(mod, n):
 
 
 def shard_batch(data, mesh=None, batch_axis=0):
-    """This rank's data-parallel rows of a batch: chunk ``dp_rank`` of
-    ``dp`` along ``batch_axis`` (the whole batch when ``dp`` does not
-    divide it)."""
+    """This rank's rows of a batch: chunk ``r`` of ``n`` along
+    ``batch_axis``, where ``n`` is the size of the ranks that split a
+    batch (dp x sharding x ep) and ``r`` this rank's index among them (the
+    whole batch when ``n`` does not divide it)."""
     mesh = mesh or current_mesh()
     if mesh is None:
         raise RuntimeError("shard_batch: no mesh")
     t = torch.as_tensor(data)
-    dp = mesh.get_data_parallel_group()
+    group = mesh.get_batch_group() if hasattr(mesh, "get_batch_group") \
+        else mesh.get_data_parallel_group()
     n = t.shape[batch_axis] if t.dim() > batch_axis else 0
-    if dp.nranks <= 1 or n % dp.nranks:
+    if group.nranks <= 1 or n % group.nranks:
         return t
-    return t.narrow(batch_axis, dp.rank * (n // dp.nranks),
-                    n // dp.nranks)
+    return t.narrow(batch_axis, group.rank * (n // group.nranks),
+                    n // group.nranks)

@@ -13,13 +13,15 @@ checkpoint at the next batch boundary after SIGTERM. A ``save_dir``
 written by the reference's ``fit`` resumes here and the other way round.
 
 With ``fleet.init`` run over more than one process, ``train_batch`` is
-the counterpart of the reference's SPMD branch: the network goes through
-``fleet.distributed_model`` once (sharded over the mp group, its
-gradients averaged over the data-parallel group), each batch through
-``spmd.shard_batch`` (this rank's data-parallel rows), and the loss
-returned is the mean over the data-parallel group, the global batch's, as
-the reference reports it. Build the optimizer before the first batch and
-keep the same order of batches on every rank.
+the counterpart of the reference's SPMD branch: the network is sharded
+in place once, as ``fleet.distributed_model`` does under ``use_spmd``
+(sliced over the mp group, its gradients averaged over the ranks that
+split the batch, dp x sharding x ep), whatever form ``distributed_model``
+would pick for a loop of the user's own; each batch goes through
+``spmd.shard_batch`` (this rank's rows), and the loss returned is the
+mean over those ranks, the global batch's, as the reference reports it.
+Build the optimizer before the first batch and keep the same order of
+batches on every rank.
 
 ``fit(elastic=ctx)`` takes a ``distributed.fleet.elastic.
 ElasticTrainContext``: a global step with a boundary tick after each
@@ -27,8 +29,15 @@ batch, a peer's preemption taken as this rank's, a failed fence check
 ending training with nothing saved, and the emergency checkpoint written
 only while the fence holds.
 
-Not ported: the reference's pipeline branch of ``train_batch`` (ROADMAP
-queue 1 item 7).
+On a mesh with ``pp > 1`` ``train_batch`` is the reference's pipeline
+branch: it builds a ``distributed.pp_spmd.PipelineSpmdStep`` over the
+network, the optimizer and the loss (exactly one input and one label;
+``amp_configs`` refused, with the reference's messages), whose loss is
+already the global batch's. ``eval_batch`` / ``predict_batch`` first make
+the network whole (``sync_params_to_model``); ``save`` writes the whole
+model and the optimizer's canonical per-layer state
+(``export_optimizer_state``), and ``load`` retires the step (``release``)
+so the next ``train_batch`` builds a new one from the loaded state.
 """
 from __future__ import annotations
 
@@ -137,6 +146,7 @@ class Model:
         self._n_inputs = None
         self._global_step = 0
         self._dp_group = None
+        self._pp_step = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
@@ -197,10 +207,18 @@ class Model:
         labels_l = _listed(labels) if labels is not None else []
         if self._train_step is None:
             self._n_inputs = len(inputs_l)
-            self._distribute()
-            self._train_step = TrainStep(self._step, self.network,
-                                         self._optimizer)
+            hcg = fleet.get_hybrid_communicate_group()
+            if hcg is not None and hcg.get_pipe_parallel_world_size() > 1:
+                self._train_step = self._pipeline_step(hcg)
+            else:
+                self._distribute()
+                self._train_step = TrainStep(self._step, self.network,
+                                             self._optimizer)
         args = [*inputs_l, *labels_l]
+        if self._pp_step is not None:
+            loss = self._train_step(*args)
+            self._global_step += 1
+            return [float(loss)]
         if self._dp_group is not None:
             args = [spmd.shard_batch(torch.as_tensor(a)) for a in args]
         with RecordEvent("train_step"):
@@ -215,17 +233,53 @@ class Model:
                                   group=self._dp_group)
         return [float(loss.detach())]
 
+    def _pipeline_step(self, hcg):
+        """The pipeline branch (module docstring)."""
+        from ..distributed import pp_spmd
+
+        if self._n_inputs != 1:
+            raise ValueError(
+                "the SPMD pipeline step takes exactly one input and one "
+                f"label tensor (tokens, labels); got {self._n_inputs} "
+                "inputs")
+        if self._amp_level:
+            raise ValueError(
+                "amp_configs is not supported on the SPMD pipeline path "
+                "yet — drop amp_configs, or set the model dtype to "
+                "'bfloat16' directly (GPTConfig(dtype='bfloat16'))")
+        step = pp_spmd.PipelineSpmdStep(self.network, self._optimizer,
+                                        criterion=self._loss, hcg=hcg)
+        self._pp_step = step
+
+        def run(*args):
+            if len(args) != 2:
+                raise ValueError(
+                    "the SPMD pipeline step supports exactly (tokens, "
+                    f"labels); got {len(args)} tensors — multi-label "
+                    "batches (e.g. loss_mask) need the engine path or a "
+                    "criterion closed over the extra inputs")
+            return step.train_batch(list(args))
+
+        return run
+
+    def _whole(self):
+        """Make the network whole after pipeline training (every stage's
+        blocks on every rank)."""
+        if self._pp_step is not None:
+            self._pp_step.sync_params_to_model()
+
     def _distribute(self):
-        """Under ``fleet.init`` over several processes, the network through
-        ``fleet.distributed_model`` (which does it once per model)."""
+        """Under ``fleet.init`` over several processes, the network sharded
+        in place (once per model; see the module's docstring)."""
         hcg = fleet.get_hybrid_communicate_group()
         if hcg is None or hcg.nranks <= 1:
             return
-        fleet.distributed_model(self.network)
-        self._dp_group = hcg.get_data_parallel_group()
+        fleet._shard_in_place(self.network, hcg)
+        self._dp_group = hcg.get_batch_group()
 
     def eval_batch(self, inputs, labels=None):
         """``(outputs, {"loss": float or None})`` without gradients."""
+        self._whole()
         self.network.eval()
         with torch.no_grad():
             out = self.network(*self._on_device(_listed(inputs)))
@@ -238,6 +292,7 @@ class Model:
         return out, res
 
     def predict_batch(self, inputs):
+        self._whole()
         self.network.eval()
         with torch.no_grad():
             return self.network(*self._on_device(_listed(inputs)))
@@ -484,19 +539,43 @@ class Model:
     # -- persistence -----------------------------------------------------
     def save(self, path, training=True):
         """``path.pdparams`` (and, with ``training``, ``path.pdopt``) in the
-        reference's format and layout (``convert``)."""
+        reference's format and layout (``convert``). After pipeline
+        training every rank calls it and the first rank writes."""
+        if self._pp_step is not None:
+            self._save_pipeline(path, training)
+            return
         framework.save(convert.state_to_paddle_tpu(self.network),
                        path + ".pdparams")
         if training and self._optimizer is not None:
             framework.save(convert.optimizer_state_to_paddle_tpu(
                 self._optimizer, self.network), path + ".pdopt")
 
+    def _save_pipeline(self, path, training):
+        from ..distributed import parallel_env
+
+        step = self._pp_step
+        state = convert.state_to_paddle_tpu(self.network, step.state_dict())
+        opt_state = None if not training else \
+            convert.optimizer_state_to_paddle_tpu(
+                step.optimizer, self.network,
+                step.export_optimizer_state(), step.runner.full_list)
+        if parallel_env.get_rank() != 0:
+            return
+        framework.save(state, path + ".pdparams")
+        if opt_state is not None:
+            framework.save(opt_state, path + ".pdopt")
+
     def load(self, path, skip_mismatch=False, reset_optimizer=False):
         """Restore the parameters, and the optimizer's state when a
         ``.pdopt`` exists and ``reset_optimizer`` is False; either package's
         files. Copies in place, so a captured training step stays valid.
         ``reset_optimizer=True`` drops every slot and the step count (fine
-        tuning from pretrained weights must not inherit stale moments)."""
+        tuning from pretrained weights must not inherit stale moments).
+        A pipeline step is retired first; the next ``train_batch`` builds
+        a new one."""
+        if self._pp_step is not None:
+            self._pp_step.release()
+            self._pp_step = self._train_step = None
         convert.load_paddle_tpu_state(self.network,
                                       framework.load(path + ".pdparams"))
         opt = self._optimizer

@@ -518,7 +518,8 @@ class GPTModel(nn.Module):
         self.set_generator(generator)
         self.batch_shard = 0  # this rank's block of the batch's rows
         for mod in self.modules():
-            if isinstance(mod, (GPTAttention, GPTMLP, GPTEmbeddings)):
+            if isinstance(mod, (GPTAttention, GPTMLP, GPTEmbeddings,
+                                MoEMLP)):
                 mod.annotate()
 
     def set_generator(self, generator):
@@ -645,6 +646,37 @@ class GPTForPretraining(nn.Module):
 
     def moe_aux_loss(self):
         return self.gpt.moe_aux_loss()
+
+    def pipeline_parts(self, pp):
+        """The stage slicing of a pipeline (``distributed.pp_spmd``,
+        ``fleet.HybridParallelEngine``): ``(embed, blocks, head)``, the
+        embeddings for the first stage, the block trunk to split into
+        ``pp`` equal slices, and ``ln_f`` plus the tied LM head for the
+        last. Refuses an MoE trunk (``moe_trunk``) and a layer count
+        ``pp`` does not divide (``stage_indivisible``), as the reference
+        does."""
+        from ..distributed.meta_parallel.pp_layers import refuse
+
+        L = len(self.gpt.blocks)
+        if self.gpt.cfg.moe_num_experts > 0:
+            raise refuse(
+                "gpt.pipeline_parts", "moe_trunk",
+                "MoE-bearing GPT configs do not support pipeline "
+                "parallelism (pp>1): use dp/ep/mp degrees instead",
+                n_layers=L, pp=pp,
+                moe_num_experts=self.gpt.cfg.moe_num_experts)
+        if pp < 1 or L % pp != 0:
+            raise refuse(
+                "gpt.pipeline_parts", "stage_indivisible",
+                f"GPT n_layer={L} is not divisible by pp={pp}: each "
+                f"pipeline stage must own an equal slice of the block "
+                f"trunk (choose n_layer a multiple of pp_degree)",
+                n_layers=L, pp=pp)
+
+        def head(x):
+            return self.lm_logits(self.gpt.ln_f(x))
+
+        return self.gpt.embeddings, list(self.gpt.blocks), head
 
 
 class GPTPretrainingCriterion(nn.Module):

@@ -72,6 +72,37 @@ def moe_capacity(seq_len, num_experts, top_k, capacity_factor):
                                 * int(top_k) / int(num_experts))))
 
 
+class _AllReduceSum(torch.autograd.Function):
+    """A sum over the ranks whose backward sums the gradient too: the
+    loss built on it is the same on every rank, and the gradients are
+    then averaged over the ranks, which gives each rank's inputs the
+    whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ...distributed import collective
+
+        ctx.group = group
+        out = x.clone()
+        collective.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...distributed import collective
+
+        g = g.clone()
+        collective.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _batch_sum(x, group):
+    """``x`` summed over ``group`` (itself without one)."""
+    if group is None or group.nranks <= 1:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
 def _one_hot(idx, n):
     """float32 one-hot of an integer tensor over ``n`` classes, by
     comparison (no range check, so no wait for the device)."""
@@ -92,7 +123,12 @@ class TopKGate(nn.Module):
     a model cast to bf16 casts it too (the reference's model cast does),
     and the gate then computes in float32 from the bf16 values. The
     model draws its values (``GPTModel``); built alone it is
-    Normal(0, ``init_std``) from torch's default generator."""
+    Normal(0, ``init_std``) from torch's default generator.
+
+    ``batch_group`` (set at expert parallelism): the ranks that split the
+    batch; the ``[E]`` sums behind the loss and the stats are all-reduced
+    over it (the probability sum with a backward that all-reduces too), so
+    both are the whole batch's, as in the reference."""
 
     def __init__(self, d_model, num_experts, top_k=2, capacity_factor=1.25,
                  init_std=0.02):
@@ -105,6 +141,7 @@ class TopKGate(nn.Module):
         self.init_std = float(init_std)
         self.weight = nn.Parameter(torch.empty(d_model, self.num_experts,
                                                dtype=torch.float32))
+        self.batch_group = None
         if self.weight.device.type != "meta":
             self.reset_parameters()
 
@@ -165,16 +202,19 @@ class TopKGate(nn.Module):
             dispatch = d if dispatch is None else dispatch + d
             combine = w * d if combine is None else combine + w * d
 
-        f_e = top_masks[0].mean(dim=(0, 1))
-        p_e = probs.mean(dim=(0, 1))
+        group = self.batch_group
+        n = 1 if group is None else group.nranks
+        f_e = _batch_sum(top_masks[0].sum(dim=(0, 1)), group) / (G * S * n)
+        p_e = _batch_sum(probs.sum(dim=(0, 1)), group) / (G * S * n)
         aux_loss = (f_e * p_e).sum() * float(E)
 
-        kept_total = dispatch.detach().sum(dim=(0, 1, 3))     # [E]
+        kept_total = _batch_sum(dispatch.detach().sum(dim=(0, 1, 3)), group)
         assigned = None
         for m in top_masks:
             s = m.sum(dim=(0, 1))
             assigned = s if assigned is None else assigned + s
+        assigned = _batch_sum(assigned, group)
         stats = {"expert_tokens": kept_total, "expert_assigned": assigned,
                  "dropped": (assigned - kept_total).sum(),
-                 "total": float(G * S * K), "capacity": C}
+                 "total": float(G * S * K * n), "capacity": C}
         return dispatch, combine, aux_loss, stats

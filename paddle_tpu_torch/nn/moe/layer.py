@@ -13,8 +13,22 @@ transpose). The data path is the reference's four einsums:
                                   scaled by the gate weights
 
 The reference computes them under XLA, outside any Pallas kernel, and so
-does the port, with ``torch.einsum``. One card holds every expert: the
-reference's expert-parallel exchange (``ep > 1``) is not ported.
+does the port, with ``torch.einsum``.
+
+Expert parallelism: ``ep`` is read from the fleet mesh (its expert
+dimension, ``hybrid_configs["ep_degree"]``) unless given; ``num_experts``
+must divide by it. ``fleet.distributed_model`` (``spmd.shard_model``) keeps
+this rank's ``E/ep`` experts of every bank (``ep_shard``) and sets
+``ep_group``. The batch is split over dp x ep (``spmd.shard_batch``), the
+gate routes this rank's groups, and the ``[E, G, C, H]`` dispatched slots
+go to the experts' ranks with one all-to-all over the ep group
+(``collective.all_to_all_axis``: each rank receives ``[E/ep, ep G, C, H]``)
+and come back with one more after the expert FFN; the backward is the two
+exchanges reversed. The gate's load-balancing loss and routing counts are
+taken over the whole batch, as the reference's are: its ``[E]`` sums are
+all-reduced over the ranks that split the batch before the product
+(``TopKGate.batch_group``). Gradients: the gate and every dense parameter
+are averaged over dp x ep, the expert banks over dp (``parallel``).
 """
 from __future__ import annotations
 
@@ -22,9 +36,35 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...distributed import collective
 from .gate import TopKGate, validate_moe_config
 
 __all__ = ["MoEMLP"]
+
+
+def _mesh_ep():
+    """The expert degree of the fleet mesh (1 without one)."""
+    from ...distributed import fleet
+
+    hcg = fleet.get_hybrid_communicate_group()
+    return hcg.get_expert_parallel_world_size() if hcg is not None else 1
+
+
+class _ExpertAllToAll(torch.autograd.Function):
+    """``all_to_all_axis`` over the ep group; the backward is the inverse
+    exchange."""
+
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return collective.all_to_all_axis(x.contiguous(), group, split_dim,
+                                          concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_dim, concat_dim = ctx.args
+        return collective.all_to_all_axis(g.contiguous(), group, concat_dim,
+                                          split_dim), None, None, None
 
 
 def _capturing(x):
@@ -51,15 +91,13 @@ class MoEMLP(nn.Module):
 
     def __init__(self, d_model, d_ff, num_experts, top_k=2,
                  capacity_factor=1.25, dropout=0.0, init_std=0.02,
-                 out_init_std=None, ep=1):
+                 out_init_std=None, ep=None):
         super().__init__()
+        ep = _mesh_ep() if ep is None else int(ep)
         validate_moe_config(num_experts, top_k, capacity_factor, ep=ep,
                             op="MoEMLP")
-        if int(ep) > 1:
-            raise NotImplementedError(
-                f"ep={ep}: expert parallelism (the expert all-to-all over "
-                "an 'ep' mesh axis) is not ported; ROADMAP.md queue 1 "
-                "item 7 holds it. One card holds every expert at ep=1")
+        self.ep = ep
+        self.ep_group = None  # set by spmd.shard_model at ep > 1
         E = self.num_experts = int(num_experts)
         self.init_std = float(init_std)
         self.out_init_std = float(out_init_std or init_std)
@@ -76,11 +114,18 @@ class MoEMLP(nn.Module):
         self.b1 = bank(E, d_ff)
         self.w2 = bank(E, d_ff, d_model)
         self.b2 = bank(E, d_model)
+        self.annotate()
         self.dropout = nn.Dropout(dropout) if dropout else None
         if self.w1.device.type != "meta":  # GPTModel draws them itself
             self.reset_parameters()
         self.aux_loss = None
         self.last_stats = None
+
+    def annotate(self):
+        """Mark the banks ``("ep", None, ...)`` (a model built on the meta
+        device calls it again once its parameters are real)."""
+        for p in (self.w1, self.b1, self.w2, self.b2):
+            p.sharding_spec = ("ep",) + (None,) * (p.dim() - 1)
 
     @torch.no_grad()
     def reset_parameters(self, generator=None):
@@ -102,11 +147,16 @@ class MoEMLP(nn.Module):
         dispatch = dispatch.to(x.dtype)
         combine = combine.to(x.dtype)
         h = torch.einsum("gsec,gsh->egch", dispatch, x)
+        ep = self.ep_group
+        if ep is not None:  # [E, G, C, H] -> this rank's [E/ep, ep G, C, H]
+            h = _ExpertAllToAll.apply(h, ep, 0, 1)
         h = torch.einsum("egch,ehf->egcf", h, self.w1) \
             + self.b1[:, None, None]
         h = F.gelu(h, approximate="tanh")
         h = torch.einsum("egcf,efh->egch", h, self.w2) \
             + self.b2[:, None, None]
+        if ep is not None:
+            h = _ExpertAllToAll.apply(h, ep, 1, 0)
         y = torch.einsum("gsec,egch->gsh", combine, h)
         if self.dropout is not None:
             y = self.dropout(y) if dropout is None or not self.training \

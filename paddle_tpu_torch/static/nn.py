@@ -13,9 +13,18 @@ runs the block the predicate picks, under autograd, so gradients flow
 through the branch taken and through every iteration of a loop. The
 choice is made on the host: such a Program runs uncaptured on the card.
 
-The static collectives (``c_allreduce_*``, ``c_broadcast``, ``c_concat``,
-``c_split``) come with the distributed slice (ROADMAP queue 1 item 7a) and
-raise.
+The static collectives (``c_allreduce_sum`` / ``max`` / ``min`` / ``prod``,
+``c_broadcast``, ``c_concat``, ``c_split``) are each one recorded call
+(``framework.static_leaf``) over the group resolved when it was recorded
+(default: the world), run by the Executor with the port's ``collective``
+module. Each rank holds its own shard, the reference's row block of the
+group's global array: ``c_allreduce_*`` give every rank the reduction over
+the group (``prod`` multiplies, as the reference's ``all_gather(...)
+.prod`` does), ``c_broadcast`` gives every rank ``root``'s shard (``root``
+a global rank of the group or an in-group index, else ``ValueError``),
+``c_concat`` all-gathers along the last dimension and ``c_split`` keeps
+this rank's slice of it (a last dimension the group size does not divide
+raises). A group of one rank is the identity.
 """
 from __future__ import annotations
 
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as TF
 from torch.utils import _pytree as pytree
 
+from .. import framework
 from ..nn import functional as F
 from ..nn.initializer import Constant, ParamAttr, XavierUniform
 from . import program as prog_mod
@@ -190,20 +200,91 @@ def _as_list(fn):
 
 # -- static collectives -------------------------------------------------------
 
-def _collective(name):
-    def op(*args, **kwargs):
-        raise NotImplementedError(
-            f"static.nn.{name}: the static-graph collectives come with the "
-            "port's distributed slice (ROADMAP queue 1 item 7a)")
+def _c_root(group, root):
+    local = group.get_group_rank(root) if root in group.ranks else root
+    if not 0 <= local < group.nranks:
+        raise ValueError(f"c_broadcast root {root} is neither a member of "
+                         f"{group.ranks} nor a valid in-group index")
+    return local
 
-    op.__name__ = name
+
+def _c_shape(x, kind, group, root=0):
+    shape = list(x.shape)
+    n = group.nranks
+    if kind == "concat":
+        shape[-1] *= n
+    elif kind == "split":
+        if shape[-1] % n:
+            raise ValueError(f"c_split: last dim {shape[-1]} not divisible "
+                             f"by group size {n}")
+        shape[-1] //= n
+    elif kind == "broadcast":
+        _c_root(group, root)
+    return shape
+
+
+def _c_meta(x, kind, group, root=0):
+    return torch.empty(_c_shape(x, kind, group, root), dtype=x.dtype,
+                       device="meta")
+
+
+@framework.static_leaf(_c_meta)
+def _c_collective(x, kind, group, root=0):
+    """One static collective on this rank's shard ``x``."""
+    from ..distributed import collective as coll
+
+    _c_shape(x, kind, group, root)
+    if group.nranks == 1:
+        return x.clone()
+    if kind in ("sum", "max", "min"):
+        op = {"sum": coll.ReduceOp.SUM, "max": coll.ReduceOp.MAX,
+              "min": coll.ReduceOp.MIN}[kind]
+        out = x.clone()
+        coll.all_reduce(out, op, group=group)
+        return out
+    if kind == "prod":
+        return coll.all_gather_axis(x.unsqueeze(0), group, 0).prod(dim=0)
+    if kind == "broadcast":
+        out = x.clone()
+        coll.broadcast(out, src=_c_root(group, root), group=group)
+        return out
+    if kind == "concat":
+        return coll.all_gather_axis(x, group, x.dim() - 1)
+    width = x.shape[-1] // group.nranks
+    return x.narrow(-1, group.rank * width, width).clone()
+
+
+def _static_collective(x, kind, group, root=0):
+    from ..distributed import collective as coll
+
+    group = group if group is not None else coll.get_group(0)
+    return _c_collective(x, kind, group, root)
+
+
+def _c_allreduce(kind):
+    def op(x, group=None, use_calc_stream=True):
+        return _static_collective(x, kind, group)
+
+    op.__name__ = f"c_allreduce_{kind}"
     return op
 
 
-c_allreduce_sum = _collective("c_allreduce_sum")
-c_allreduce_max = _collective("c_allreduce_max")
-c_allreduce_min = _collective("c_allreduce_min")
-c_allreduce_prod = _collective("c_allreduce_prod")
-c_broadcast = _collective("c_broadcast")
-c_concat = _collective("c_concat")
-c_split = _collective("c_split")
+c_allreduce_sum = _c_allreduce("sum")
+c_allreduce_max = _c_allreduce("max")
+c_allreduce_min = _c_allreduce("min")
+c_allreduce_prod = _c_allreduce("prod")
+
+
+def c_broadcast(x, root=0, group=None, use_calc_stream=True):
+    """Every rank's shard becomes ``root``'s (module docstring)."""
+    return _static_collective(x, "broadcast", group, root)
+
+
+def c_concat(x, group=None, use_calc_stream=True):
+    """The shards all-gathered along the last dimension."""
+    return _static_collective(x, "concat", group)
+
+
+def c_split(x, rank=None, group=None, use_calc_stream=True):
+    """This rank's slice of the last dimension (it must divide evenly)."""
+    return _static_collective(x, "split", group)

@@ -1574,3 +1574,86 @@ def test_supervised_replica_kill_replays_on_the_card(cuda):
     assert got == want
     assert registry.counters("serving")["replica_restarts"] == c0 + 1
     assert k4 > 0
+
+
+# ------------------------------------------- pipeline over gloo (pp = 2) --
+def _rank_pp_losses(device):
+    import torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.pp_spmd import PipelineSpmdStep
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.optimizer import AdamW
+
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": 2}
+    s.pipeline_configs = {"accumulate_steps": 2}
+    fleet.init(is_collective=True, strategy=s)
+    cfg = gpt.GPTConfig.preset("gpt2-tiny", n_layer=2, vocab_size=64,
+                               seq_len=16, dropout=0.0, n_head=2, d_model=32)
+    model = gpt.GPTForPretraining(gpt.GPTModel(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(5),
+        attn_kernel="torch")).to(device)
+    opt = AdamW(1e-3, parameters=model.parameters())
+    step = PipelineSpmdStep(model, opt,
+                            criterion=gpt.GPTPretrainingCriterion())
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, 64, (8, 16), generator=g)
+    labels = torch.roll(toks, -1, 1)
+    return [float(step.train_batch([toks, labels])) for _ in range(4)]
+
+
+def test_pp2_step_on_the_card_equals_the_cpu_world(cuda, tmp_path):
+    """A PipelineSpmdStep of gpt2-tiny (float32, plain attention) on two
+    gloo ranks on cuda:0 trains as the same step on two CPU ranks."""
+    from paddle_tpu_torch.testing.world import World
+
+    got = {}
+    for device in ("cpu", "cuda:0"):
+        root = tmp_path / device.replace(":", "")
+        root.mkdir()
+        world = World(2, root, timeout=120, device=device, backend="gloo")
+        try:
+            got[device] = world.run(_rank_pp_losses, device)
+        finally:
+            world.close()
+    for r in range(2):
+        for a, b in zip(got["cuda:0"][r], got["cpu"][r]):
+            assert abs(a - b) <= 1e-5, (got["cuda:0"], got["cpu"])
+
+
+def _rank_p2p_on_the_card():
+    import torch
+    from paddle_tpu_torch.distributed import collective, get_rank
+
+    dev = torch.device("cuda", 0)
+    me = get_rank()
+    x = torch.arange(1000, dtype=torch.float32, device=dev) + 1000 * me
+    g = collective.get_group(0)
+    if me == 0:
+        collective.send(x, dst=1, group=g)
+        got_send = None
+    else:
+        got_send = torch.empty_like(x)
+        collective.recv(got_send, src=0, group=g)
+    perm = collective.ppermute(x, g, [(0, 1), (1, 0)])
+    staged = collective._counters.get("host_staged.p2p", 0)
+    return (None if got_send is None else got_send.cpu().tolist(),
+            perm.cpu().tolist(), str(perm.device), staged)
+
+
+def test_send_and_ppermute_of_cuda_tensors_over_gloo_move_the_right_bytes(
+        cuda, tmp_path):
+    """Point to point of CUDA tensors over a gloo group: send / recv and
+    ppermute deliver the sender's values on the card, through host
+    staging (gloo's send and receive take the data pointer as it is)."""
+    from paddle_tpu_torch.testing.world import World
+
+    world = World(2, tmp_path, timeout=120, device="cuda:0", backend="gloo")
+    try:
+        got = world.run(_rank_p2p_on_the_card)
+    finally:
+        world.close()
+    base = [float(i) for i in range(1000)]
+    assert got[1][0] == base
+    assert got[0][1] == [v + 1000 for v in base] and got[1][1] == base
+    assert all(r[2] == "cuda:0" and r[3] == 2 for r in got)

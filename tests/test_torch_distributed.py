@@ -386,14 +386,35 @@ def test_hybrid_group_coordinates_and_groups_match_the_reference(
         assert got[r]["worker"] == (r, n)
 
 
-def test_pipeline_and_expert_degrees_raise_naming_item_7():
+def _rank_pp_ep():
     from paddle_tpu_torch.distributed import fleet
 
-    for key in ("pp_degree", "ep_degree"):
-        s = fleet.DistributedStrategy()
-        s.hybrid_configs = {**s.hybrid_configs, key: 2}
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fleet.init(is_collective=True, strategy=s)
+    s = fleet.DistributedStrategy()
+    s.hybrid_configs = {"pp_degree": 2, "ep_degree": 2}
+    fleet.init(is_collective=True, strategy=s)
+    h = fleet.get_hybrid_communicate_group()
+    return {"coord": (h.get_stage_id(), h.get_expert_parallel_rank()),
+            "pp": h.get_pipe_parallel_group().ranks,
+            "ep": h.get_expert_parallel_group().ranks,
+            "batch": h.get_batch_group().ranks,
+            "mode": h.get_parallel_mode()}
+
+
+def test_pipeline_and_expert_degrees_build_their_groups(worlds):
+    # pp_degree and ep_degree above 1 were refused; now fleet.init builds
+    # the pipe and expert groups as the reference's 5-axis topology lays
+    # them out (the expert axis between sharding and model)
+    names = ["data", "pipe", "sharding", "expert", "model"]
+    topo = jtopo.CommunicateTopology(names, [1, 2, 1, 2, 1])
+    got = worlds(4).run(_rank_pp_ep)
+    for r in range(4):
+        c = topo.get_coord(r)
+        assert got[r]["coord"] == (c[1], c[3])
+        for ax, name in (("pp", "pipe"), ("ep", "expert")):
+            assert got[r][ax] == [g for g in topo.get_comm_list(name)
+                                  if r in g][0]
+        assert got[r]["batch"] == got[r]["ep"]  # dp 1: the batch over ep
+        assert got[r]["mode"] == "hybrid_parallel"
 
 
 # --------------------------------------------------------------- store ----

@@ -136,9 +136,20 @@ def test_each_refusal_reason(kwargs, reason):
                                   moe_top_k=k, moe_capacity_factor=cf)
 
 
-def test_expert_parallel_is_refused_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        tmoe.MoEMLP(D, FF, 4, ep=2)
+def test_expert_parallel_layer_builds_with_annotated_banks():
+    # ep > 1 is no longer refused: the layer keeps the degree, marks its
+    # banks for fleet.distributed_model to slice over the ep group
+    # (tests/test_torch_moe_ep.py drives the sliced layer), and until then
+    # computes every expert itself, as the ep = 1 layer does
+    torch.manual_seed(0)
+    two = tmoe.MoEMLP(D, FF, 4, ep=2)
+    one = tmoe.MoEMLP(D, FF, 4, ep=1)
+    one.load_state_dict(two.state_dict())
+    assert two.ep == 2 and two.ep_group is None
+    assert all(p.sharding_spec[0] == "ep"
+               for p in (two.w1, two.b1, two.w2, two.b2))
+    x = torch.randn(2, 6, D)
+    torch.testing.assert_close(two(x), one(x), rtol=0, atol=0)
 
 
 def test_capacity_matches_reference():

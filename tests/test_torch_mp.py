@@ -413,6 +413,43 @@ def test_gpt_dp2_mp2_matches_the_reference_spmd_leg(worlds, reference_leg):
     assert gap > 100 * TOL["atol"], gap
 
 
+def _rank_hapi_gpt(init):
+    """The same leg through ``hapi.Model`` in a Paddle user's order: the
+    optimizer through ``fleet.distributed_optimizer``, then ``prepare``
+    and ``train_batch`` (which shards the network on its first batch)."""
+    from paddle_tpu_torch import convert, hapi
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.optimizer import AdamW
+
+    _fleet(DP, MP)
+    net = gpt.GPTForPretraining(gpt.GPTModel(
+        gpt.GPTConfig.preset("gpt2-tiny", **GPT_CFG), device="cpu"))
+    convert.load_paddle_tpu_state(net, init)
+    opt = fleet.distributed_optimizer(
+        AdamW(1e-3, parameters=net.parameters()))
+    model = hapi.Model(net)
+    model.prepare(optimizer=opt, loss=gpt.GPTPretrainingCriterion())
+    toks, labels = _batch()
+    losses = [model.train_batch([toks], [labels])[0] for _ in range(STEPS)]
+    heads = {blk.attn.qkv_proj.weight.shape[0] // (3 * blk.attn.head_dim)
+             for blk in net.gpt.blocks}
+    merged = convert.merged_state_to_paddle_tpu(net)
+    return losses, {k: v.numpy() for k, v in merged.items()}, sorted(heads)
+
+
+def test_hapi_dp2_mp2_after_distributed_optimizer_matches_the_reference(
+        worlds, reference_leg):
+    init, losses, final = reference_leg
+    for r_losses, merged, heads in worlds(DP * MP).run(_rank_hapi_gpt,
+                                                       init):
+        assert heads == [GPT_CFG["n_head"] // MP]
+        np.testing.assert_allclose(r_losses, losses, **TOL)
+        assert sorted(merged) == sorted(final)
+        for k, v in final.items():
+            np.testing.assert_allclose(merged[k], v, **TOL, err_msg=k)
+
+
 DROP_CFG = dict(GPT_CFG, dropout=0.1, attn_dropout=0.1)
 
 
